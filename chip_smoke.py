@@ -10,7 +10,13 @@ against its plain PyTorch version at the serving path's full-width shapes
 B=1, float32), times kernel, plain version and, where one PyTorch call
 computes the same function, that call, then drives the GM-VAE serving path
 (`TransferServer`, random weights from a seed) with 130 mixed requests and
-checks the responses against the plain path. Every phase prints one JSON
+checks the responses against the plain path. Then the training kernels
+(encoder, sub-decoders, decoder + cross-entropy; forward and backward) are
+held, values and every gradient, against autograd of their plain versions
+at the training shapes (B=128), and the GM-VAE `Trainer` takes supervised
+B=32 and unsupervised B=128 steps and an evaluation pass at full width on
+random in-schema batches, its first step's loss and gradients held against
+the plain path on the card. Every phase prints one JSON
 line; the kernels line follows, then the card's name and power limit as
 nvidia-smi reports them, then the final status line. Any failed check
 exits non-zero without the status line. Needs one CUDA device; imports
@@ -18,6 +24,8 @@ nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import statistics
@@ -32,6 +40,16 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL_ENCODER = 1e-4      # finals after 100 f32 steps, two summation orders
 TOL_NEAR_TIE = 1e-4     # a parting argmax must be this close to the max
+# training kernels against autograd of their plain versions, float32 with
+# other summation orders: outputs to an absolute bound; each gradient
+# tensor to a bound relative to its largest entry, or to 1e-3 where that
+# entry is smaller (a gradient that is float32 noise around an exact 0,
+# such as the sub-decoders' output biases under their time-axis
+# log-softmax, has no scale of its own). A weight gradient sums T*B =
+# 12,800 products.
+TOL_TRAIN_OUT = 1e-4
+TOL_TRAIN_GRAD_REL = 1e-4
+GRAD_SCALE_FLOOR = 1e-3
 SEED = 0
 
 
@@ -42,6 +60,41 @@ def emit(obj) -> None:
 def fail(msg: str) -> int:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+@contextlib.contextmanager
+def plain_path(cuda_gru, cuda_decoder):
+    """Route the training path's three kernel wrappers to their plain
+    versions while the block runs, on CUDA tensors as well: the reference
+    the kernel path is held to on the same card."""
+    saved = (cuda_gru.stacked_gru_embed_finals,
+             cuda_gru.stacked_gru_embed_seq, cuda_decoder.decoder_teacher_nll)
+    cuda_gru.stacked_gru_embed_finals = cuda_gru.stacked_gru_embed_finals_plain
+    cuda_gru.stacked_gru_embed_seq = cuda_gru.stacked_gru_embed_seq_plain
+    cuda_decoder.decoder_teacher_nll = cuda_decoder.decoder_teacher_nll_plain
+    try:
+        yield
+    finally:
+        (cuda_gru.stacked_gru_embed_finals, cuda_gru.stacked_gru_embed_seq,
+         cuda_decoder.decoder_teacher_nll) = saved
+
+
+def grad_errors(got, want):
+    """(largest absolute error, largest error relative to each tensor's
+    largest entry, floored at GRAD_SCALE_FLOOR) over pairs of gradient
+    tensors; None counts as 0."""
+    import torch
+    abs_err, rel_err = 0.0, 0.0
+    for a, b in zip(got, want):
+        if a is None and b is None:
+            continue
+        a = torch.zeros_like(b) if a is None else a
+        b = torch.zeros_like(a) if b is None else b
+        e = float((a - b).abs().max()) if a.numel() else 0.0
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        abs_err = max(abs_err, e)
+        rel_err = max(rel_err, e / max(scale, GRAD_SCALE_FLOOR))
+    return abs_err, rel_err
 
 
 def main() -> int:
@@ -56,12 +109,20 @@ def main() -> int:
     from music_fader_nets_tpu_torch.models.vae import (
         _global_view, reg_vae_encode,
     )
-    from music_fader_nets_tpu_torch.ops import _build, cuda_decode, cuda_gru
+    from music_fader_nets_tpu_torch.data.datasets import (
+        VGMIDIDataset, YamahaDataset,
+    )
+    from music_fader_nets_tpu_torch.ops import (
+        _build, cuda_decode, cuda_decoder, cuda_gru,
+    )
     from music_fader_nets_tpu_torch.ops.gru import (
         direction_tokens, gru_init, stack_directions, vocab_pad,
     )
     from music_fader_nets_tpu_torch.ops.sampling import gumbel_rows
     from music_fader_nets_tpu_torch.serve.server import TransferServer
+    from music_fader_nets_tpu_torch.train.objectives import gmm_loss
+    from music_fader_nets_tpu_torch.train.profile import random_corpus
+    from music_fader_nets_tpu_torch.train.trainer import Trainer
     from music_fader_nets_tpu_torch.transfer.arousal import (
         compute_shift_vectors,
     )
@@ -336,12 +397,294 @@ def main() -> int:
         return fail(f"{len(bad)} bad responses, first: {bad[0]}")
     if stats["serving_path"] != "kernel":
         return fail(f"serving_path is {stats['serving_path']!r}")
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in kernels):
         return fail(f"a kernel of the serving path never launched: "
                     f"{launches}")
     if checked == 0 or not z_err <= TOL_ENCODER:
         return fail(f"served z vs plain path: {z_err} (rows {checked})")
 
+    serving_launches = launches
+
+    # ------------------------------------------------- training kernels
+    # Each kernel pair (training forward with the gate stash, backward) is
+    # driven through its autograd Function and held, output and every
+    # gradient, against autograd of its plain version on the same inputs
+    # and output cotangent. Forward and backward are timed apart: the
+    # backward as torch.autograd.grad over a retained graph.
+    def fwd_bwd(fn, ids, floats, cot):
+        ts = [t.detach().clone().requires_grad_(True) for t in floats]
+        out = fn(ids, *ts)
+        grads = torch.autograd.grad(out, ts, cot, retain_graph=True)
+        return ts, out, grads
+
+    def time_fwd_bwd(fn, ids, ts, cot, reps, warm=2):
+        f_ms = time_ms(lambda: fn(ids, *ts), reps, warm)
+        out = fn(ids, *ts)
+        b_ms = time_ms(lambda: torch.autograd.grad(out, ts, cot,
+                                                   retain_graph=True),
+                       reps, warm)
+        return f_ms, b_ms
+
+    def train_kernel_phase(phase, names, srcs, replaces, fn, plain, ids,
+                           floats, cot, shape, flops, lib=None):
+        """names/srcs/replaces: (forward, backward). flops: (forward,
+        backward). lib: (forward callable, its leaves, its cotangent) or
+        None."""
+        ts, out, grads = fwd_bwd(fn, ids, floats, cot)
+        _, out_p, grads_p = fwd_bwd(plain, ids, floats, cot)
+        torch.cuda.synchronize()
+        out_err = float((out - out_p).detach().abs().max())
+        g_abs, g_rel = grad_errors(grads, grads_p)
+        k_f, k_b = time_fwd_bwd(fn, ids, ts, cot, 10)
+        p_ts = [t.detach().clone().requires_grad_(True) for t in floats]
+        p_f, p_b = time_fwd_bwd(plain, ids, p_ts, cot, 3, warm=1)
+        l_f = l_b = lib_err = None
+        if lib is not None:
+            lib_fn, lib_leaves, lib_cot = lib
+            with torch.no_grad():
+                lib_err = float((lib_fn() - out).abs().max())
+            l_f = time_ms(lib_fn, 10)
+            lib_out = lib_fn()
+            l_b = time_ms(lambda: torch.autograd.grad(
+                lib_out, lib_leaves, lib_cot, retain_graph=True), 10)
+        in_bytes = nbytes(ids, *floats)
+        f_bound, f_by = bound(flops[0], in_bytes + nbytes(out))
+        b_bound, b_by = bound(flops[1], in_bytes + nbytes(cot, *grads))
+        emit({"phase": phase, "shape": shape, "out_max_abs_err": out_err,
+              "tol_out": TOL_TRAIN_OUT, "grad_max_abs_err": g_abs,
+              "grad_max_rel_err": g_rel, "tol_grad_rel": TOL_TRAIN_GRAD_REL,
+              "fwd_ms": k_f, "bwd_ms": k_b, "fwd_bwd_ms": k_f + k_b,
+              "plain_fwd_ms": p_f, "plain_bwd_ms": p_b,
+              "library_fwd_ms": l_f, "library_bwd_ms": l_b,
+              "library_max_abs_err": lib_err, "bound_fwd_ms": f_bound,
+              "bound_bwd_ms": b_bound})
+        if not (out_err <= TOL_TRAIN_OUT and g_rel <= TOL_TRAIN_GRAD_REL):
+            return fail(f"{phase}: kernel vs plain output {out_err}, "
+                        f"gradients {g_rel} (relative)")
+        for i, (nm, src, rep, err, ms_, pms, lms, bd, by) in enumerate((
+                (names[0], srcs[0], replaces[0], out_err, k_f, p_f, l_f,
+                 f_bound, f_by),
+                (names[1], srcs[1], replaces[1], g_abs, k_b, p_b, l_b,
+                 b_bound, b_by))):
+            kernels[nm] = {
+                "name": nm, "route": "cuda", "source": src,
+                "replaces": rep, "max_abs_err": err, "ms": ms_,
+                "plain_ms": pms, "bound_ms": bd, "bound_by": by,
+                "library_ms": lms}
+        return 0
+
+    del resps, futs
+    TB = cfg.batch_size                                   # 128
+    csrc = "music_fader_nets_tpu_torch/csrc/"
+    pg = "music_fader_nets_tpu/ops/pallas_gru.py:"
+
+    # encoder: L=4 directions, T=100, B=128, Vp=384 (kernels 3-train, 4)
+    dirs = [gru_init(gen, V, H) for _ in range(L)]
+    w_ih_p, b_ih, w_hh, b_hh = (t.to(dev) for t in stack_directions(dirs))
+    tokens = torch.from_numpy(
+        rng.integers(0, V, size=(TB, T)).astype(np.int32)).to(dev)
+    tok_lt = direction_tokens(tokens, [False, True, False, True])
+    h0 = (torch.randn((L, TB, H), generator=gen) * 0.1).to(dev)
+    cot = torch.randn((L, TB, H), generator=gen).to(dev)
+    grus = []
+    for s in range(2):
+        g = torch.nn.GRU(V, H, batch_first=True, bidirectional=True).to(dev)
+        with torch.no_grad():
+            for d, suf in ((2 * s, ""), (2 * s + 1, "_reverse")):
+                getattr(g, "weight_ih_l0" + suf).copy_(w_ih_p[d, :V].t())
+                getattr(g, "weight_hh_l0" + suf).copy_(w_hh[d].t())
+                getattr(g, "bias_ih_l0" + suf).copy_(b_ih[d])
+                getattr(g, "bias_hh_l0" + suf).copy_(b_hh[d])
+        grus.append(g)
+    x_oh = torch.nn.functional.one_hot(tokens.long(), V).float()
+    h0_lib = h0.clone().requires_grad_(True)
+
+    def cudnn_enc():
+        return torch.cat([g_(x_oh, h0_lib[2 * i:2 * i + 2])[1]
+                          for i, g_ in enumerate(grus)])
+
+    enc_leaves = [p_ for g_ in grus for p_ in g_.parameters()] + [h0_lib]
+    enc_f = 2.0 * L * T * TB * H * G
+    rc = train_kernel_phase(
+        "train_encoder_kernels", ("embed_gru_train", "embed_gru_bwd"),
+        (csrc + "embed_gru.cu", csrc + "embed_gru_bwd.cu"),
+        (pg + "428", pg + "536"), cuda_gru.stacked_gru_embed_finals,
+        cuda_gru.stacked_gru_embed_finals_plain, tok_lt,
+        [w_ih_p, b_ih, w_hh, b_hh, h0], cot,
+        {"L": L, "T": T, "B": TB, "H": H, "Vp": Vp},
+        (enc_f, 2 * enc_f), lib=(cudnn_enc, enc_leaves, cot))
+    if rc:
+        return rc
+    del grus, x_oh, dirs
+
+    # sub-decoders: L=2 (rhythm, note), T=16, B=128, classes padded to
+    # dm=16 rows, prez = z @ w_z + b_ih (kernels 5, 6)
+    A, C = cfg.attr_len, max(cfg.rhythm_dims, cfg.note_dims)
+    s_gru = [gru_init(gen, C + Z, H) for _ in range(2)]
+    w_emb = torch.stack([p_["w_ih"][:C] for p_ in s_gru]).to(dev)
+    w_z = torch.stack([p_["w_ih"][C:] for p_ in s_gru]).to(dev)
+    s_bih = torch.stack([p_["b_ih"] for p_ in s_gru]).to(dev)
+    s_whh = torch.stack([p_["w_hh"] for p_ in s_gru]).to(dev)
+    s_bhh = torch.stack([p_["b_hh"] for p_ in s_gru]).to(dev)
+    zs = torch.randn((2, TB, Z), generator=gen).to(dev)
+    prez = torch.bmm(zs, w_z) + s_bih[:, None, :]
+    s_h0 = (torch.randn((2, TB, H), generator=gen) * 0.5).to(dev)
+    cls_lt = torch.from_numpy(np.stack([
+        rng.integers(0, cfg.rhythm_dims, (A, TB)),
+        rng.integers(0, cfg.note_dims, (A, TB))]).astype(np.int32)).to(dev)
+    s_cot = torch.randn((2, A, TB, H), generator=gen).to(dev)
+    sub_lib = []
+    for i in range(2):
+        g = torch.nn.GRU(C + Z, H, batch_first=True).to(dev)
+        with torch.no_grad():
+            g.weight_ih_l0.copy_(torch.cat([w_emb[i], w_z[i]]).t())
+            g.weight_hh_l0.copy_(s_whh[i].t())
+            g.bias_ih_l0.copy_(s_bih[i])
+            g.bias_hh_l0.copy_(s_bhh[i])
+        sub_lib.append(g)
+    sub_x = [torch.cat([torch.nn.functional.one_hot(
+        cls_lt[i].t().long(), C).float(),
+        zs[i][:, None, :].expand(TB, A, Z)], dim=-1) for i in range(2)]
+    s_h0_lib = s_h0.clone().requires_grad_(True)
+
+    def cudnn_sub():
+        return torch.stack([g_(sub_x[i], s_h0_lib[i:i + 1])[0].transpose(
+            0, 1) for i, g_ in enumerate(sub_lib)])
+
+    sub_leaves = [p_ for g_ in sub_lib for p_ in g_.parameters()] + [
+        s_h0_lib]
+    sub_f = 2.0 * 2 * A * TB * H * G
+    rc = train_kernel_phase(
+        "train_subdecoder_kernels", ("embed_seq", "embed_seq_bwd"),
+        (csrc + "embed_gru.cu", csrc + "embed_gru_bwd.cu"),
+        (pg + "779", pg + "888"), cuda_gru.stacked_gru_embed_seq,
+        cuda_gru.stacked_gru_embed_seq_plain, cls_lt,
+        [w_emb, prez, s_whh, s_bhh, s_h0], s_cot,
+        {"L": 2, "T": A, "B": TB, "H": H, "C": C},
+        (sub_f, 2 * sub_f), lib=(cudnn_sub, sub_leaves, s_cot))
+    if rc:
+        return rc
+    del sub_lib, sub_x
+
+    # decoder + cross-entropy: T=100, B=128, Vp=384 (kernels 9, 10)
+    d_tgt = torch.from_numpy(
+        rng.integers(0, V, size=(T, TB)).astype(np.int32)).to(dev)
+    d_tok = torch.cat([torch.full((1, TB), V - 1, dtype=torch.int32,
+                                  device=dev), d_tgt[:-1]])
+    g1, g2 = gview["grucell_g"], gview["grucell_g_2"]
+    d_wtok = torch.nn.functional.pad(g1["w_ih"][:V], (0, 0, 0, Vp - V))
+    d_prez = (torch.randn((TB, Zt), generator=gen).to(dev)
+              @ g1["w_ih"][V:] + g1["b_ih"])
+    d_h10 = (torch.randn((TB, H), generator=gen) * 0.5).to(dev)
+    d_wout = torch.nn.functional.pad(gview["linear_out_g"]["w"],
+                                     (0, Vp - V))
+    d_bout = torch.nn.functional.pad(gview["linear_out_g"]["b"], (0, Vp - V),
+                                     value=cuda_decoder.PAD_LOGIT)
+    d_cot = torch.full((T, TB), 1.0 / (T * TB), device=dev)
+
+    def with_tgt(f):
+        return lambda ids, *fl: f(ids, d_tgt, *fl)
+
+    dec_f = 2.0 * T * TB * (3 * H * G + H * Vp)
+    rc = train_kernel_phase(
+        "train_decoder_ce_kernels", ("decoder_ce", "decoder_ce_bwd"),
+        (csrc + "decoder_ce.cu", csrc + "decoder_ce_bwd.cu"),
+        (pg + "1482", pg + "1627"),
+        with_tgt(cuda_decoder.decoder_teacher_nll),
+        with_tgt(cuda_decoder.decoder_teacher_nll_plain), d_tok,
+        [d_wtok, d_prez, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
+         g2["w_hh"], g2["b_hh"], d_h10, d_wout, d_bout], d_cot,
+        {"T": T, "B": TB, "H": H, "Vp": Vp},
+        (dec_f, 2.0 * T * TB * (6 * H * G + 3 * H * Vp)))
+    if rc:
+        return rc
+
+    # ------------------------------------------------------- train step
+    # The port's Trainer at ModelConfig() widths on random in-schema
+    # batches: the dual-corpus loop's supervised (VGMIDI-shaped, B=32) and
+    # unsupervised (Yamaha-shaped, B=128) phases and an evaluation pass.
+    # First, its first step's loss and gradients on the kernel path
+    # against the plain path on this card, same batch and noise.
+    tr = Trainer(cfg, init_reg_gmvae, {
+        "default": gmm_loss,
+        "supervised": functools.partial(gmm_loss, is_supervised=True)},
+        seed=SEED, params=params, device="cuda")
+    SB = 32
+    yam = YamahaDataset(*random_corpus(cfg, 10 * TB, SEED),
+                        mode="train").arrays()            # 8 batches
+    vg = VGMIDIDataset(*random_corpus(cfg, 7 * SB, SEED + 1,
+                                      supervised=True),
+                       mode="train").arrays()             # 6 batches
+    first = {k: torch.from_numpy(v[:TB]).to(dev) for k, v in yam.items()}
+    eps = tuple(e.to(dev) for e in tr.noise_fn(0, TB, Z))
+    leaves = tr.optimizer.param_groups[0]["params"]        # Adam's leaves
+
+    def loss_grads():
+        loss, _ = gmm_loss(tr.fast_params, eps, first, 0, cfg)
+        return loss.detach(), torch.autograd.grad(loss, leaves,
+                                                  allow_unused=True)
+
+    loss_k, grads_k = loss_grads()
+    paths = (cuda_gru.LAST_TRAIN_PATH, cuda_decoder.LAST_TRAIN_PATH)
+    with plain_path(cuda_gru, cuda_decoder):
+        loss_p, grads_p = loss_grads()
+    torch.cuda.synchronize()
+    step_loss_err = abs(float(loss_k) - float(loss_p))
+    step_abs, step_rel = grad_errors(grads_k, grads_p)
+    del grads_k, grads_p
+
+    def take(arrays, lo, hi):
+        return {k: v[lo:hi] for k, v in arrays.items()}
+
+    for counts in (cuda_gru.LAUNCHES, cuda_decoder.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    runs = {}
+    for name, arrays, bs, variant in (("unsupervised", yam, TB, "default"),
+                                      ("supervised", vg, SB, "supervised")):
+        warm = tr.run_epoch(take(arrays, 0, 2 * bs), variant,
+                            batch_size=bs, seed=1)
+        n_timed = len(arrays["x"]) // bs - 2
+        t0 = time.monotonic()
+        timed = tr.run_epoch(take(arrays, 2 * bs, (2 + n_timed) * bs),
+                             variant, batch_size=bs, seed=2)
+        wall = time.monotonic() - t0
+        runs[name] = {"B": bs, "steps": 2 + n_timed, "warm": warm,
+                      "timed": timed, "ms_per_step": wall * 1e3 / n_timed,
+                      "seq_per_s": n_timed * bs / wall,
+                      "train_path": tr.train_path}
+    evals = tr.run_epoch(take(yam, 0, 2 * TB), train=False, shuffle=False,
+                         batch_size=TB)
+    torch.cuda.synchronize()
+    train_launches = {**cuda_gru.LAUNCHES, **cuda_decoder.LAUNCHES}
+    finite = all(np.isfinite(v) for r in runs.values()
+                 for m in (r["warm"], r["timed"]) for v in m.values()) and \
+        all(np.isfinite(v) for v in evals.values())
+    emit({"phase": "train_step", "first_step": {
+              "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+              "loss_abs_err": step_loss_err, "grad_max_abs_err": step_abs,
+              "grad_max_rel_err": step_rel, "tol_grad_rel": TOL_TRAIN_GRAD_REL,
+              "kernel_paths": paths},
+          "runs": runs, "eval": evals, "finite": finite,
+          "train_path": tr.train_path, "launches": train_launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if paths != ("kernel", "kernel"):
+        return fail(f"first step ran {paths}, not the kernels")
+    if not (step_loss_err <= TOL_TRAIN_OUT * max(1.0, abs(float(loss_p)))
+            and step_rel <= TOL_TRAIN_GRAD_REL):
+        return fail(f"first step kernel vs plain: loss {step_loss_err}, "
+                    f"gradients {step_rel} (relative)")
+    if not finite:
+        return fail("a training loss is not finite")
+    if any(r["train_path"] != "kernel" for r in runs.values()):
+        return fail(f"train_path: {[r['train_path'] for r in runs.values()]}")
+    train_kernels = ("embed_gru_train", "embed_gru_bwd", "embed_seq",
+                     "embed_seq_bwd", "decoder_ce", "decoder_ce_bwd")
+    if not all(train_launches[k] > 0 for k in train_kernels):
+        return fail(f"a training kernel never launched: {train_launches}")
+
+    launches = {**serving_launches,
+                **{k: train_launches[k] for k in train_kernels}}
     for name, k in kernels.items():
         k["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

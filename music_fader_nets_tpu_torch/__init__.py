@@ -6,16 +6,22 @@ structure, names and parameter layouts (nested dicts of tensors, weights
 input-major `(I, 3H)` / `(H, 3H)`, gate order r, z, n) so each module's
 counterpart is easy to find and weights carry across with a plain copy.
 
-This slice ports the GM-VAE serving path: the token bi-GRU encoder, the
-latent shift and the 300-step greedy / Gumbel-max sampling decode, with
-hand-written CUDA kernels (`csrc/`) in place of the three Pallas kernels on
-that path. Every kernel wrapper keeps a plain PyTorch version beside it,
-used only for tensors that lie on the CPU.
+Ported so far: the GM-VAE serving path (the token bi-GRU encoder, the
+latent shift and the 300-step greedy / Gumbel-max sampling decode) and its
+training step (`gmm_loss` and the `Trainer`), with hand-written CUDA
+kernels (`csrc/`) in place of the Pallas kernels on those paths; each
+training kernel is a `torch.autograd.Function` with a backward kernel.
+Every kernel wrapper keeps a plain PyTorch version beside it, used only
+for tensors that lie on the CPU.
 
 Layout:
   ops/        GRU primitives, sampling, kernel build + wrappers
   csrc/       CUDA C++ kernels (plain C interface, loaded with ctypes)
-  models/     encoder / global decoder modules, RegVAE + GM-VAE pieces
+  models/     encoder / sub-decoder / global decoder modules, RegVAE +
+              GM-VAE pieces, the fast (kernel-layout) parameter view
+  losses/     ELBO terms, GM-VAE KL terms, the Pati regularizer
+  data/       dataset views and batch iteration
+  train/      the GM-VAE objective, the Trainer, a step profiler
   transfer/   latent shift vectors of arousal transfer
   serve/      micro-batching TransferServer and its JSON-lines CLI
   utils/      numpy <-> tensor parameter conversion

@@ -1,4 +1,5 @@
-// Shared device code of the port's GRU kernels (embed_gru.cu, decode.cu).
+// Shared device code of the port's GRU kernels (embed_gru.cu, decode.cu,
+// the training kernels).
 //
 // A block computes a TB-row x 32-column tile of A (rows, K) @ W (K, ldw) for
 // NG column groups at W columns g*gs + j (g < NG). For a GRU, NG = 3 and
@@ -135,13 +136,40 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 // h' = (1 - z) * n + z * h with r = sigmoid(xr + hr), z = sigmoid(xz + hz),
 // n = tanh(xn + r * hn): the gate maths of ops/gru.py::_gates, one rounding
 // per operation as PyTorch's elementwise ops round (no contraction to FMA).
+// r, z and n are returned too, for the training forward's gate stash.
+__device__ __forceinline__ float gru_gates(float xr, float xz, float xn,
+                                           float hr, float hz, float hn,
+                                           float h, float& r, float& z,
+                                           float& n) {
+  r = sigmoid_f32(__fadd_rn(xr, hr));
+  z = sigmoid_f32(__fadd_rn(xz, hz));
+  n = tanhf(__fadd_rn(xn, __fmul_rn(r, hn)));
+  return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), n), __fmul_rn(z, h));
+}
+
 __device__ __forceinline__ float gru_combine(float xr, float xz, float xn,
                                              float hr, float hz, float hn,
                                              float h) {
-  const float r = sigmoid_f32(__fadd_rn(xr, hr));
-  const float z = sigmoid_f32(__fadd_rn(xz, hz));
-  const float n = tanhf(__fadd_rn(xn, __fmul_rn(r, hn)));
-  return __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), n), __fmul_rn(z, h));
+  float r, z, n;
+  return gru_gates(xr, xz, xn, hr, hz, hn, h, r, z, n);
+}
+
+// The gate backward of pallas_gru.py::_gate_bwd for one hidden unit: from
+// the cotangent dh on h' and the stashed r, z, n, hn (the n-section of the
+// hidden projection, b_hh included) and h_prev, the cotangents of the input
+// projection [dar, daz, dan] and of the hidden projection [dar, daz, dhn].
+// The direct term into h_prev is dh * z.
+__device__ __forceinline__ void gate_bwd(float dh, float r, float z, float n,
+                                         float hn, float h_prev, float& dar,
+                                         float& daz, float& dan,
+                                         float& dhn) {
+  const float dn = dh * (1.0f - z);
+  const float dz = dh * (h_prev - n);
+  dan = dn * (1.0f - n * n);
+  const float dr = dan * hn;
+  dhn = dan * r;
+  dar = dr * r * (1.0f - r);
+  daz = dz * z * (1.0f - z);
 }
 
 }  // namespace fader

@@ -1,2 +1,3 @@
-"""Model pieces of the serving path: encoder streams, the global decoder,
-the RegVAE tree and the GM-VAE entry points."""
+"""Model pieces: encoder streams, the attribute sub-decoders, the global
+decoder, the RegVAE tree, the GM-VAE forward and entry points, and the fast
+(kernel-layout) parameter view."""

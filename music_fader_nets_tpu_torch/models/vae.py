@@ -1,11 +1,12 @@
-"""The RegVAE pieces the GM-VAE serving path uses (counterpart of
+"""The RegVAE pieces the GM-VAE uses (counterpart of
 `music_fader_nets_tpu/models/vae.py`): the parameter tree under the
-reference's attribute names and the fused rhythm/note encoder.
+reference's attribute names, the fused rhythm/note encoder and the paired
+sub-decoders, over the canonical tree or the fast layout
+(`models/fast.py`).
 
-`init_reg_vae` builds the whole reference tree — sub-decoders and the
-unused chroma/classifier layers included — so a tree carries across from
-the JAX package key for key; only the encoders and the global decoder run
-in this slice.
+`init_reg_vae` builds the whole reference tree, the unused
+chroma/classifier layers included, so a tree carries across from the JAX
+package key for key.
 """
 from __future__ import annotations
 
@@ -16,7 +17,10 @@ import torch
 from music_fader_nets_tpu_torch.config import ModelConfig
 from music_fader_nets_tpu_torch.models.modules import (
     encode_streams_fused,
+    encode_streams_fused_packed,
     global_decoder_init,
+    sub_decoder_pair_apply,
+    sub_decoder_pair_apply_packed,
 )
 from music_fader_nets_tpu_torch.ops.gru import bigru_init, gru_init, linear_init
 
@@ -30,6 +34,30 @@ def _enc_view(params, suffix: str):
         "mu": params[f"mu_{suffix}"],
         "var": params[f"var_{suffix}"],
     }
+
+
+def _sub_view(params, suffix: str):
+    return {
+        "gru": params[f"gru_d_{suffix}"],
+        "init": params[f"linear_init_{suffix}"],
+        "out": params[f"linear_out_{suffix}"],
+    }
+
+
+def _sub_pair_apply(params, r_oh, n_oh, z_r, z_n, faithful_axis: bool,
+                    track_ids=None):
+    """Both attribute sub-decoders, by the layout of `params` (canonical or
+    fast). track_ids: optional ((B,T) rhythm ids, (B,T) note ids) for the
+    class-embedded kernel on the fast layout."""
+    if "sub_rn" in params:
+        return sub_decoder_pair_apply_packed(
+            params["sub_rn"],
+            params["linear_init_r"], params["linear_init_n"],
+            params["linear_out_r"], params["linear_out_n"],
+            r_oh, n_oh, z_r, z_n, faithful_axis, track_ids=track_ids)
+    return sub_decoder_pair_apply(_sub_view(params, "r"),
+                                  _sub_view(params, "n"), r_oh, n_oh, z_r,
+                                  z_n, faithful_axis)
 
 
 def _global_view(params):
@@ -70,7 +98,14 @@ def reg_vae_encode(params, x_oh: Optional[torch.Tensor],
     """((mu_r, std_r), (mu_n, std_n)), reference model_v2.py:81-97. Both
     streams' bi-GRU directions run together; with `tokens` (B, T) the
     embedded-token encoder kernel runs (plain version on the CPU) and x_oh
-    may be None. Runs where its tensors lie."""
+    may be None. Runs where its tensors lie. Takes the canonical tree or
+    the fast layout (`enc_rn`)."""
+    if "enc_rn" in params:
+        (mu_r, std_r), (mu_n, std_n) = encode_streams_fused_packed(
+            params["enc_rn"],
+            [(params["mu_r"], params["var_r"]),
+             (params["mu_n"], params["var_n"])], x_oh, tokens=tokens)
+        return (mu_r, std_r), (mu_n, std_n)
     (mu_r, std_r), (mu_n, std_n) = encode_streams_fused(
         [_enc_view(params, "r"), _enc_view(params, "n")], x_oh,
         tokens=tokens)

@@ -103,6 +103,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_greedy_decode.restype = I
     lib.fader_sample_decode.argtypes = [I, I, I, I, I] + [P] * 18
     lib.fader_sample_decode.restype = I
+    lib.fader_embed_gru_train.argtypes = [I] * 6 + [P] * 9
+    lib.fader_embed_gru_train.restype = I
+    lib.fader_embed_gru_bwd.argtypes = [I] * 6 + [P] * 16
+    lib.fader_embed_gru_bwd.restype = I
+    lib.fader_decoder_ce.argtypes = [I] * 4 + [P] * 19
+    lib.fader_decoder_ce.restype = I
+    lib.fader_decoder_ce_bwd.argtypes = [I] * 4 + [P] * 35
+    lib.fader_decoder_ce_bwd.restype = I
     lib.fader_error_string.argtypes = [I]
     lib.fader_error_string.restype = ctypes.c_char_p
 

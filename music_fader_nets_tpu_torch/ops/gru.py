@@ -87,6 +87,20 @@ def stacked_gru_scan(pre: torch.Tensor, w_hh: torch.Tensor,
     return h
 
 
+def stacked_gru_seq(pre: torch.Tensor, w_hh: torch.Tensor,
+                    b_hh: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """`stacked_gru_scan` returning every step's state, h_seq
+    (L, T, B, H): the plain full-sequence recurrence of the sub-decoders."""
+    h, outs = h0, []
+    for t in range(pre.shape[1]):
+        pre_h = torch.bmm(h, w_hh) + b_hh[:, None, :]
+        h = _gates(pre[:, t], pre_h, h)
+        outs.append(h)
+    if not outs:
+        return h0.new_zeros((h0.shape[0], 0) + tuple(h0.shape[1:]))
+    return torch.stack(outs, dim=1)
+
+
 def vocab_pad(V: int) -> int:
     """Vp = ceil128(V), the kernels' padded vocabulary width."""
     return ((V + LANE - 1) // LANE) * LANE

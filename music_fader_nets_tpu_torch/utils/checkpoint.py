@@ -35,11 +35,16 @@ def params_to_numpy(tree: Any) -> Any:
     return tree.detach().cpu().numpy()
 
 
+def tree_map(fn, tree: Any) -> Any:
+    """`fn` applied to every leaf of a nested dict/list/tuple."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def tree_to(tree: Any, device) -> Any:
     """Move every tensor of a nested dict/list to `device` (no copy where a
     tensor already lies there)."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to(v, device) for v in tree)
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
