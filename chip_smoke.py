@@ -16,7 +16,12 @@ held, values and every gradient, against autograd of their plain versions
 at the training shapes (B=128), and the GM-VAE `Trainer` takes supervised
 B=32 and unsupervised B=128 steps and an evaluation pass at full width on
 random in-schema batches, its first step's loss and gradients held against
-the plain path on the card. Every phase prints one JSON
+the plain path on the card. The generic stacked-GRU kernels (the CVAE
+encoder's shape, L=2, I=344) and the decoder with the masses head (GLSR's
+perturbation decode, 4 x 128 rows) are held the same way, and the other
+five families (vanilla RegVAE, GLSR, CVAE, FaderNets, SingleVAE) each
+train 5 steps at B=128 through their `Trainer`, first step against the
+plain path, timed over the last 3. Every phase prints one JSON
 line; the kernels line follows, then the card's name and power limit as
 nvidia-smi reports them, then the final status line. Any failed check
 exits non-zero without the status line. Needs one CUDA device; imports
@@ -63,38 +68,66 @@ def fail(msg: str) -> int:
 
 
 @contextlib.contextmanager
-def plain_path(cuda_gru, cuda_decoder):
-    """Route the training path's three kernel wrappers to their plain
+def plain_path(cuda_gru, cuda_decoder, cuda_stacked):
+    """Route the training path's five kernel wrappers to their plain
     versions while the block runs, on CUDA tensors as well: the reference
     the kernel path is held to on the same card."""
-    saved = (cuda_gru.stacked_gru_embed_finals,
-             cuda_gru.stacked_gru_embed_seq, cuda_decoder.decoder_teacher_nll)
-    cuda_gru.stacked_gru_embed_finals = cuda_gru.stacked_gru_embed_finals_plain
-    cuda_gru.stacked_gru_embed_seq = cuda_gru.stacked_gru_embed_seq_plain
-    cuda_decoder.decoder_teacher_nll = cuda_decoder.decoder_teacher_nll_plain
+    swaps = [(cuda_gru, "stacked_gru_embed_finals"),
+             (cuda_gru, "stacked_gru_embed_seq"),
+             (cuda_decoder, "decoder_teacher_nll"),
+             (cuda_decoder, "decoder_teacher_masses"),
+             (cuda_stacked, "stacked_gru")]
+    saved = [getattr(m, name) for m, name in swaps]
+    for m, name in swaps:
+        setattr(m, name, getattr(m, name + "_plain"))
     try:
         yield
     finally:
-        (cuda_gru.stacked_gru_embed_finals, cuda_gru.stacked_gru_embed_seq,
-         cuda_decoder.decoder_teacher_nll) = saved
+        for (m, name), fn in zip(swaps, saved):
+            setattr(m, name, fn)
 
 
-def grad_errors(got, want):
-    """(largest absolute error, largest error relative to each tensor's
-    largest entry, floored at GRAD_SCALE_FLOOR) over pairs of gradient
-    tensors; None counts as 0."""
+def leaf_errors(got, want):
+    """(absolute error, error relative to the tensor's largest entry,
+    floored at GRAD_SCALE_FLOOR) for each pair of gradient tensors; None
+    counts as 0."""
     import torch
-    abs_err, rel_err = 0.0, 0.0
+    errs = []
     for a, b in zip(got, want):
         if a is None and b is None:
+            errs.append((0.0, 0.0))
             continue
         a = torch.zeros_like(b) if a is None else a
         b = torch.zeros_like(a) if b is None else b
         e = float((a - b).abs().max()) if a.numel() else 0.0
         scale = float(b.abs().max()) if b.numel() else 0.0
-        abs_err = max(abs_err, e)
-        rel_err = max(rel_err, e / max(scale, GRAD_SCALE_FLOOR))
-    return abs_err, rel_err
+        errs.append((e, e / max(scale, GRAD_SCALE_FLOOR)))
+    return errs
+
+
+def grad_errors(got, want):
+    """(largest absolute error, largest relative error) of `leaf_errors`."""
+    errs = leaf_errors(got, want)
+    return (max((e[0] for e in errs), default=0.0),
+            max((e[1] for e in errs), default=0.0))
+
+
+def named_leaves(tree, prefix=""):
+    """(path, tensor) of each leaf of a nested dict, in dict order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def worst_leaf(got, want, names):
+    """`grad_errors` with the name of the leaf that holds the largest
+    relative error."""
+    errs = leaf_errors(got, want)
+    i = max(range(len(errs)), key=lambda j: errs[j][1])
+    return {"grad_max_abs_err": max(e[0] for e in errs),
+            "grad_max_rel_err": errs[i][1], "worst_leaf": names[i]}
 
 
 def main() -> int:
@@ -113,20 +146,25 @@ def main() -> int:
         VGMIDIDataset, YamahaDataset,
     )
     from music_fader_nets_tpu_torch.ops import (
-        _build, cuda_decode, cuda_decoder, cuda_gru,
+        _build, cuda_decode, cuda_decoder, cuda_gru, cuda_stacked,
     )
     from music_fader_nets_tpu_torch.ops.gru import (
         direction_tokens, gru_init, stack_directions, vocab_pad,
     )
     from music_fader_nets_tpu_torch.ops.sampling import gumbel_rows
     from music_fader_nets_tpu_torch.serve.server import TransferServer
+    from music_fader_nets_tpu_torch.losses.regularizers import (
+        GLSR_MASK_RANGES,
+    )
     from music_fader_nets_tpu_torch.train.objectives import gmm_loss
-    from music_fader_nets_tpu_torch.train.profile import random_corpus
+    from music_fader_nets_tpu_torch.train.profile import (
+        FAMILIES, random_corpus,
+    )
     from music_fader_nets_tpu_torch.train.trainer import Trainer
     from music_fader_nets_tpu_torch.transfer.arousal import (
         compute_shift_vectors,
     )
-    from music_fader_nets_tpu_torch.utils.checkpoint import tree_to
+    from music_fader_nets_tpu_torch.utils.checkpoint import tree_map, tree_to
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -426,10 +464,10 @@ def main() -> int:
         return f_ms, b_ms
 
     def train_kernel_phase(phase, names, srcs, replaces, fn, plain, ids,
-                           floats, cot, shape, flops, lib=None):
+                           floats, cot, shape, flops, lib=None, extra=None):
         """names/srcs/replaces: (forward, backward). flops: (forward,
         backward). lib: (forward callable, its leaves, its cotangent) or
-        None."""
+        None. extra: more keys for the phase's line."""
         ts, out, grads = fwd_bwd(fn, ids, floats, cot)
         _, out_p, grads_p = fwd_bwd(plain, ids, floats, cot)
         torch.cuda.synchronize()
@@ -457,7 +495,7 @@ def main() -> int:
               "plain_fwd_ms": p_f, "plain_bwd_ms": p_b,
               "library_fwd_ms": l_f, "library_bwd_ms": l_b,
               "library_max_abs_err": lib_err, "bound_fwd_ms": f_bound,
-              "bound_bwd_ms": b_bound})
+              "bound_bwd_ms": b_bound, **(extra or {})})
         if not (out_err <= TOL_TRAIN_OUT and g_rel <= TOL_TRAIN_GRAD_REL):
             return fail(f"{phase}: kernel vs plain output {out_err}, "
                         f"gradients {g_rel} (relative)")
@@ -599,6 +637,98 @@ def main() -> int:
     if rc:
         return rc
 
+    # generic stacked GRU: the CVAE encoder's L=2 directions over the
+    # hoisted projections of x_in = [one-hot, r_density, n_density]
+    # (I = 344), T=100, B=128 (kernels 1, 2). Yardstick: cuDNN's
+    # bidirectional nn.GRU over x_in with the same weights, which also does
+    # the input projection; the kernel's row leaves that to an einsum,
+    # timed apart (einsum_ms) so the two compare as einsum + kernel.
+    I = V + 2
+    e_dirs = [gru_init(gen, I, H) for _ in range(2)]
+    e_wih = torch.stack([d["w_ih"] for d in e_dirs]).to(dev)
+    e_bih = torch.stack([d["b_ih"] for d in e_dirs]).to(dev)
+    e_whh = torch.stack([d["w_hh"] for d in e_dirs]).to(dev)
+    e_bhh = torch.stack([d["b_hh"] for d in e_dirs]).to(dev)
+    e_dens = torch.rand((TB, 1, 2), generator=gen).to(dev)
+    x_in = torch.cat([torch.nn.functional.one_hot(tokens.long(), V).float(),
+                      e_dens.expand(TB, T, 2)], dim=-1)
+
+    def project():
+        x_dir = torch.stack([x_in, x_in.flip(1)])
+        return (torch.einsum("lbti,lig->ltbg", x_dir, e_wih)
+                + e_bih[:, None, None, :])
+
+    e_pre = project()
+    einsum_ms = time_ms(project, 10)
+    e_h0 = (torch.randn((2, TB, H), generator=gen) * 0.1).to(dev)
+    e_cot = torch.randn((2, T, TB, H), generator=gen).to(dev)
+    e_gru = torch.nn.GRU(I, H, batch_first=True, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for d, suf in ((0, ""), (1, "_reverse")):
+            getattr(e_gru, "weight_ih_l0" + suf).copy_(e_wih[d].t())
+            getattr(e_gru, "weight_hh_l0" + suf).copy_(e_whh[d].t())
+            getattr(e_gru, "bias_ih_l0" + suf).copy_(e_bih[d])
+            getattr(e_gru, "bias_hh_l0" + suf).copy_(e_bhh[d])
+    e_h0_lib = e_h0.clone().requires_grad_(True)
+
+    def cudnn_stacked():
+        out = e_gru(x_in, e_h0_lib)[0]                     # (B, T, 2H)
+        return torch.stack([out[..., :H].transpose(0, 1),
+                            out[..., H:].flip(1).transpose(0, 1)])
+
+    e_leaves = list(e_gru.parameters()) + [e_h0_lib]
+    no_ids = torch.empty(0, dtype=torch.int32, device=dev)
+
+    def skip_ids(f):
+        return lambda ids, *fl: f(*fl)
+
+    st_f = 2.0 * 2 * T * TB * H * G
+    rc = train_kernel_phase(
+        "train_stacked_gru_kernels", ("stacked_gru", "stacked_gru_bwd"),
+        (csrc + "stacked_gru.cu", csrc + "stacked_gru.cu"),
+        (pg + "147", pg + "238"), skip_ids(cuda_stacked.stacked_gru),
+        skip_ids(cuda_stacked.stacked_gru_plain), no_ids,
+        [e_pre, e_whh, e_bhh, e_h0], e_cot,
+        {"L": 2, "T": T, "B": TB, "H": H, "I": I},
+        (st_f, 2 * st_f), lib=(cudnn_stacked, e_leaves, e_cot),
+        extra={"einsum_ms": einsum_ms,
+               "library_note": "cuDNN bidirectional nn.GRU over x_in "
+                               "includes the input projection: compare "
+                               "it with einsum_ms + ms"})
+    if rc:
+        return rc
+    del e_gru, e_leaves, x_in, e_pre, e_cot
+
+    # decoder + masses head: GLSR's perturbation decode, B0=128 token rows
+    # shared by n_rep=4 copies (512 rows), T=100, K=2 ranges (kernels 9,
+    # 10 with head = ranges)
+    n_rep, MB = 4, 4 * TB
+    m_prez = (torch.randn((MB, Zt), generator=gen).to(dev)
+              @ g1["w_ih"][V:] + g1["b_ih"])
+    m_h10 = (torch.randn((MB, H), generator=gen) * 0.5).to(dev)
+    m_cot = (torch.randn((T, len(GLSR_MASK_RANGES), MB), generator=gen)
+             / (T * TB)).to(dev)
+
+    def with_ranges(f):
+        return lambda ids, *fl: f(ids, *fl, GLSR_MASK_RANGES, n_rep)
+
+    rc = train_kernel_phase(
+        "train_decoder_masses_kernels",
+        ("decoder_masses", "decoder_masses_bwd"),
+        (csrc + "decoder_ce.cu", csrc + "decoder_ce_bwd.cu"),
+        (pg + "1482", pg + "1627"),
+        with_ranges(cuda_decoder.decoder_teacher_masses),
+        with_ranges(cuda_decoder.decoder_teacher_masses_plain), d_tok,
+        [d_wtok, m_prez, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
+         g2["w_hh"], g2["b_hh"], m_h10, d_wout, d_bout], m_cot,
+        {"T": T, "B0": TB, "n_rep": n_rep, "rows": MB, "H": H, "Vp": Vp,
+         "K": len(GLSR_MASK_RANGES)},
+        (2.0 * T * MB * (3 * H * G + H * Vp),
+         2.0 * T * MB * (6 * H * G + 3 * H * Vp)))
+    if rc:
+        return rc
+    del m_prez, m_h10, m_cot
+
     # ------------------------------------------------------- train step
     # The port's Trainer at ModelConfig() widths on random in-schema
     # batches: the dual-corpus loop's supervised (VGMIDI-shaped, B=32) and
@@ -616,7 +746,7 @@ def main() -> int:
                                       supervised=True),
                        mode="train").arrays()             # 6 batches
     first = {k: torch.from_numpy(v[:TB]).to(dev) for k, v in yam.items()}
-    eps = tuple(e.to(dev) for e in tr.noise_fn(0, TB, Z))
+    eps = tuple(e.to(dev) for e in tr.noise_fn(0, TB, gmm_loss))
     leaves = tr.optimizer.param_groups[0]["params"]        # Adam's leaves
 
     def loss_grads():
@@ -626,7 +756,7 @@ def main() -> int:
 
     loss_k, grads_k = loss_grads()
     paths = (cuda_gru.LAST_TRAIN_PATH, cuda_decoder.LAST_TRAIN_PATH)
-    with plain_path(cuda_gru, cuda_decoder):
+    with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
         loss_p, grads_p = loss_grads()
     torch.cuda.synchronize()
     step_loss_err = abs(float(loss_k) - float(loss_p))
@@ -683,8 +813,125 @@ def main() -> int:
     if not all(train_launches[k] > 0 for k in train_kernels):
         return fail(f"a training kernel never launched: {train_launches}")
 
+    # ----------------------------------------------- the other families
+    # Each family's Trainer at ModelConfig() widths on random in-schema
+    # batches at B=128: its first step's loss and gradients on the kernel
+    # path against the plain path on this card, at a step where every term
+    # of its loss counts (GLSR at 21, where its regularizer and so the
+    # masses head's cotangent start; the others at 1000, inside the KL and
+    # adversarial ramps), both also against a float64 run of the plain
+    # path (the witness of which float32 path strays), then 2 warm-up
+    # and 3 timed steps with the counts set to 0 just before and read just
+    # after. Each family's failure ends the run.
+    family_kernels = {"vanilla": (), "glsr": ("decoder_masses",
+                                              "decoder_masses_bwd"),
+                      "cvae": ("stacked_gru", "stacked_gru_bwd"),
+                      "fader": (), "singlevae": ()}
+    fam_corpus = YamahaDataset(*random_corpus(cfg, 7 * TB, SEED + 2),
+                               mode="train").arrays()     # 5 batches
+    fam_first = {k: torch.from_numpy(v[:TB]).to(dev)
+                 for k, v in fam_corpus.items()}
+    all_counts = (cuda_gru.LAUNCHES, cuda_decoder.LAUNCHES,
+                  cuda_stacked.LAUNCHES)
+    family_launches = {}
+    for fam in family_kernels:
+        init_fn, loss_fn, profile_step = FAMILIES[fam]
+        first_step = profile_step or 1000        # GLSR's 21, else 1000
+        ftr = Trainer(cfg, init_fn, {"default": loss_fn}, seed=SEED,
+                      device="cuda")
+        ftr.step = first_step
+        f_eps = tuple(e.to(dev) for e in ftr.noise_fn(0, TB, loss_fn))
+        f_leaves = ftr.optimizer.param_groups[0]["params"]
+        leaf_name = {id(t): name for name, t in named_leaves(ftr.fast_params)}
+
+        def f_loss_grads(params=ftr.fast_params, eps=f_eps, batch=fam_first,
+                         leaves=f_leaves):
+            loss, _ = loss_fn(params, eps, batch, first_step, cfg)
+            return loss.detach(), torch.autograd.grad(loss, leaves,
+                                                      allow_unused=True)
+
+        for m in (cuda_gru, cuda_decoder, cuda_stacked):
+            m.LAST_TRAIN_PATH = None
+        f_loss_k, f_grads_k = f_loss_grads()
+        f_paths = sorted({m.LAST_TRAIN_PATH for m in (
+            cuda_gru, cuda_decoder, cuda_stacked)} - {None})
+        copies = {}
+
+        def to64(t):
+            c = t.detach().double().requires_grad_(t.requires_grad)
+            copies[id(t)] = c
+            return c
+
+        p64 = tree_map(to64, ftr.fast_params)
+        with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
+            f_loss_p, f_grads_p = f_loss_grads()
+            f_loss_64, f_grads_64 = f_loss_grads(
+                p64, tuple(e.double() for e in f_eps),
+                {k: v.double() if v.is_floating_point() else v
+                 for k, v in fam_first.items()},
+                [copies[id(t)] for t in f_leaves])
+        torch.cuda.synchronize()
+        f_loss_err = abs(float(f_loss_k) - float(f_loss_p))
+        names = [leaf_name[id(t)] for t in f_leaves]
+        f_worst = worst_leaf(f_grads_k, f_grads_p, names)
+        f_abs, f_rel = f_worst["grad_max_abs_err"], f_worst["grad_max_rel_err"]
+        # both float32 paths against the float64 one: if both are right
+        # they sit about equally far from it
+        f_witness = {
+            key: {**worst_leaf(g, f_grads_64, names),
+                  "loss_abs_err": abs(float(loss) - float(f_loss_64))}
+            for key, loss, g in (("kernel", f_loss_k, f_grads_k),
+                                 ("plain", f_loss_p, f_grads_p))}
+        del f_grads_k, f_grads_p, f_grads_64, p64, copies
+        torch.cuda.reset_peak_memory_stats()
+        for counts in all_counts:
+            for k in counts:
+                counts[k] = 0
+        f_warm = ftr.run_epoch(take(fam_corpus, 0, 2 * TB), batch_size=TB,
+                               seed=1)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        f_timed = ftr.run_epoch(take(fam_corpus, 2 * TB, 5 * TB),
+                                batch_size=TB, seed=2)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        f_launches = {k: v for counts in all_counts for k, v in
+                      counts.items() if v}
+        family_launches[fam] = f_launches
+        f_finite = all(np.isfinite(v) for m in (f_warm, f_timed)
+                       for v in m.values())
+        emit({"phase": "train_family", "family": fam, "B": TB,
+              "first_step": {
+                  "step": first_step, "loss_kernel": float(f_loss_k),
+                  "loss_plain": float(f_loss_p), "loss_abs_err": f_loss_err,
+                  "grad_max_abs_err": f_abs, "grad_max_rel_err": f_rel,
+                  "grad_worst_leaf": f_worst["worst_leaf"],
+                  "tol_grad_rel": TOL_TRAIN_GRAD_REL,
+                  "kernel_paths": f_paths, "float64_witness": f_witness},
+              "steps": 5, "timed_steps": 3, "warm": f_warm,
+              "timed": f_timed, "ms_per_step": wall * 1e3 / 3,
+              "seq_per_s": 3 * TB / wall, "finite": f_finite,
+              "train_path": ftr.train_path, "launches": f_launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if f_paths != ["kernel"]:
+            return fail(f"{fam}: first step ran {f_paths}, not the kernels")
+        if not (f_loss_err <= TOL_TRAIN_OUT * max(1.0, abs(float(f_loss_p)))
+                and f_rel <= TOL_TRAIN_GRAD_REL):
+            return fail(f"{fam}: first step kernel vs plain: loss "
+                        f"{f_loss_err}, gradients {f_rel} (relative)")
+        if not f_finite:
+            return fail(f"{fam}: a training loss is not finite")
+        if ftr.train_path != "kernel":
+            return fail(f"{fam}: train_path is {ftr.train_path!r}")
+        if not all(f_launches.get(k, 0) > 0 for k in family_kernels[fam]):
+            return fail(f"{fam}: a kernel of its path never launched: "
+                        f"{f_launches}")
+        del ftr, f_leaves
+
     launches = {**serving_launches,
-                **{k: train_launches[k] for k in train_kernels}}
+                **{k: train_launches[k] for k in train_kernels},
+                **{k: family_launches[fam][k]
+                   for fam, ks in family_kernels.items() for k in ks}}
     for name, k in kernels.items():
         k["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

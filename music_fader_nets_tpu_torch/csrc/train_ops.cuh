@@ -56,6 +56,38 @@ cudaError_t launch_ce_head(int R, int H, int Vp, const float* h2,
                            const int* tgt, const float* g, float* nll,
                            float* dlogits, cudaStream_t s);
 
+// Vocabulary ranges [lo, hi) of the masses head, at most kMaxRanges.
+constexpr int kMaxRanges = 4;
+struct MassRanges {
+  int k;
+  int lo[kMaxRanges];
+  int hi[kMaxRanges];
+};
+
+// The masses head over R = T*B rows of h2 (row t*B + b): p = softmax(h2 @
+// w_out + b_out) over Vp lanes, m_k = sum of p over range k. With g null
+// it writes masses (T, K, B); with g (T, K, B) it writes dlogits (R, Vp) =
+// p * sum_k g_k (1[j in range k] - m_k).
+cudaError_t launch_mass_head(int R, int B, int H, int Vp, MassRanges rg,
+                             const float* h2, const float* w_out,
+                             const float* b_out, const float* g,
+                             float* masses, float* dlogits, cudaStream_t s);
+
+// MassRanges from K pairs [lo, hi) given as 2K ints in host memory; false
+// when K is not in [1, kMaxRanges].
+bool make_ranges(int K, const int* ranges, MassRanges* rg);
+
+// The teacher decode's two GRUCell layers over T steps (2T launches): tok
+// (T,B) input ids, w_tok (Vp,3H), pre_z (B,3H), the layers' weights, h1_0
+// (B,H); writes h1_seq, h2_seq (T,B,H) and, unless null, the gate stashes
+// g41, g42 (T,B,4H).
+cudaError_t launch_decoder_recurrence(
+    int T, int B, int H, int Vp, const int* tok, const float* w_tok,
+    const float* pre_z, const float* w_hh1, const float* b_hh1,
+    const float* w_ih2, const float* b_ih2, const float* w_hh2,
+    const float* b_hh2, const float* h1_0, float* h1_seq, float* h2_seq,
+    float* g41, float* g42, cudaStream_t s);
+
 // C[l] (M, N) = sum over k < K of A(k, m) B[l](k, n); A a SplitRows (K, M)
 // operand, B row-major (K, N) at b + l*b_ls, C row-major at c + l*c_ls.
 cudaError_t gemm_tn(int L, int M, int N, int K, SplitRows a, const float* b,

@@ -1,1 +1,2 @@
-"""ELBO terms and the GM-VAE / Pati regularizers."""
+"""ELBO terms and the families' regularizers (Pati, GM-VAE KL, GLSR,
+FaderNets adversarial)."""

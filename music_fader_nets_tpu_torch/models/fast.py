@@ -1,5 +1,5 @@
-"""Kernel-layout parameter views ("fast params") of the RegVAE / GM-VAE
-tree (counterpart of `music_fader_nets_tpu/models/fast.py`).
+"""Kernel-layout parameter views ("fast params") of every family's tree
+(counterpart of `music_fader_nets_tpu/models/fast.py`).
 
 The canonical tree keeps the reference's per-layer names (the checkpoint
 contract). The training kernels take stacked weights, so the Trainer
@@ -12,7 +12,10 @@ Fast-layout groups (keys absent from canonical trees, so the forwards
 detect the layout by key):
 
   enc_rn    {w_ih_p (4,Vp,3H), b_ih (4,3H), w_hh (4,H,3H), b_hh (4,3H)}
-            directions [r.fwd, r.bwd, n.fwd, n.bwd]; Vp = ceil128(V)
+            directions [r.fwd, r.bwd, n.fwd, n.bwd]; Vp = ceil128(in_dim)
+  enc_1     the same, 2 directions, from `gru` (SingleVAE)
+  enc_e     the same, 2 directions, from `gru_e` (CVAE, in_dim = V + 2;
+            FaderNets, in_dim = V)
   sub_rn    {w_ih (2,Dm+Z,3H), b_ih, w_hh, b_hh}; input rows [track
             padded to Dm = max(rhythm, note dims), z]
   grucell_g {w_tok_p (Vp,3H), w_z (Z,3H), b_ih, w_hh, b_hh}: the decoder
@@ -100,6 +103,10 @@ def split_fast(params: Dict) -> Tuple[Dict, Dict]:
     frozen = {k: p.pop(k) for k in FROZEN_KEYS if k in p}
     if "gru_r" in p and "gru_n" in p:
         p["enc_rn"] = _pack_dirs([p.pop("gru_r"), p.pop("gru_n")])
+    elif isinstance(p.get("gru"), dict) and "fwd" in p["gru"]:
+        p["enc_1"] = _pack_dirs([p.pop("gru")])
+    elif "gru_e" in p:
+        p["enc_e"] = _pack_dirs([p.pop("gru_e")])
     if "gru_d_r" in p and "gru_d_n" in p:
         z_dims = p["mu_r"]["w"].shape[1]
         p["sub_rn"] = _pack_subs(p.pop("gru_d_r"), p.pop("gru_d_n"), z_dims)
@@ -121,6 +128,10 @@ def merge_canonical(fast: Dict, frozen: Dict, template: Dict) -> Dict:
     if "enc_rn" in p:
         in_dims = template["gru_r"]["fwd"]["w_ih"].shape[0]
         p["gru_r"], p["gru_n"] = _unpack_dirs(p.pop("enc_rn"), in_dims, 2)
+    for group, key in (("enc_1", "gru"), ("enc_e", "gru_e")):
+        if group in p:
+            in_dims = template[key]["fwd"]["w_ih"].shape[0]
+            (p[key],) = _unpack_dirs(p.pop(group), in_dims, 1)
     if "sub_rn" in p:
         z_dims = template["mu_r"]["w"].shape[1]
         dr = template["gru_d_r"]["w_ih"].shape[0] - z_dims

@@ -11,16 +11,11 @@ import torch
 
 from music_fader_nets_tpu_torch import resolve_device
 from music_fader_nets_tpu_torch.config import ModelConfig
-from music_fader_nets_tpu_torch.models.modules import (
-    global_decoder_greedy,
-    global_decoder_teacher,
-    global_decoder_teacher_nll,
-)
 from music_fader_nets_tpu_torch.models.vae import (
     _global_view,
-    _sub_pair_apply,
     init_reg_vae,
     reg_vae_encode,
+    reg_vae_forward,
 )
 from music_fader_nets_tpu_torch.ops import cuda_decode
 from music_fader_nets_tpu_torch.utils.checkpoint import tree_to
@@ -71,42 +66,20 @@ def reg_gmvae_forward(params, eps_r: torch.Tensor, eps_n: torch.Tensor,
                       x_oh, r_oh, n_oh, chroma, cfg: ModelConfig,
                       train: bool = True, tokens=None, nll_targets=None,
                       track_ids=None) -> Dict:
-    """The training-path forward (reference gmm_model.py:220-259).
-    eps_r / eps_n are the N(0, 1) draws of the two reparameterisations
-    (z = mu + std * eps), given by the caller. `tokens` (x_oh =
-    one_hot(tokens)) routes the encoder and the decoder + CE to their
-    kernels, `track_ids` the sub-decoders (fast layout); x_oh may then be
-    None."""
-    (mu_r, std_r), (mu_n, std_n) = reg_vae_encode(params, x_oh,
-                                                  tokens=tokens)
-    z_r = mu_r + std_r * eps_r
-    z_n = mu_n + std_n * eps_n
-    log_logit_r, qy_x_r = approx_qy_x(z_r, params["mu_r_lookup"],
+    """The training-path forward (reference gmm_model.py:220-259): the
+    RegVAE forward (`models/vae.py::reg_vae_forward`, same arguments) and
+    the mixture posterior of both latents."""
+    fwd = reg_vae_forward(params, eps_r, eps_n, x_oh, r_oh, n_oh, chroma,
+                          cfg, train=train, tokens=tokens,
+                          nll_targets=nll_targets, track_ids=track_ids)
+    log_logit_r, qy_x_r = approx_qy_x(fwd["z_r"], params["mu_r_lookup"],
                                       params["logvar_r_lookup"])
-    log_logit_n, qy_x_n = approx_qy_x(z_n, params["mu_n_lookup"],
+    log_logit_n, qy_x_n = approx_qy_x(fwd["z_n"], params["mu_n_lookup"],
                                       params["logvar_n_lookup"])
-    r_out, n_out = _sub_pair_apply(
-        params, r_oh, n_oh, z_r, z_n,
-        cfg.faithful_subdecoder_softmax_axis, track_ids=track_ids)
-    z = torch.cat([z_r, z_n, chroma], dim=-1)
-    out = nll_x = None
-    T = tokens.shape[1] if tokens is not None else x_oh.shape[1]
-    if train and nll_targets is not None:
-        nll_x = global_decoder_teacher_nll(_global_view(params), z, x_oh,
-                                           tokens, nll_targets)
-    elif train:
-        out = global_decoder_teacher(_global_view(params), z, x_oh)
-    else:
-        out = global_decoder_greedy(_global_view(params), z, T)
-    return {
-        "out": out, "nll_x": nll_x, "r_out": r_out, "n_out": n_out,
-        "mu_r": mu_r, "std_r": std_r, "mu_n": mu_n, "std_n": std_n,
-        "z_r": z_r, "z_n": z_n, "z": z,
-        "log_logit_r": log_logit_r, "qy_x_r": qy_x_r,
-        "log_logit_n": log_logit_n, "qy_x_n": qy_x_n,
-        "y_r": torch.argmax(qy_x_r, dim=-1),
-        "y_n": torch.argmax(qy_x_n, dim=-1),
-    }
+    return {**fwd, "log_logit_r": log_logit_r, "qy_x_r": qy_x_r,
+            "log_logit_n": log_logit_n, "qy_x_n": qy_x_n,
+            "y_r": torch.argmax(qy_x_r, dim=-1),
+            "y_n": torch.argmax(qy_x_n, dim=-1)}
 
 
 def reg_gmvae_encode(params, tokens: torch.Tensor, device=None):

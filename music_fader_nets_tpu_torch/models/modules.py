@@ -1,7 +1,7 @@
-"""Building blocks of the GM-VAE: the fused bi-GRU encoder streams, the
-paired teacher-forced attribute sub-decoders and the 2-layer GRUCell global
-decoder (counterpart of `music_fader_nets_tpu/models/modules.py`, same
-parameter names).
+"""Building blocks of the model families: the fused bi-GRU encoder
+streams, the paired teacher-forced attribute sub-decoders and the 2-layer
+GRUCell global decoder (counterpart of
+`music_fader_nets_tpu/models/modules.py`, same parameter names).
 
 The decoder's per-step input is `[one_hot(token), z]`; the z half is
 constant across steps, so its projection is computed once, and the one-hot
@@ -78,7 +78,8 @@ def sub_decoder_pair_apply(p_r: dict, p_n: dict, r_oh, n_oh, z_r, z_n,
     """Both teacher-forced attribute sub-decoders over the canonical layout
     (views with `gru`, `init`, `out`; reference model_v2.py:99-116): step
     input [track_onehot_t, z], h0 = linear_init(z), the two recurrences
-    stepped together (plain)."""
+    stepped together through the generic stacked-GRU wrapper (kernels 1/2
+    on CUDA tensors, their plain version on the CPU)."""
     B, T, _ = r_oh.shape
 
     def pre_of(p, track_oh, z):
@@ -196,10 +197,15 @@ def global_decoder_greedy(p: dict, z: torch.Tensor, steps: int,
 
 def global_decoder_teacher(p: dict, z: torch.Tensor,
                            x_oh: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced decode over the whole sequence (plain): inputs
-    [start, x_0, ..., x_{T-2}] with the start one-hot at the LAST vocab
-    index, outputs predict [x_0, ..., x_{T-1}] (reference
-    model_v2.py:127-142 with eps=100). Returns log-probs (B, T, V)."""
+    """Teacher-forced decode over the whole sequence from one-hot inputs:
+    inputs [start, x_0, ..., x_{T-2}] with the start one-hot at the LAST
+    vocab index, outputs predict [x_0, ..., x_{T-1}] (reference
+    model_v2.py:127-142 with eps=100). Teacher forcing decouples the two
+    layers into two consecutive recurrences over hoisted projections, each
+    one generic stacked-GRU call (kernels 1/2 on CUDA tensors, their plain
+    version on the CPU), as the JAX package's TPU path does
+    (models/modules.py:336-347); layer 2 starts from layer 1's first state
+    (the reference's step-0 rule). Returns log-probs (B, T, V)."""
     B, T, V = x_oh.shape
     w_tok, w_z = _split_w_ih(p, V)
     start = x_oh.new_zeros((B, 1, V))
@@ -208,19 +214,13 @@ def global_decoder_teacher(p: dict, z: torch.Tensor,
     pre_z = z @ w_z + p["grucell_g"]["b_ih"]
     pre = (inputs @ w_tok + pre_z[:, None, :]).transpose(0, 1)   # (T,B,3H)
     cell1, cell2 = p["grucell_g"], p["grucell_g_2"]
-    h = linear_apply(p["linear_init_global"], z)
-    h1_seq = []
-    for t in range(T):
-        h = gru_cell_from_pre(cell1, pre[t], h)
-        h1_seq.append(h)
-    h1_seq = torch.stack(h1_seq)                                  # (T,B,H)
+    h1_0 = linear_apply(p["linear_init_global"], z)
+    h1_seq = stacked_gru_seq(pre[None], cell1["w_hh"][None],
+                             cell1["b_hh"][None], h1_0[None])[0]  # (T,B,H)
     pre2 = h1_seq @ cell2["w_ih"] + cell2["b_ih"]
-    h, h2_seq = h1_seq[0], []
-    for t in range(T):
-        h = gru_cell_from_pre(cell2, pre2[t], h)
-        h2_seq.append(h)
-    logits = linear_apply(p["linear_out_g"],
-                          torch.stack(h2_seq).transpose(0, 1))
+    h2_seq = stacked_gru_seq(pre2[None], cell2["w_hh"][None],
+                             cell2["b_hh"][None], h1_seq[:1])[0]
+    logits = linear_apply(p["linear_out_g"], h2_seq.transpose(0, 1))
     return torch.log_softmax(logits, dim=-1)
 
 
@@ -237,3 +237,24 @@ def global_decoder_teacher_nll(p: dict, z: torch.Tensor, x_oh, tokens,
         return cuda_decoder.decoder_teacher_fused_nll(p, z, tokens, V)
     logp = global_decoder_teacher(p, z, x_oh)
     return -logp.gather(-1, targets.long()[..., None])[..., 0]
+
+
+def global_decoder_teacher_masses(p: dict, z: torch.Tensor, x_oh, tokens,
+                                  ranges, n_rep: int = 1):
+    """Per-step softmax masses of the teacher-forced decode over vocabulary
+    ranges: a tuple of (B, T) tensors, out_k[b, t] = sum over [lo_k, hi_k)
+    of softmax(logits[b, t]), what the GLSR regularizer reads of its
+    perturbation decodes (reference trainer_glsr.py:123-139). z has B =
+    n_rep * B0 rows, n_rep copies sharing the B0 teacher sequences of x_oh
+    / tokens. With `tokens` (x_oh = one_hot(tokens)) it runs the fused
+    decoder with the masses head (`ops/cuda_decoder.py`; its plain version
+    on the CPU); otherwise the teacher decode and masked sums of its
+    softmax, the tokens tiled n_rep-fold."""
+    if tokens is not None:
+        V = p["linear_out_g"]["w"].shape[-1]
+        return cuda_decoder.decoder_teacher_fused_masses(p, z, tokens, V,
+                                                         ranges, n_rep)
+    if n_rep > 1:
+        x_oh = x_oh.repeat(n_rep, 1, 1)
+    probs = torch.softmax(global_decoder_teacher(p, z, x_oh), dim=-1)
+    return tuple(probs[..., lo:hi].sum(-1) for lo, hi in ranges)

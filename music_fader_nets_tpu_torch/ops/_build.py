@@ -111,6 +111,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_decoder_ce.restype = I
     lib.fader_decoder_ce_bwd.argtypes = [I] * 4 + [P] * 35
     lib.fader_decoder_ce_bwd.restype = I
+    lib.fader_decoder_masses.argtypes = [I] * 5 + [P] * 19
+    lib.fader_decoder_masses.restype = I
+    lib.fader_decoder_masses_bwd.argtypes = [I] * 6 + [P] * 36
+    lib.fader_decoder_masses_bwd.restype = I
+    lib.fader_stacked_gru.argtypes = [I] * 4 + [P] * 7
+    lib.fader_stacked_gru.restype = I
+    lib.fader_stacked_gru_bwd.argtypes = [I] * 4 + [P] * 12
+    lib.fader_stacked_gru_bwd.restype = I
     lib.fader_error_string.argtypes = [I]
     lib.fader_error_string.restype = ctypes.c_char_p
 

@@ -74,31 +74,24 @@ def gru_cell_from_pre(p: dict, pre_x: torch.Tensor,
     return _gates(pre_x, pre_h, h)
 
 
-def stacked_gru_scan(pre: torch.Tensor, w_hh: torch.Tensor,
-                     b_hh: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+def stacked_gru_seq(pre: torch.Tensor, w_hh: torch.Tensor,
+                    b_hh: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """L independent GRUs of equal length, stepped together.
     pre (L, T, B, 3H) hoisted input projections (reversed directions
     already time-flipped); w_hh (L, H, 3H); b_hh (L, 3H); h0 (L, B, H).
-    Returns the final states (L, B, H)."""
-    h = h0
-    for t in range(pre.shape[1]):
-        pre_h = torch.bmm(h, w_hh) + b_hh[:, None, :]
-        h = _gates(pre[:, t], pre_h, h)
-    return h
+    Returns every step's state, h_seq (L, T, B, H): the generic stacked-GRU
+    kernels on CUDA tensors, their plain version on CPU tensors
+    (`ops/cuda_stacked.py`)."""
+    from music_fader_nets_tpu_torch.ops import cuda_stacked
+    return cuda_stacked.stacked_gru(pre, w_hh, b_hh, h0)
 
 
-def stacked_gru_seq(pre: torch.Tensor, w_hh: torch.Tensor,
-                    b_hh: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-    """`stacked_gru_scan` returning every step's state, h_seq
-    (L, T, B, H): the plain full-sequence recurrence of the sub-decoders."""
-    h, outs = h0, []
-    for t in range(pre.shape[1]):
-        pre_h = torch.bmm(h, w_hh) + b_hh[:, None, :]
-        h = _gates(pre[:, t], pre_h, h)
-        outs.append(h)
-    if not outs:
-        return h0.new_zeros((h0.shape[0], 0) + tuple(h0.shape[1:]))
-    return torch.stack(outs, dim=1)
+def stacked_gru_scan(pre: torch.Tensor, w_hh: torch.Tensor,
+                     b_hh: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """`stacked_gru_seq`'s final states (L, B, H)."""
+    if pre.shape[1] == 0:
+        return h0
+    return stacked_gru_seq(pre, w_hh, b_hh, h0)[:, -1]
 
 
 def vocab_pad(V: int) -> int:

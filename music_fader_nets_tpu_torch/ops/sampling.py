@@ -1,4 +1,5 @@
-"""Sampling ops: the reparameterised latent and per-row Gumbel noise.
+"""Sampling ops: the reparameterised latent, per-row Gumbel noise and the
+gradient reversal layer.
 
 JAX's PRNG streams cannot be reproduced in PyTorch, so `reparameterize`
 takes its standard-normal noise explicitly and the Gumbel noise comes from
@@ -15,6 +16,24 @@ def reparameterize(mu: torch.Tensor, std: torch.Tensor,
     """z = mu + std * eps (reference model_v2.py:152-158); `std` is
     exp(logsig), eps ~ N(0, 1) supplied by the caller."""
     return mu + std * eps
+
+
+class _GradReverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, alpha):
+        ctx.alpha = alpha
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -ctx.alpha * g, None
+
+
+def grad_reverse(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    """Gradient reversal layer (reference model_v2.py:426-435
+    `ReverseLayerF`): identity forward, `-alpha * g` backward; drives the
+    FaderNets discriminators adversarially without a second optimizer."""
+    return _GradReverse.apply(x, alpha)
 
 
 def gumbel_rows(seeds: Sequence[Optional[int]], steps: int, width: int,

@@ -1,10 +1,13 @@
-"""Where a GM-VAE training step's device time goes, on one GPU.
+"""Where a training step's device time goes, on one GPU.
 
     python -m music_fader_nets_tpu_torch.train.profile [--steps 5]
+        [--family gmvae|vanilla|glsr|cvae|fader|singlevae]
 
-Builds the `Trainer` at the config's full width with random weights
-(seeded) on random in-schema batches (`random_corpus`), takes two warm-up
-steps, then profiles `--steps` unsupervised steps at `--batch` rows under
+Builds the family's `Trainer` (default: the GM-VAE, unsupervised) at the
+config's full width with random weights (seeded) on random in-schema
+batches (`random_corpus`), takes two warm-up steps (GLSR from step 21,
+where its regularizer counts), then profiles `--steps` steps at `--batch`
+rows under
 `torch.profiler`, and prints JSON lines: device time per kernel name (sum,
 count, mean), the device's busy and idle share of the profiled window, the
 host's ms per step, and the card's name and power limit. Runs on CUDA
@@ -22,10 +25,21 @@ import torch
 
 from music_fader_nets_tpu_torch import resolve_device
 from music_fader_nets_tpu_torch.config import ModelConfig, load_config
+from music_fader_nets_tpu_torch.models import vae
 from music_fader_nets_tpu_torch.models.gmvae import init_reg_gmvae
 from music_fader_nets_tpu_torch.serve.profile import _busy_us
-from music_fader_nets_tpu_torch.train.objectives import gmm_loss
+from music_fader_nets_tpu_torch.train import objectives
 from music_fader_nets_tpu_torch.train.trainer import Trainer
+
+# family: (init, objective, first step)
+FAMILIES = {
+    "gmvae": (init_reg_gmvae, objectives.gmm_loss, 0),
+    "vanilla": (vae.init_reg_vae, objectives.vanilla_loss, 0),
+    "glsr": (vae.init_reg_vae, objectives.glsr_loss, 21),
+    "cvae": (vae.init_cvae, objectives.cvae_loss, 0),
+    "fader": (vae.init_fader, objectives.fader_loss, 0),
+    "singlevae": (vae.init_single_vae, objectives.singlevae_loss, 0),
+}
 
 
 def random_corpus(cfg: ModelConfig, n: int, seed: int,
@@ -51,11 +65,14 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--family", default="gmvae", choices=sorted(FAMILIES))
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     cfg = load_config(args.config)
-    tr = Trainer(cfg, init_reg_gmvae, {"default": gmm_loss}, seed=args.seed,
+    init_fn, loss_fn, first_step = FAMILIES[args.family]
+    tr = Trainer(cfg, init_fn, {"default": loss_fn}, seed=args.seed,
                  device=dev)
+    tr.step = first_step
     # the train split keeps 80% of the corpus
     n = (args.steps + 2) * args.batch * 5 // 4 + 5
     arrays = YamahaDataset(*random_corpus(cfg, n, args.seed),
@@ -91,7 +108,8 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "steps": steps, "batch": args.batch, "train_path": tr.train_path,
+        "family": args.family, "steps": steps, "batch": args.batch,
+        "train_path": tr.train_path,
         "loss": metrics.get("loss"), "wall_ms_per_step": wall_us / 1e3 / steps,
         "device_busy_ms_per_step": busy / 1e3 / steps,
         "device_idle_share": 1.0 - busy / wall_us if wall_us else None,

@@ -1,5 +1,6 @@
-"""The GM-VAE trainer (counterpart of `music_fader_nets_tpu/train/trainer.py`,
-its streaming path `run_epoch(compiled=False)`).
+"""The trainer of every family (counterpart of
+`music_fader_nets_tpu/train/trainer.py`, its streaming path
+`run_epoch(compiled=False)`).
 
 A step: the loss on the fast parameter layout (`models/fast.py`), its
 backward, the global-norm clip at 1.0 and Adam(lr) (reference
@@ -7,11 +8,12 @@ trainer.py:49,157). Adam steps the fast-layout leaves; the parity-only
 layers (`fast.FROZEN_KEYS`) and the frozen mixture logvar tables take no
 update, as in the JAX package, where their gradients are zero.
 
-The noise of the two reparameterisations is the caller's: `noise_fn(
-host_step, B, Z) -> (eps_r, eps_n)`, by default N(0, 1) draws of a
-`torch.Generator` seeded from (seed, host_step). The host step counts every
-batch, training and evaluation, as the JAX Trainer's `_host_step` does, so
-a test can hand both trainers the same draws.
+The objective's random draws are the caller's: `noise_fn(host_step, B,
+loss_fn) -> eps`, by default `objectives.draw_noise` (what that objective
+draws, see `train/objectives.py`) from a `torch.Generator` seeded from
+(seed, host_step). The host step counts every batch, training and
+evaluation, as the JAX Trainer's `_host_step` does, so a test can hand
+both trainers the same draws.
 """
 from __future__ import annotations
 
@@ -24,8 +26,12 @@ from music_fader_nets_tpu_torch import resolve_device
 from music_fader_nets_tpu_torch.config import ModelConfig
 from music_fader_nets_tpu_torch.data.loader import batch_iterator
 from music_fader_nets_tpu_torch.models import fast as fast_lib
-from music_fader_nets_tpu_torch.ops import cuda_decoder, cuda_gru
+from music_fader_nets_tpu_torch.ops import cuda_decoder, cuda_gru, cuda_stacked
+from music_fader_nets_tpu_torch.train.objectives import draw_noise
 from music_fader_nets_tpu_torch.utils.checkpoint import tree_map, tree_to
+
+# the kernel wrappers' modules whose LAST_TRAIN_PATH a step reads
+_PATH_MODULES = (cuda_gru, cuda_decoder, cuda_stacked)
 
 # leaves of the fast tree that Adam does not step (no gradient reaches
 # them: reference gmm_model.py:151-184 keeps them fixed)
@@ -55,10 +61,11 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, init_fn: Callable,
                  loss_fns: Dict[str, Callable], seed: int = 0, params=None,
                  device=None, noise_fn: Optional[Callable] = None):
-        """loss_fns: named objectives, e.g. {"default": gmm_loss,
-        "supervised": partial(gmm_loss, is_supervised=True)} for the
-        dual-corpus GM-VAE loop. `params` is a canonical tree (default:
-        `init_fn(torch.Generator().manual_seed(seed), cfg)`); it is copied.
+        """loss_fns: named objectives, e.g. {"default": vanilla_loss}, or
+        {"default": gmm_loss, "supervised": partial(gmm_loss,
+        is_supervised=True)} for the dual-corpus GM-VAE loop. `params` is
+        a canonical tree (default: `init_fn(torch.Generator().manual_seed(
+        seed), cfg)`); it is copied.
         Runs on CUDA unless device="cpu" (RuntimeError without a card)."""
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -83,10 +90,9 @@ class Trainer:
         self._host_step = 0      # batches seen; drives the noise
         self.train_path = None   # "kernel" / "plain-cpu" of the last step
 
-    def _default_noise(self, host_step: int, B: int, Z: int):
+    def _default_noise(self, host_step: int, B: int, loss_fn: Callable):
         gen = torch.Generator().manual_seed(self.seed * 1_000_003 + host_step)
-        eps = torch.randn((2, B, Z), generator=gen)
-        return eps[0], eps[1]
+        return draw_noise(loss_fn, gen, B, self.cfg)
 
     @property
     def fast_params(self) -> Dict:
@@ -105,11 +111,12 @@ class Trainer:
 
     def train_step(self, loss_fn: Callable, batch, eps):
         """One step on a batch of device tensors; returns the metrics."""
-        cuda_gru.LAST_TRAIN_PATH = cuda_decoder.LAST_TRAIN_PATH = None
+        for m in _PATH_MODULES:
+            m.LAST_TRAIN_PATH = None
         loss, metrics = loss_fn(self._fast, eps, batch, self.step, self.cfg)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        paths = {cuda_gru.LAST_TRAIN_PATH, cuda_decoder.LAST_TRAIN_PATH}
+        paths = {m.LAST_TRAIN_PATH for m in _PATH_MODULES} - {None}
         self.train_path = paths.pop() if len(paths) == 1 else "mixed"
         grads = []
         for t in self._trainable:
@@ -135,12 +142,11 @@ class Trainer:
             return {}
         bs = min(batch_size or self.cfg.batch_size, n)
         loss_fn = self._loss_fns[variant]
-        Z = self.cfg.z_dims
         totals, nb = None, 0
         for host_batch in batch_iterator(arrays, bs, shuffle=shuffle,
                                          seed=seed):
             eps = tuple(e.to(self.device, torch.float32)
-                        for e in self.noise_fn(self._host_step, bs, Z))
+                        for e in self.noise_fn(self._host_step, bs, loss_fn))
             self._host_step += 1
             batch = self._batch(host_batch)
             if train:

@@ -6,8 +6,9 @@ need a CUDA device and skip without one; run them on the card with
 
 Encoder finals to 1e-5 (float32, two summation orders, 7 steps); decode
 tokens exactly, the head sharpened 8x so no step is a near-tie. The
-training kernels (autograd Functions of `ops/cuda_gru.py` and
-`ops/cuda_decoder.py`) against autograd of their plain versions: values to
+training kernels (autograd Functions of `ops/cuda_gru.py`,
+`ops/cuda_stacked.py` and `ops/cuda_decoder.py`, the last with both its
+heads) against autograd of their plain versions: values to
 1e-5, gradients to atol=rtol=1e-4 (float32; the weight gradients sum up to
 T*B products in another order than cuBLAS does). Their reductions use no
 atomics, so two runs give bitwise the same gradients."""
@@ -16,8 +17,12 @@ import torch
 
 from music_fader_nets_tpu_torch.config import ModelConfig
 from music_fader_nets_tpu_torch.models.gmvae import init_reg_gmvae
-from music_fader_nets_tpu_torch.models.modules import global_decoder_init
-from music_fader_nets_tpu_torch.ops import cuda_decode, cuda_decoder, cuda_gru
+from music_fader_nets_tpu_torch.models.modules import (
+    global_decoder_init, global_decoder_teacher,
+)
+from music_fader_nets_tpu_torch.ops import (
+    cuda_decode, cuda_decoder, cuda_gru, cuda_stacked,
+)
 from music_fader_nets_tpu_torch.ops.gru import (
     direction_tokens, gru_init, stack_directions, vocab_pad,
 )
@@ -196,3 +201,85 @@ def test_decoder_ce_kernels_match_plain(dev, B, T):
     assert cuda_decoder.LAST_TRAIN_PATH == "kernel"
     assert cuda_decoder.LAUNCHES["decoder_ce_bwd"] == before[
         "decoder_ce_bwd"] + 2
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 7), (37, 1), (37, 7)])
+def test_stacked_gru_kernels_match_plain(dev, B, T):
+    gen = torch.Generator().manual_seed(B * 10 + T + 3)
+    L, H = 2, 80
+    G = 3 * H
+    pre = torch.randn((L, T, B, G), generator=gen) * 0.5
+    w_hh = torch.randn((L, H, G), generator=gen) * 0.1
+    b_hh = torch.randn((L, G), generator=gen) * 0.1
+    h0 = torch.randn((L, B, H), generator=gen) * 0.5
+    before = dict(cuda_stacked.LAUNCHES)
+    _grad_check(lambda _, *fl: cuda_stacked.stacked_gru(*fl),
+                lambda _, *fl: cuda_stacked.stacked_gru_plain(*fl), None,
+                [pre, w_hh, b_hh, h0], dev, B + T)
+    assert cuda_stacked.LAST_TRAIN_PATH == "kernel"
+    assert cuda_stacked.LAUNCHES["stacked_gru"] == before["stacked_gru"] + 2
+    assert cuda_stacked.LAUNCHES["stacked_gru_bwd"] == before[
+        "stacked_gru_bwd"] + 2
+    # without a gradient: the forward alone, the same values
+    with torch.no_grad():
+        args = [t.to(dev) for t in (pre, w_hh, b_hh, h0)]
+        torch.testing.assert_close(cuda_stacked.stacked_gru(*args),
+                                   cuda_stacked.stacked_gru_plain(*args),
+                                   rtol=0, atol=1e-5)
+    assert cuda_stacked.LAUNCHES["stacked_gru_bwd"] == before[
+        "stacked_gru_bwd"] + 2
+
+
+@pytest.mark.parametrize("n_rep", [1, 3])
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 7), (37, 1), (37, 7)])
+def test_decoder_masses_kernels_match_plain(dev, B, T, n_rep):
+    """B token rows, n_rep * B decoded rows; with n_rep = 3, three ranges,
+    one of them reaching into the pad lanes (where p is exactly 0)."""
+    gen = torch.Generator().manual_seed(B * 10 + T + n_rep)
+    V, H, Z = 342, 80, 40
+    Vp, G, R = vocab_pad(V), 3 * H, n_rep * B
+    p = global_decoder_init(gen, Z, V, H)
+    w_tok = torch.zeros((Vp, G))
+    w_tok[:V] = p["grucell_g"]["w_ih"][:V]
+    pre_z = torch.randn((R, G), generator=gen) * 0.3
+    h1_0 = torch.randn((R, H), generator=gen) * 0.5
+    w_out = torch.zeros((H, Vp))
+    w_out[:, :V] = p["linear_out_g"]["w"] * 4.0
+    b_out = torch.full((Vp,), cuda_decoder.PAD_LOGIT)
+    b_out[:V] = p["linear_out_g"]["b"]
+    g1, g2 = p["grucell_g"], p["grucell_g_2"]
+    tok = torch.randint(0, V, (T, B), generator=gen, dtype=torch.int32)
+    ranges = (((2, 90), (180, 278)) if n_rep == 1
+              else ((2, 90), (180, 278), (300, Vp)))
+    floats = [w_tok, pre_z, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
+              g2["w_hh"], g2["b_hh"], h1_0, w_out, b_out]
+
+    def with_ranges(f):
+        return lambda ids, *fl: f(ids, *fl, ranges, n_rep)
+
+    before = dict(cuda_decoder.LAUNCHES)
+    _grad_check(with_ranges(cuda_decoder.decoder_teacher_masses),
+                with_ranges(cuda_decoder.decoder_teacher_masses_plain),
+                tok.to(dev), floats, dev, B + T + n_rep)
+    assert cuda_decoder.LAST_TRAIN_PATH == "kernel"
+    assert cuda_decoder.LAUNCHES["decoder_masses_bwd"] == before[
+        "decoder_masses_bwd"] + 2
+
+
+def test_teacher_decode_without_tokens_runs_stacked_kernels(dev):
+    """`global_decoder_teacher` (one-hot input, no token ids) runs its two
+    recurrences through the generic stacked-GRU kernel on the card and
+    matches its plain run on the CPU."""
+    gen = torch.Generator().manual_seed(11)
+    V, H, Z, B, T = 342, 80, 40, 5, 9
+    p = global_decoder_init(gen, Z, V, H)
+    z = torch.randn((B, Z), generator=gen)
+    x_oh = torch.nn.functional.one_hot(
+        torch.randint(0, V, (B, T), generator=gen), V).float()
+    want = global_decoder_teacher(p, z, x_oh)
+    before = cuda_stacked.LAUNCHES["stacked_gru"]
+    with torch.no_grad():
+        got = global_decoder_teacher(tree_to(p, dev), z.to(dev),
+                                     x_oh.to(dev))
+    assert cuda_stacked.LAUNCHES["stacked_gru"] == before + 2
+    torch.testing.assert_close(got.cpu(), want.detach(), rtol=0, atol=1e-4)

@@ -1,13 +1,15 @@
 """PyTorch port, training kernels' modules (`ops/cuda_gru.py`,
-`ops/cuda_decoder.py`) against the JAX Pallas functions they replace, run
-in interpret mode, at small sizes: values and the gradient of every float
-input. On the CPU the port's wrappers run their plain versions, with
-autograd for the backward.
+`ops/cuda_stacked.py`, `ops/cuda_decoder.py`) against the JAX Pallas
+functions they replace, run in interpret mode, at small sizes: values and
+the gradient of every float input. On the CPU the port's wrappers run
+their plain versions, with autograd for the backward.
 
-Tolerances: values to 1e-5 (float32, two summation orders); encoder and
-sub-decoder gradients to atol=2e-4, rtol=1e-3 (the JAX package's own bound
-for its embed kernels, tests/test_pallas_gru.py:245); decoder NLL and its
-gradients to atol=3e-4, rtol=2e-3 (tests/test_pallas_gru.py:434).
+Tolerances: values to 1e-5 (float32, two summation orders; the decoder's
+softmax masses to 1e-6); encoder, sub-decoder, generic stacked-GRU and
+masses gradients to atol=2e-4, rtol=1e-3 (the JAX package's own bound for
+its GRU kernels, tests/test_pallas_gru.py:36-95,245); decoder NLL and its
+gradients to atol=3e-4, rtol=2e-3 (tests/test_pallas_gru.py:434); the
+teacher decode without tokens to 1e-4.
 
 The last tests hold the wrappers' rule for CUDA tensors on the CPU, with
 the device check and the launches faked: a call whose inputs want a
@@ -297,3 +299,182 @@ def test_decoder_wrapper_differentiates(monkeypatch):
     with torch.no_grad():
         cuda_decoder.decoder_teacher_nll(tok, tok, *fl)
     assert fake.calls[-1] == ("fwd", False)
+
+
+# ------------------------------------------------- stacked GRU, masses head
+
+def test_stacked_gru_values_and_grads_match_jax(pallas_interpret):
+    """Kernels 1 and 2: `stacked_gru_pallas` h_seq and the gradients of
+    pre, w_hh, b_hh and h0 (tests/test_pallas_gru.py:36-95 bounds)."""
+    from music_fader_nets_tpu_torch.ops import cuda_stacked
+    L, T, B, H = 2, 7, 3, 32
+    rng = np.random.default_rng(8)
+    floats = [_normal(rng, (L, T, B, 3 * H), 0.5),
+              _normal(rng, (L, H, 3 * H), 0.3), _normal(rng, (L, 3 * H), 0.1),
+              _normal(rng, (L, B, H), 0.5)]
+    proj = _normal(rng, (L, T, B, H), 1.0)
+
+    def no_ids(fn):
+        return lambda _, *fl: fn(*fl)
+    want, want_g = _jax_value_and_grads(no_ids(pallas_gru.stacked_gru_pallas),
+                                        np.zeros(1, np.int32), floats, proj)
+    got, got_g = _torch_value_and_grads(no_ids(cuda_stacked.stacked_gru),
+                                        np.zeros(1, np.int32), floats, proj)
+    assert cuda_stacked.LAST_TRAIN_PATH == "plain-cpu"
+    np.testing.assert_allclose(got, want, **VAL_TOL)
+    for name, g, w in zip(("pre", "w_hh", "b_hh", "h0"), got_g, want_g):
+        np.testing.assert_allclose(g, w, err_msg=name, **EMBED_GRAD_TOL)
+
+
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_decoder_masses_values_and_grads_match_jax(pallas_interpret, n_rep):
+    """Kernels 9 and 10 with the masses head through
+    `decoder_teacher_fused_masses`: the K = 2 GLSR masses (B, T) each and
+    the gradients of every decoder weight and of z; with n_rep = 4, z has
+    4 copies of the batch sharing its tokens."""
+    from music_fader_nets_tpu.losses.regularizers import (
+        GLSR_MASK_RANGES as J_RANGES,
+    )
+    from music_fader_nets_tpu_torch.losses.regularizers import (
+        GLSR_MASK_RANGES,
+    )
+    from music_fader_nets_tpu_torch.utils.checkpoint import params_from_numpy
+    assert tuple(map(tuple, J_RANGES)) == GLSR_MASK_RANGES
+    H, Zt, B0, T = 32, 20, 2, 6
+    p = _decoder_params(H, Zt, 4)
+    rng = np.random.default_rng(9)
+    z = _normal(rng, (n_rep * B0, Zt), 1.0)
+    tokens = rng.integers(0, V, size=(B0, T)).astype(np.int32)
+    projs = [_normal(rng, (n_rep * B0, T), 1.0) for _ in GLSR_MASK_RANGES]
+
+    def jloss(p, z):
+        mk = pallas_gru.decoder_teacher_fused_masses(
+            p, z, jnp.asarray(tokens), V, J_RANGES, n_rep=n_rep)
+        return sum(jnp.sum(m * w) for m, w in zip(mk, projs)), mk
+    (_, want), (gp, gz) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                             has_aux=True)(p, z)
+
+    tp = params_from_numpy(p)
+    for leaf in (t for d in tp.values() for t in d.values()):
+        leaf.requires_grad_(True)
+    tz = torch.from_numpy(z).requires_grad_(True)
+    got = cuda_decoder.decoder_teacher_fused_masses(
+        tp, tz, torch.from_numpy(tokens), V, GLSR_MASK_RANGES, n_rep)
+    assert cuda_decoder.LAST_TRAIN_PATH == "plain-cpu"
+    sum((m * torch.from_numpy(w)).sum() for m, w in zip(got, projs)
+        ).backward()
+    for m, w in zip(got, want):
+        np.testing.assert_allclose(m.detach().numpy(), np.asarray(w),
+                                   rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tz.grad.numpy(), np.asarray(gz),
+                               **EMBED_GRAD_TOL)
+    for k, d in tp.items():
+        for n, t in d.items():
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(gp[k][n]),
+                                       err_msg=f"{k}.{n}", **EMBED_GRAD_TOL)
+
+
+def test_teacher_decode_without_tokens_matches_jax(pallas_interpret,
+                                                   monkeypatch):
+    """`global_decoder_teacher` from one-hot inputs and no token ids: the
+    port's two generic stacked-GRU calls (their plain version here)
+    against the JAX package's kernel-1 route (models/modules.py:336-347,
+    taken on a TPU backend, so the backend reads as one here while the
+    kernel runs interpreted), log-probs to 1e-4."""
+    from music_fader_nets_tpu.models.modules import (
+        global_decoder_teacher as j_teacher,
+    )
+    from music_fader_nets_tpu_torch.models.modules import (
+        global_decoder_teacher,
+    )
+    from music_fader_nets_tpu_torch.ops import cuda_stacked
+    from music_fader_nets_tpu_torch.utils.checkpoint import params_from_numpy
+    H, Zt, B, T = 32, 20, 3, 7
+    p = _decoder_params(H, Zt, 5)
+    rng = np.random.default_rng(10)
+    z = _normal(rng, (B, Zt), 1.0)
+    x_oh = np.eye(V, dtype=np.float32)[rng.integers(0, V, (B, T))]
+    pallas_gru.LAST_TRAIN_PATH = None
+    with monkeypatch.context() as m:
+        m.setattr(jax, "default_backend", lambda: "tpu")
+        want = j_teacher(p, jnp.asarray(z), jnp.asarray(x_oh),
+                         use_pallas=True)
+    assert pallas_gru.LAST_TRAIN_PATH == "kernel-single"
+    got = global_decoder_teacher(params_from_numpy(p), torch.from_numpy(z),
+                                 torch.from_numpy(x_oh))
+    assert cuda_stacked.LAST_TRAIN_PATH == "plain-cpu"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)
+
+
+def test_stacked_gru_wrapper_differentiates(monkeypatch):
+    """On a CUDA tensor with a gradient wanted, `stacked_gru` goes through
+    `StackedGRU` and each input gets its own gradient; without one, the
+    forward runs alone, without the gate stash."""
+    from music_fader_nets_tpu_torch.ops import cuda_stacked
+    fake = _Fake(monkeypatch)
+    L, T, B, H = 2, 3, 2, 4
+    rng = np.random.default_rng(11)
+    shapes = [(L, T, B, 3 * H), (L, H, 3 * H), (L, 3 * H), (L, B, H)]
+    ts = [torch.from_numpy(_normal(rng, s, 0.1)) for s in shapes]
+
+    def fwd(pre, w_hh, b_hh, h0, stash):
+        fake.calls.append(("fwd", stash))
+        return (torch.zeros((L, T, B, H)),
+                torch.zeros((L, T, B, 4 * H)) if stash else None)
+
+    def bwd(g, stash, h_seq, h0, w_hh):
+        fake.calls.append(("bwd",))
+        return fake.consts(shapes)
+
+    monkeypatch.setattr(cuda_stacked, "_launch_fwd", fwd)
+    monkeypatch.setattr(cuda_stacked, "_launch_bwd", bwd)
+    for t in ts[:3]:                  # h0 wants no gradient
+        t.requires_grad_(True)
+    out = cuda_stacked.stacked_gru(*ts)
+    assert cuda_stacked.LAST_TRAIN_PATH == "kernel"
+    assert fake.calls == [("fwd", True)] and out.requires_grad
+    assert _grads_by_input(out, ts) == [1.0, 2.0, 3.0, None]
+    assert fake.calls[-1] == ("bwd",)
+    with torch.no_grad():
+        cuda_stacked.stacked_gru(*ts)
+    assert fake.calls[-1] == ("fwd", False)
+
+
+def test_decoder_masses_wrapper_differentiates(monkeypatch):
+    fake = _Fake(monkeypatch)
+    T, B0, n_rep, H, Vp = 3, 2, 3, 4, 8
+    B, G = B0 * n_rep, 3 * H
+    rng = np.random.default_rng(12)
+    tok = torch.from_numpy(rng.integers(0, 6, (T, B0)).astype(np.int32))
+    shapes = [(Vp, G), (B, G), (H, G), (G,), (H, G), (G,), (H, G), (G,),
+              (B, H), (H, Vp), (Vp,)]
+    fl = [torch.from_numpy(_normal(rng, s, 0.1)) for s in shapes]
+    ranges = ((0, 3), (4, 8))
+
+    def fwd(*args, stash):
+        assert args[-2:] == (ranges, n_rep)
+        fake.calls.append(("fwd", stash))
+        st = torch.zeros((T, B, 4 * H)) if stash else None
+        return (torch.zeros((T, 2, B)), torch.zeros((T, B, H)),
+                torch.zeros((T, B, H)), st, st)
+
+    def bwd(g, tok_t, *args):
+        assert tok_t.shape == (T, B0) and args[-2:] == (ranges, n_rep)
+        fake.calls.append(("bwd",))
+        return fake.consts(shapes)
+
+    monkeypatch.setattr(cuda_decoder, "_launch_masses_fwd", fwd)
+    monkeypatch.setattr(cuda_decoder, "_launch_masses_bwd", bwd)
+    for t in fl[:-1]:
+        t.requires_grad_(True)
+    out = cuda_decoder.decoder_teacher_masses(tok, *fl, ranges, n_rep)
+    assert cuda_decoder.LAST_TRAIN_PATH == "kernel"
+    assert fake.calls == [("fwd", True)] and out.requires_grad
+    assert _grads_by_input(out, fl) == [float(i) for i in range(1, 11)] + [
+        None]
+    with torch.no_grad():
+        cuda_decoder.decoder_teacher_masses(tok, *fl, ranges, n_rep)
+    assert fake.calls[-1] == ("fwd", False)
+    with pytest.raises(ValueError, match="ranges"):
+        cuda_decoder.decoder_teacher_masses(tok, *fl, ((0, 1),) * 5, n_rep)

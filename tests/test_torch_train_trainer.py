@@ -148,12 +148,11 @@ def _jax_noise_fn(seed):
     gmvae.py:121-123)."""
     base = jax.random.PRNGKey(seed)
 
-    def noise(host_step, n, z_dims):
+    def noise(host_step, n, loss_fn):
         rng = jax.random.fold_in(base, host_step)
         keys = jax.random.split(rng)
-        return tuple(torch.from_numpy(np.array(jax.random.normal(k, (n,
-                                                                     z_dims))))
-                     for k in keys)
+        return tuple(torch.from_numpy(np.array(jax.random.normal(
+            k, (n, SMALL["z_dims"])))) for k in keys)
     return noise
 
 
