@@ -18,10 +18,17 @@ B=32 and unsupervised B=128 steps and an evaluation pass at full width on
 random in-schema batches, its first step's loss and gradients held against
 the plain path on the card. The generic stacked-GRU kernels (the CVAE
 encoder's shape, L=2, I=344) and the decoder with the masses head (GLSR's
-perturbation decode, 4 x 128 rows) are held the same way, and the other
-five families (vanilla RegVAE, GLSR, CVAE, FaderNets, SingleVAE) each
-train 5 steps at B=128 through their `Trainer`, first step against the
-plain path, timed over the last 3. Every phase prints one JSON
+perturbation decode, 4 x 128 rows) are held the same way, as is the decoder
+without a head (the fused teacher decoder), and the other five families
+(vanilla RegVAE, GLSR, CVAE, FaderNets, SingleVAE) each train 5 steps at
+B=128 through their `Trainer`, first step against the plain path, timed
+over the last 3. The single GM-VAE's forward and backward (encoder kernels
+and the fused teacher decoder) are held against the plain path and a
+float64 witness, and the evaluation path runs at full width on the
+synthetic corpus: the eval CLI, a reconstruction report (kernel path
+against plain path), the rhythm and note controllability evaluators (every
+decoded row against the plain decode) and one epoch of the CVAE's
+condition sweep. Every phase prints one JSON
 line; the kernels line follows, then the card's name and power limit as
 nvidia-smi reports them, then the final status line. Any failed check
 exits non-zero without the status line. Needs one CUDA device; imports
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import os
 import statistics
@@ -69,11 +77,12 @@ def fail(msg: str) -> int:
 
 @contextlib.contextmanager
 def plain_path(cuda_gru, cuda_decoder, cuda_stacked):
-    """Route the training path's five kernel wrappers to their plain
+    """Route the training path's six kernel wrappers to their plain
     versions while the block runs, on CUDA tensors as well: the reference
     the kernel path is held to on the same card."""
     swaps = [(cuda_gru, "stacked_gru_embed_finals"),
              (cuda_gru, "stacked_gru_embed_seq"),
+             (cuda_decoder, "decoder_teacher"),
              (cuda_decoder, "decoder_teacher_nll"),
              (cuda_decoder, "decoder_teacher_masses"),
              (cuda_stacked, "stacked_gru")]
@@ -130,6 +139,16 @@ def worst_leaf(got, want, names):
             "grad_max_rel_err": errs[i][1], "worst_leaf": names[i]}
 
 
+SCORE_FIELDS = ("consistency", "restrictiveness", "monotonicity")
+
+
+def dataclass_values(scores):
+    """EvalScores -> {field: [mean, std]}, a nan (every sample of an epoch
+    discarded) written as the string "nan"."""
+    return {f: [v if np.isfinite(v) else "nan" for v in getattr(scores, f)]
+            for f in SCORE_FIELDS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -137,7 +156,21 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import music_fader_nets_tpu_torch  # noqa: F401  (sets TF32 off)
     from music_fader_nets_tpu_torch.config import ModelConfig
-    from music_fader_nets_tpu_torch.models.gmvae import init_reg_gmvae
+    from music_fader_nets_tpu_torch import models
+    from music_fader_nets_tpu_torch.data.synthetic import synth_corpus
+    from music_fader_nets_tpu_torch.eval import cli as eval_cli
+    from music_fader_nets_tpu_torch.eval.controllability import (
+        ConditionControllabilityEvaluator, ControllabilityEvaluator,
+        latent_stats,
+    )
+    from music_fader_nets_tpu_torch.eval.reconstruction import (
+        reconstruction_report,
+    )
+    from music_fader_nets_tpu_torch.models.fast import split_fast
+    from music_fader_nets_tpu_torch.models.gmvae import (
+        init_reg_gmvae, init_single_gmvae, reg_gmvae_forward,
+        single_gmvae_forward,
+    )
     from music_fader_nets_tpu_torch.models.modules import global_decoder_init
     from music_fader_nets_tpu_torch.models.vae import (
         _global_view, reg_vae_encode,
@@ -156,6 +189,7 @@ def main() -> int:
     from music_fader_nets_tpu_torch.losses.regularizers import (
         GLSR_MASK_RANGES,
     )
+    from music_fader_nets_tpu_torch.train.cli import _forward_for
     from music_fader_nets_tpu_torch.train.objectives import gmm_loss
     from music_fader_nets_tpu_torch.train.profile import (
         FAMILIES, random_corpus,
@@ -637,6 +671,25 @@ def main() -> int:
     if rc:
         return rc
 
+    # decoder without a head: the same recurrence, its output h2_seq and
+    # the cotangent of h2_seq in place of the head's (kernels 7, 8)
+    # (a generator of its own: the later phases keep their inputs)
+    t_cot = (torch.randn((T, TB, H), generator=torch.Generator().manual_seed(
+        SEED + 4)) * 0.01).to(dev)
+    tea_f = 2.0 * T * TB * 3 * H * G
+    rc = train_kernel_phase(
+        "train_decoder_teacher_kernels",
+        ("decoder_teacher", "decoder_teacher_bwd"),
+        (csrc + "decoder_ce.cu", csrc + "decoder_ce_bwd.cu"),
+        (pg + "1110", pg + "1304"), cuda_decoder.decoder_teacher,
+        cuda_decoder.decoder_teacher_plain, d_tok,
+        [d_wtok, d_prez, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
+         g2["w_hh"], g2["b_hh"], d_h10], t_cot,
+        {"T": T, "B": TB, "H": H, "Vp": Vp}, (tea_f, 2 * tea_f))
+    if rc:
+        return rc
+    del t_cot
+
     # generic stacked GRU: the CVAE encoder's L=2 directions over the
     # hoisted projections of x_in = [one-hot, r_density, n_density]
     # (I = 344), T=100, B=128 (kernels 1, 2). Yardstick: cuDNN's
@@ -928,8 +981,292 @@ def main() -> int:
                         f"{f_launches}")
         del ftr, f_leaves
 
+    # -------------------------------------------------- single GM-VAE
+    # `single_gmvae_forward(train=True, tokens=...)` at ModelConfig()
+    # widths, B=128, fast layout: forward and backward of a fixed scalar
+    # (the mean NLL of `out` at the targets + the mean of `log_logit`)
+    # through the encoder kernels (L=2) and the fused teacher decoder
+    # (kernels 7/8), against the plain path on this card and a float64
+    # plain witness; then 3 timed forward + backward runs with the counts
+    # set to 0 just before.
+    sg_fast = tree_to(split_fast(init_single_gmvae(
+        torch.Generator().manual_seed(SEED), cfg))[0], dev)
+    sg_names, sg_leaves = zip(*[
+        (n, t.requires_grad_(True)) for n, t in named_leaves(sg_fast)
+        if n != "logvar_lookup"])
+    sg_tok = fam_first["x"]
+    sg_eps = torch.randn((TB, Z), generator=torch.Generator().manual_seed(
+        SEED + 5)).to(dev)
+
+    def sg_loss_grads(params=sg_fast, eps=sg_eps, leaves=sg_leaves):
+        fwd = single_gmvae_forward(params, eps, None, cfg, train=True,
+                                   tokens=sg_tok)
+        nll = -fwd["out"].gather(-1, sg_tok.long()[..., None]).mean()
+        loss = nll + fwd["log_logit"].mean()
+        return loss.detach(), torch.autograd.grad(loss, leaves,
+                                                  allow_unused=True)
+
+    for m in (cuda_gru, cuda_decoder, cuda_stacked):
+        m.LAST_TRAIN_PATH = None
+    sg_loss_k, sg_grads_k = sg_loss_grads()
+    sg_paths = sorted({m.LAST_TRAIN_PATH for m in (
+        cuda_gru, cuda_decoder, cuda_stacked)} - {None})
+    copies = {}
+
+    def sg_to64(t):
+        c = t.detach().double().requires_grad_(t.requires_grad)
+        copies[id(t)] = c
+        return c
+
+    sg_64 = tree_map(sg_to64, sg_fast)
+    with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
+        sg_loss_p, sg_grads_p = sg_loss_grads()
+        sg_loss_64, sg_grads_64 = sg_loss_grads(
+            sg_64, sg_eps.double(), [copies[id(t)] for t in sg_leaves])
+    torch.cuda.synchronize()
+    sg_loss_err = abs(float(sg_loss_k) - float(sg_loss_p))
+    sg_worst = worst_leaf(sg_grads_k, sg_grads_p, sg_names)
+    sg_witness = {
+        key: {**worst_leaf(g, sg_grads_64, sg_names),
+              "loss_abs_err": abs(float(loss) - float(sg_loss_64))}
+        for key, loss, g in (("kernel", sg_loss_k, sg_grads_k),
+                             ("plain", sg_loss_p, sg_grads_p))}
+    del sg_grads_k, sg_grads_p, sg_grads_64, sg_64, copies
+    sg_loss_grads()                                        # warm
+    torch.cuda.synchronize()
+    for counts in all_counts:
+        for k in counts:
+            counts[k] = 0
+    t0 = time.monotonic()
+    for _ in range(3):
+        sg_loss_grads()
+    torch.cuda.synchronize()
+    sg_ms = (time.monotonic() - t0) * 1e3 / 3
+    sg_launches = {k: v for counts in all_counts for k, v in counts.items()
+                   if v}
+    # the GM-VAE's forward with tokens and no NLL targets takes the fused
+    # teacher decoder too; its `out` against the route without tokens
+    # (one-hot inputs through the generic stacked-GRU kernel)
+    with torch.no_grad():
+        oh = (lambda ids, n: torch.nn.functional.one_hot(ids.long(),
+                                                         n).float())
+        r_oh, n_oh = (oh(fam_first["r"], cfg.rhythm_dims),
+                      oh(fam_first["n"], cfg.note_dims))
+        e2 = torch.randn((2, TB, Z), generator=torch.Generator().manual_seed(
+            SEED + 6)).to(dev)
+        before = cuda_decoder.LAUNCHES["decoder_teacher"]
+        with_tok = reg_gmvae_forward(p_dev, e2[0], e2[1], None, r_oh, n_oh,
+                                     fam_first["c"], cfg, train=True,
+                                     tokens=sg_tok)["out"]
+        gm_teacher = cuda_decoder.LAUNCHES["decoder_teacher"] - before
+        no_tok = reg_gmvae_forward(p_dev, e2[0], e2[1],
+                                   oh(sg_tok, cfg.roll_dims), r_oh, n_oh,
+                                   fam_first["c"], cfg, train=True)["out"]
+        gm_out_err = float((with_tok - no_tok).abs().max())
+        del with_tok, no_tok
+    emit({"phase": "single_gmvae", "B": TB, "loss_kernel": float(sg_loss_k),
+          "loss_plain": float(sg_loss_p), "loss_abs_err": sg_loss_err,
+          "grad_max_abs_err": sg_worst["grad_max_abs_err"],
+          "grad_max_rel_err": sg_worst["grad_max_rel_err"],
+          "grad_worst_leaf": sg_worst["worst_leaf"],
+          "tol_grad_rel": TOL_TRAIN_GRAD_REL, "kernel_paths": sg_paths,
+          "float64_witness": sg_witness, "fwd_bwd_ms": sg_ms,
+          "launches": sg_launches,
+          "gmvae_tokens_no_nll": {"decoder_teacher_launches": gm_teacher,
+                                  "out_max_abs_err": gm_out_err,
+                                  "tol": TOL_TRAIN_OUT}})
+    if sg_paths != ["kernel"]:
+        return fail(f"single_gmvae ran {sg_paths}, not the kernels")
+    if not (sg_loss_err <= TOL_TRAIN_OUT * max(1.0, abs(float(sg_loss_p)))
+            and sg_worst["grad_max_rel_err"] <= TOL_TRAIN_GRAD_REL):
+        return fail(f"single_gmvae kernel vs plain: loss {sg_loss_err}, "
+                    f"gradients {sg_worst}")
+    sg_kernels = ("embed_gru_train", "embed_gru_bwd", "decoder_teacher",
+                  "decoder_teacher_bwd")
+    if not all(sg_launches.get(k, 0) > 0 for k in sg_kernels):
+        return fail(f"single_gmvae: a kernel never launched: {sg_launches}")
+    if gm_teacher != 1 or not gm_out_err <= TOL_TRAIN_OUT:
+        return fail(f"reg_gmvae_forward with tokens: {gm_teacher} fused "
+                    f"decoder launches, out error {gm_out_err}")
+    del sg_fast, sg_leaves
+
+    # ------------------------------------------------------- evaluation
+    # The evaluation path at full width on the port's synthetic corpus
+    # (seed 0, 1,536 segments: 1,228 / 154 / 154), the GM-VAE at its random
+    # init. (1) The entry point, as a user runs it. (2) The reconstruction
+    # report on the test split at B=128, kernel path against plain path.
+    # (3) The rhythm and note evaluators at the CLI's workload (2 epochs x
+    # 20 samples x 8 values, 100 steps), every decoded row held against
+    # the plain decode of the same z. (4) One epoch of the CVAE's
+    # condition sweep, which decodes through the `global_decode` loop.
+    n_seg = 1536
+    for counts in all_counts + (cuda_decode.LAUNCHES,):
+        for k in counts:
+            counts[k] = 0
+    cli_out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(cli_out):
+        eval_cli.main(["gmm", "--synthetic-size", str(n_seg), "--seed",
+                       str(SEED), "--save-dir", "build/no_checkpoints"])
+    torch.cuda.synchronize()
+    cli_s = time.monotonic() - t0
+    cli_launches = {k: v for counts in all_counts + (cuda_decode.LAUNCHES,)
+                    for k, v in counts.items() if v}
+    cli_path = cuda_decode.LAST_DECODE_PATH
+    cli_text = cli_out.getvalue()
+
+    t0 = time.monotonic()
+    corpus = synth_corpus(n_seg, cfg.seq_len, cfg.attr_len, seed=SEED)
+    corpus_s = time.monotonic() - t0
+    ev_train = YamahaDataset(*corpus, mode="train").arrays()
+    ev_test = YamahaDataset(*corpus, mode="test").arrays()
+    gm_fwd, gm_sub, gm_draw = _forward_for("gmm", cfg)
+
+    def report():
+        return reconstruction_report(p_dev, gm_fwd, ev_test, cfg,
+                                     draw=gm_draw, batch_size=TB, seed=SEED,
+                                     has_subdecoders=gm_sub)
+
+    report()                                               # warm
+    before = cuda_stacked.LAUNCHES["stacked_gru"]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rep_k = report()
+    torch.cuda.synchronize()
+    report_s = time.monotonic() - t0
+    rep_stacked = cuda_stacked.LAUNCHES["stacked_gru"] - before
+    before = cuda_stacked.LAUNCHES["stacked_gru"]
+    with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
+        rep_p = report()
+    if cuda_stacked.LAUNCHES["stacked_gru"] != before:
+        return fail("the plain reconstruction report launched a kernel")
+    rep_err = max(abs(rep_k[k] - rep_p[k]) for k in rep_k)
+    rep_finite = all(np.isfinite(v) for v in rep_k.values())
+
+    def encode_batched(batch, g):
+        (mu_r, std_r), (mu_n, std_n) = models.reg_vae_encode(
+            p_dev, None, tokens=batch["x"])
+        draw = (lambda mu, std: mu + std * torch.randn(
+            mu.shape, generator=g).to(dev))
+        return draw(mu_r, std_r), draw(mu_n, std_n)
+
+    stats = latent_stats(encode_batched, ev_train, cfg, seed=SEED)
+    stats_te = latent_stats(encode_batched, ev_test, cfg, seed=SEED)
+    gview_dev = _global_view(p_dev)
+    evaluators = {}
+    for target, lo, hi in (("rhythm", stats_te["z_r_min"],
+                            stats_te["z_r_max"]),
+                           ("note", stats_te["z_n_min"],
+                            stats_te["z_n_max"])):
+        ev = ControllabilityEvaluator(
+            p_dev, cfg, models.reg_vae_encode, models.reg_vae_global_decode,
+            target=target, epochs=2, num_of_samples=20, decode_steps=100,
+            seed=SEED, verbose=False,
+            decode_tokens=models.reg_vae_decode_tokens)
+        waves = []
+        inner = ev._decode_all
+
+        def decode_all(z_full, inner=inner, waves=waves):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            toks = inner(z_full)
+            torch.cuda.synchronize()
+            waves.append((z_full.clone(), toks,
+                          cuda_decode.LAST_DECODE_PATH,
+                          time.monotonic() - t1))
+            return toks
+
+        ev._decode_all = decode_all
+        before = cuda_decode.LAUNCHES["greedy_decode"]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        scores = ev.evaluate(ev_test, lo, hi, stats["r_std"], stats["n_std"])
+        torch.cuda.synchronize()
+        ev_s = time.monotonic() - t0
+        n_greedy = cuda_decode.LAUNCHES["greedy_decode"] - before
+        parted_rows, gap, rows = 0, 0.0, 0
+        with torch.inference_mode():
+            for z_full, toks, _, _ in waves:
+                a, _, _ = cuda_decode._prep_decode_args(gview_dev, z_full)
+                ref = cuda_decode.plain_decode_tokens(gview_dev, z_full, 100)
+                try:
+                    n_p, g_p = cuda_decode.near_tie_partings(
+                        a, V, torch.from_numpy(toks).to(dev), ref,
+                        tol=TOL_NEAR_TIE)
+                except AssertionError as e:
+                    return fail(f"evaluation, {target} evaluator's decode "
+                                f"vs plain: {e}")
+                parted_rows += n_p
+                gap = max(gap, g_p)
+                rows += len(toks)
+        flat = [v for f in SCORE_FIELDS for v in getattr(scores, f)]
+        evaluators[target] = {
+            "seconds": ev_s, "decode_seconds": sum(w[3] for w in waves),
+            "scores": dataclass_values(scores),
+            "scores_are_floats": all(isinstance(v, float) for v in flat),
+            "waves": len(waves), "decoded_rows": rows,
+            "greedy_decode_launches": n_greedy,
+            "decode_paths": sorted({w[2] for w in waves}),
+            "plain_near_tie_rows": parted_rows, "largest_gap": gap}
+    # CVAE: one epoch, 20 samples, through the argmax of global_decode
+    cv_params = tree_to(models.init_cvae(
+        torch.Generator().manual_seed(SEED), cfg), dev)
+    cv = ConditionControllabilityEvaluator(
+        cv_params, cfg, models.cvae_encode, models.cvae_global_decode,
+        target="rhythm", epochs=1, num_of_samples=20, decode_steps=100,
+        seed=SEED, verbose=False)
+    cv_calls = []
+    cv_inner = cv._decode_all
+
+    def cv_decode_all(z_full):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        toks = cv_inner(z_full)
+        torch.cuda.synchronize()
+        cv_calls.append({"rows": int(z_full.shape[0]),
+                         "ms": (time.monotonic() - t1) * 1e3})
+        return toks
+
+    cv._decode_all = cv_decode_all
+    t0 = time.monotonic()
+    cv_scores = cv.evaluate(ev_test, 0.0, 1.0, stats["r_std"],
+                            stats["n_std"])
+    torch.cuda.synchronize()
+    cv_s = time.monotonic() - t0
+    emit({"phase": "evaluation", "segments": n_seg, "corpus_seconds": corpus_s,
+          "cli": {"seconds": cli_s, "launches": cli_launches,
+                  "decode_path": cli_path,
+                  "reports_printed": cli_text.count("Consistency:")},
+          "reconstruction_report": {
+              "rows": len(ev_test["x"]), "B": TB, "seconds": report_s,
+              "report": rep_k, "vs_plain_max_abs_err": rep_err,
+              "tol": TOL_TRAIN_OUT, "finite": rep_finite,
+              "stacked_gru_launches": rep_stacked},
+          "latent_stats": {"train": stats, "test": stats_te},
+          "evaluators": evaluators,
+          "cvae_condition_sweep": {
+              "seconds": cv_s, "decode_calls": cv_calls,
+              "scores": dataclass_values(cv_scores)}})
+    if cli_text.count("Consistency:") != 2:
+        return fail(f"eval CLI printed no two reports:\n{cli_text[-2000:]}")
+    if not (cli_launches.get("greedy_decode", 0) > 0
+            and cli_launches.get("embed_gru", 0) > 0
+            and cli_path in ("kernel", "kernel-chunked")):
+        return fail(f"eval CLI did not run the kernels: {cli_launches}, "
+                    f"{cli_path}")
+    if not (rep_finite and rep_err <= TOL_TRAIN_OUT and rep_stacked > 0):
+        return fail(f"reconstruction report: finite {rep_finite}, vs plain "
+                    f"{rep_err}, stacked_gru launches {rep_stacked}")
+    for target, e in evaluators.items():
+        if not (e["greedy_decode_launches"] > 0 and e["scores_are_floats"]
+                and set(e["decode_paths"]) <= {"kernel", "kernel-chunked"}):
+            return fail(f"{target} evaluator: {e}")
+    del cv_params, cv
+
     launches = {**serving_launches,
                 **{k: train_launches[k] for k in train_kernels},
+                **{k: sg_launches[k] for k in ("decoder_teacher",
+                                               "decoder_teacher_bwd")},
                 **{k: family_launches[fam][k]
                    for fam, ks in family_kernels.items() for k in ks}}
     for name, k in kernels.items():

@@ -7,12 +7,14 @@ input-major `(I, 3H)` / `(H, 3H)`, gate order r, z, n) so each module's
 counterpart is easy to find and weights carry across with a plain copy.
 
 Ported so far: the GM-VAE serving path (the token bi-GRU encoder, the
-latent shift and the 300-step greedy / Gumbel-max sampling decode) and its
-training step (`gmm_loss` and the `Trainer`), with hand-written CUDA
-kernels (`csrc/`) in place of the Pallas kernels on those paths; each
-training kernel is a `torch.autograd.Function` with a backward kernel.
-Every kernel wrapper keeps a plain PyTorch version beside it, used only
-for tensors that lie on the CPU.
+latent shift and the 300-step greedy / Gumbel-max sampling decode), the
+training step of all six families (their objectives and the `Trainer`),
+the single GM-VAE, and the evaluation path (reconstruction report,
+controllability metrics and their CLI, with the host-side tokenizer they
+read), with hand-written CUDA kernels (`csrc/`) in place of every Pallas
+kernel; each training kernel is a `torch.autograd.Function` with a
+backward kernel. Every kernel wrapper keeps a plain PyTorch version beside
+it, used only for tensors that lie on the CPU.
 
 Layout:
   ops/        GRU primitives, sampling, kernel build + wrappers
@@ -20,8 +22,13 @@ Layout:
   models/     encoder / sub-decoder / global decoder modules, RegVAE +
               GM-VAE pieces, the fast (kernel-layout) parameter view
   losses/     ELBO terms, GM-VAE KL terms, the Pati regularizer
-  data/       dataset views and batch iteration
-  train/      the GM-VAE objective, the Trainer, a step profiler
+  tokenizer/  MIDI notes, the 342-token performance codec, pianoroll
+              attributes, key estimation, the corpus pipeline (host side)
+  data/       corpora (cache, MIDI rebuild, synthetic), dataset views and
+              batch iteration
+  train/      the objectives, the Trainer, a step profiler, what the CLIs
+              share
+  eval/       reconstruction report, controllability evaluators, eval CLI
   transfer/   latent shift vectors of arousal transfer
   serve/      micro-batching TransferServer and its JSON-lines CLI
   utils/      numpy <-> tensor parameter conversion

@@ -1,8 +1,10 @@
-// Teacher-forced 2-layer GRU decoder with its heads, forward: the
-// cross-entropy head and the masses head.
+// Teacher-forced 2-layer GRU decoder, forward: without a head, with the
+// cross-entropy head and with the masses head.
 //
-// Replaces: music_fader_nets_tpu/ops/pallas_gru.py::_dec_fwd_ce_kernel
-// with head="ce" (the forward of decoder_teacher_fused_nll, through
+// Replaces: music_fader_nets_tpu/ops/pallas_gru.py::_dec_fwd_kernel :1110
+// (the forward of decoder_teacher_fused :2269, which returns h2_seq and
+// leaves the logits head to the caller; entry fader_decoder_teacher) and
+// ::_dec_fwd_ce_kernel with head="ce" (the forward of decoder_teacher_fused_nll, through
 // _dec_nll_core; entry fader_decoder_ce) and with head = vocabulary ranges
 // (the forward of decoder_teacher_fused_masses :2131, through
 // _dec_mask_core :1842; entry fader_decoder_masses).
@@ -26,7 +28,7 @@
 // What bounds it on an H100: float32 FMA. CE at T=100, B=128, H=512,
 // Vp=384: 2 x 100 x 128 x (3 x 512 x 1536 + 512 x 384) = 65 GFLOP,
 // 0.97 ms at 67 TFLOP/s; masses at B = 4 x 128 = 512 rows: 262 GFLOP,
-// 3.9 ms.
+// 3.9 ms; without a head the three products a step, 60.4 GFLOP, 0.90 ms.
 //
 // Design: two launches a step (layer 1 is the embedded-id training step of
 // embed_gru.cu with pre_z as the per-sequence add; layer 2 multiplies its
@@ -368,4 +370,19 @@ extern "C" int fader_decoder_masses(
   if (err != cudaSuccess) return (int)err;
   return (int)launch_mass_head(T * B, B, H, Vp, rg, h2_seq, w_out, b_out,
                                nullptr, masses, nullptr, s);
+}
+
+// The recurrence alone (kernel 7): as fader_decoder_ce without w_out,
+// b_out, tgt and nll. Outputs h1_seq, h2_seq (T,B,H); g41, g42 (T,B,4H) or
+// both null (no gradient). 2T launches. T >= 1.
+extern "C" int fader_decoder_teacher(
+    int T, int B, int H, int Vp, const int* tok, const float* w_tok,
+    const float* pre_z, const float* w_hh1, const float* b_hh1,
+    const float* w_ih2, const float* b_ih2, const float* w_hh2,
+    const float* b_hh2, const float* h1_0, float* h1_seq, float* h2_seq,
+    float* g41, float* g42, void* stream) {
+  return (int)fader::launch_decoder_recurrence(
+      T, B, H, Vp, tok, w_tok, pre_z, w_hh1, b_hh1, w_ih2, b_ih2, w_hh2,
+      b_hh2, h1_0, h1_seq, h2_seq, g41, g42,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,15 +1,18 @@
-// Teacher-forced 2-layer GRU decoder with its heads, backward: the
-// cross-entropy head and the masses head.
+// Teacher-forced 2-layer GRU decoder, backward: without a head, with the
+// cross-entropy head and with the masses head.
 //
-// Replaces: music_fader_nets_tpu/ops/pallas_gru.py::_dec_bwd_ce_kernel
-// with head="ce" (the backward of decoder_teacher_fused_nll, through
-// _dec_nll_core and the shared chain _dec_bwd_chain :1222; entry
-// fader_decoder_ce_bwd) and with head = vocabulary ranges (the backward of
-// decoder_teacher_fused_masses, through _dec_mask_core; entry
+// Replaces: music_fader_nets_tpu/ops/pallas_gru.py::_dec_bwd_kernel :1304
+// (the backward of decoder_teacher_fused :2269, from the cotangent of
+// h2_seq, through the shared chain _dec_bwd_chain :1222; entry
+// fader_decoder_teacher_bwd) and ::_dec_bwd_ce_kernel with head="ce" (the
+// backward of decoder_teacher_fused_nll, through _dec_nll_core and the same
+// chain; entry fader_decoder_ce_bwd) and with head = vocabulary ranges (the
+// backward of decoder_teacher_fused_masses, through _dec_mask_core; entry
 // fader_decoder_masses_bwd).
 //
 // What it computes, from the head's cotangent g (NLL: (T, B); masses:
-// (T, K, B)) and the forward's h1_seq, h2_seq and gate stashes g41, g42:
+// (T, K, B); no head: dh2_head = g (T, B, H) itself) and the forward's
+// h1_seq, h2_seq and gate stashes g41, g42:
 //   head   : CE:     dlogits = (softmax(h2 @ w_out + b_out) - onehot(tgt)) g
 //            masses: dlogits = p * sum_k g_k (1[j in range k] - m_k)
 //                    (pallas_gru.py:1672-1681)
@@ -32,14 +35,16 @@
 // What bounds it on an H100: float32 FMA, ~2x the forward's 65 GFLOP
 // (the chains' dh products, the weight-gradient GEMMs and the head's logits
 // and dh2_head), ~2 ms at 67 TFLOP/s at T=100, B=128; the masses head at
-// 512 rows 544 GFLOP, 8.1 ms.
+// 512 rows 544 GFLOP, 8.1 ms; without a head 2 x 60.4 GFLOP, 1.8 ms.
 //
 // Design: the head runs first and batched over all T*B rows (ce_head or
 // mass_head in decoder_ce.cu writes dlogits, then one hand-written GEMM
-// gives dh2_head for every step). Both heads share all that follows
-// (decoder_bwd_from_dlogits). The chains take three launches a step: the layer-2
-// step of embed_gru_bwd.cu (gate backward + dh2 @ w_hh2^T), rows_gemm_add
-// (dh1 += dpre2x @ w_ih2^T), and the layer-1 step; each stashes its dpre
+// gives dh2_head for every step; decoder_bwd_from_dlogits). All three
+// entries share what follows (decoder_bwd_from_dh2): without a head the
+// cotangent of h2_seq is dh2_head as it stands. The chains take three
+// launches a step: the layer-2 step of embed_gru_bwd.cu (gate backward +
+// dh2 @ w_hh2^T), rows_gemm_add (dh1 += dpre2x @ w_ih2^T), and the
+// layer-1 step; each stashes its dpre
 // rows, and grad_reduce.cu turns them into the weight gradients after the
 // chain with deterministic GEMMs, scatter and sums.
 #include "gru_tile.cuh"
@@ -82,26 +87,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// Everything after the head, from dlogits (T*B, Vp): dh2_head, the two
-// chains and the weight gradients. tok (T, B/n_rep) are the input ids of
+// The two chains and the recurrence's weight gradients, from dh2_head
+// (T, B, H), the cotangent of h2_seq. tok (T, B/n_rep) are the input ids of
 // the B/n_rep distinct sequences; fold (T, B/n_rep, 3H) is scratch when
 // n_rep > 1 (else unused).
-cudaError_t decoder_bwd_from_dlogits(
+cudaError_t decoder_bwd_from_dh2(
     int T, int B, int H, int Vp, int n_rep, const int* tok,
     const float* h1_seq, const float* h2_seq, const float* g41,
     const float* g42, const float* h1_0, const float* w_hh1T,
-    const float* w_ih2T, const float* w_hh2T, const float* w_outT,
-    float* dlogits, float* dh2_head, float* dh2_buf, float* dh1_carry,
-    float* dh1_mid, float* s1x, float* s1h, float* s2x, float* s2h,
-    float* fold, float* dw_tok, float* dpre_z, float* dw_hh1,
-    float* db_hh1, float* dw_ih2, float* db_ih2, float* dw_hh2,
-    float* db_hh2, float* dh1_0, float* dw_out, float* db_out,
-    cudaStream_t s) {
+    const float* w_ih2T, const float* w_hh2T, const float* dh2_head,
+    float* dh2_buf, float* dh1_carry, float* dh1_mid, float* s1x, float* s1h,
+    float* s2x, float* s2h, float* fold, float* dw_tok, float* dpre_z,
+    float* dw_hh1, float* db_hh1, float* dw_ih2, float* db_ih2,
+    float* dw_hh2, float* db_hh2, float* dh1_0, cudaStream_t s) {
   const long long BH = (long long)B * H, G = 3LL * H;
   const int R = T * B;
   cudaError_t err;
-  if ((err = gemm_nn(R, H, Vp, dlogits, w_outT, dh2_head, s)) != cudaSuccess)
-    return err;
   if ((err = cudaMemsetAsync(dh2_buf, 0, BH * sizeof(float), s)) !=
           cudaSuccess ||
       (err = cudaMemsetAsync(dh1_carry, 0, BH * sizeof(float), s)) !=
@@ -142,7 +143,6 @@ cudaError_t decoder_bwd_from_dlogits(
   const SplitRows h1prev{h1_0, 0, B, h1_seq, 0, H};
   const SplitRows h1cur{nullptr, 0, 0, h1_seq, 0, H};
   const SplitRows h2prev{h1_seq, 0, B, h2_seq, 0, H};
-  const SplitRows h2cur{nullptr, 0, 0, h2_seq, 0, H};
   if ((err = segment_rows(1, T * B0, (int)G, Vp, tok, tok_rows, dw_tok, s)) ||
       (err = sum_over_t(1, T, (int)(B * G), s1x, dpre_z, s)) ||
       (err = gemm_tn(1, H, (int)G, R, h1prev, s1h, 0, dw_hh1, 0, s)) ||
@@ -150,8 +150,37 @@ cudaError_t decoder_bwd_from_dlogits(
       (err = gemm_tn(1, H, (int)G, R, h1cur, s2x, 0, dw_ih2, 0, s)) ||
       (err = colsum(1, R, (int)G, s2x, db_ih2, s)) ||
       (err = gemm_tn(1, H, (int)G, R, h2prev, s2h, 0, dw_hh2, 0, s)) ||
-      (err = colsum(1, R, (int)G, s2h, db_hh2, s)) ||
-      (err = gemm_tn(1, H, Vp, R, h2cur, dlogits, 0, dw_out, 0, s)) ||
+      (err = colsum(1, R, (int)G, s2h, db_hh2, s)))
+    return err;
+  return cudaSuccess;
+}
+
+// Everything after a head, from its dlogits (T*B, Vp): dh2_head = dlogits @
+// w_out^T, the shared chains and gradients, and the head's own dW_out,
+// db_out.
+cudaError_t decoder_bwd_from_dlogits(
+    int T, int B, int H, int Vp, int n_rep, const int* tok,
+    const float* h1_seq, const float* h2_seq, const float* g41,
+    const float* g42, const float* h1_0, const float* w_hh1T,
+    const float* w_ih2T, const float* w_hh2T, const float* w_outT,
+    float* dlogits, float* dh2_head, float* dh2_buf, float* dh1_carry,
+    float* dh1_mid, float* s1x, float* s1h, float* s2x, float* s2h,
+    float* fold, float* dw_tok, float* dpre_z, float* dw_hh1,
+    float* db_hh1, float* dw_ih2, float* db_ih2, float* dw_hh2,
+    float* db_hh2, float* dh1_0, float* dw_out, float* db_out,
+    cudaStream_t s) {
+  const int R = T * B;
+  cudaError_t err;
+  if ((err = gemm_nn(R, H, Vp, dlogits, w_outT, dh2_head, s)) != cudaSuccess)
+    return err;
+  err = decoder_bwd_from_dh2(T, B, H, Vp, n_rep, tok, h1_seq, h2_seq, g41,
+                             g42, h1_0, w_hh1T, w_ih2T, w_hh2T, dh2_head,
+                             dh2_buf, dh1_carry, dh1_mid, s1x, s1h, s2x, s2h,
+                             fold, dw_tok, dpre_z, dw_hh1, db_hh1, dw_ih2,
+                             db_ih2, dw_hh2, db_hh2, dh1_0, s);
+  if (err != cudaSuccess) return err;
+  const SplitRows h2cur{nullptr, 0, 0, h2_seq, 0, H};
+  if ((err = gemm_tn(1, H, Vp, R, h2cur, dlogits, 0, dw_out, 0, s)) ||
       (err = colsum(1, R, Vp, dlogits, db_out, s)))
     return err;
   return cudaSuccess;
@@ -221,4 +250,24 @@ extern "C" int fader_decoder_masses_bwd(
       w_ih2T, w_hh2T, w_outT, dlogits, dh2_head, dh2_buf, dh1_carry,
       dh1_mid, s1x, s1h, s2x, s2h, fold, dw_tok, dpre_z, dw_hh1, db_hh1,
       dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0, dw_out, db_out, s);
+}
+
+// No head (kernel 8): g2 (T,B,H) is the cotangent of h2_seq, read as
+// dh2_head; tok (T,B) int32. No dlogits, dh2_head scratch, w_out or its
+// gradients. 3T + 8 launches.
+extern "C" int fader_decoder_teacher_bwd(
+    int T, int B, int H, int Vp, const int* tok, const float* g2,
+    const float* h1_seq, const float* h2_seq, const float* g41,
+    const float* g42, const float* h1_0, const float* w_hh1T,
+    const float* w_ih2T, const float* w_hh2T, float* dh2_buf,
+    float* dh1_carry, float* dh1_mid, float* s1x, float* s1h, float* s2x,
+    float* s2h, float* dw_tok, float* dpre_z, float* dw_hh1, float* db_hh1,
+    float* dw_ih2, float* db_ih2, float* dw_hh2, float* db_hh2,
+    float* dh1_0, void* stream) {
+  using namespace fader;
+  return (int)decoder_bwd_from_dh2(
+      T, B, H, Vp, 1, tok, h1_seq, h2_seq, g41, g42, h1_0, w_hh1T, w_ih2T,
+      w_hh2T, g2, dh2_buf, dh1_carry, dh1_mid, s1x, s1h, s2x, s2h, nullptr,
+      dw_tok, dpre_z, dw_hh1, db_hh1, dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0,
+      static_cast<cudaStream_t>(stream));
 }

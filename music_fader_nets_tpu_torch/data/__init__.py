@@ -1,2 +1,2 @@
-"""Dataset views and batch iteration (own copies of the JAX package's
-`data/datasets.py` and `data/loader.py`, which import no JAX)."""
+"""Corpora, dataset views and batch iteration (own copies of the JAX
+package's `data/` modules, which import no JAX)."""

@@ -1,6 +1,7 @@
 """The GM-VAE (counterpart of `music_fader_nets_tpu/models/gmvae.py`): the
 RegVAE tree plus the Gaussian-mixture tables, the mixture posterior, the
-training forward, encode, and the greedy / sampling token decodes.
+training forward, encode, and the greedy / sampling token decodes; and the
+single-encoder GM-VAE, which the reference defines and never trains.
 """
 from __future__ import annotations
 
@@ -11,13 +12,21 @@ import torch
 
 from music_fader_nets_tpu_torch import resolve_device
 from music_fader_nets_tpu_torch.config import ModelConfig
+from music_fader_nets_tpu_torch.models.modules import (
+    global_decoder_greedy,
+    global_decoder_init,
+    global_decoder_teacher,
+)
 from music_fader_nets_tpu_torch.models.vae import (
     _global_view,
+    global_decode,
     init_reg_vae,
     reg_vae_encode,
     reg_vae_forward,
+    single_vae_encode,
 )
 from music_fader_nets_tpu_torch.ops import cuda_decode
+from music_fader_nets_tpu_torch.ops.gru import bigru_init, linear_init
 from music_fader_nets_tpu_torch.utils.checkpoint import tree_to
 
 
@@ -94,6 +103,10 @@ def reg_gmvae_encode(params, tokens: torch.Tensor, device=None):
     return reg_vae_encode(tree_to(params, dev), None, tokens=tokens)
 
 
+# greedy decode's per-step log-probs (B, steps, V)
+reg_gmvae_global_decode = global_decode
+
+
 def reg_gmvae_decode_tokens(params, z: torch.Tensor, steps: int,
                             device=None) -> torch.Tensor:
     """Greedy token decode, (B, steps) int32."""
@@ -109,3 +122,44 @@ def reg_gmvae_sample_tokens(params, z: torch.Tensor, steps: int,
     decodes greedily). temperature <= 0 is greedy."""
     return cuda_decode.sample_decode_tokens(_global_view(params), z, steps,
                                             seeds, temperature, device)
+
+
+# ---------------------------------------------------------------------------
+# MusicAttrSingleGMVAE: one encoder, one mixture table, the decoder on z
+# only (reference gmm_model.py:262-442)
+
+
+def init_single_gmvae(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    H, Z, V = cfg.hidden_dims, cfg.z_dims, cfg.roll_dims
+    p = {"gru": bigru_init(gen, V, H),
+         "mu": linear_init(gen, 2 * H, Z),
+         "var": linear_init(gen, 2 * H, Z),
+         "linear_init": linear_init(gen, Z, H)}     # unused, as the reference
+    p.update(global_decoder_init(gen, Z, V, H))
+    # one mu / logvar table, pow_exp = -1 (reference gmm_model.py:352-372)
+    tables = _mixture_tables(gen, cfg.num_clusters, cfg.z_dims, -1.0)
+    p["mu_lookup"] = tables["mu_r_lookup"]
+    p["logvar_lookup"] = tables["logvar_r_lookup"]
+    return p
+
+
+def single_gmvae_forward(params, eps: torch.Tensor, x_oh, cfg: ModelConfig,
+                         train: bool = True, tokens=None) -> Dict:
+    """The single GM-VAE's forward (JAX models/gmvae.py:181-202) over the
+    canonical tree or the fast layout (`enc_1`); eps (B, z) is the N(0, 1)
+    draw of the reparameterisation. Teacher-forced when `train`, through
+    the embedded-token encoder and the fused teacher decoder with `tokens`
+    (x_oh may then be None); greedy otherwise."""
+    mu, std = single_vae_encode(params, x_oh, tokens=tokens)
+    z = mu + std * eps
+    log_logit, qy_x = approx_qy_x(z, params["mu_lookup"],
+                                  params["logvar_lookup"])
+    gview = _global_view(params)
+    if train:
+        out = global_decoder_teacher(gview, z, x_oh, tokens=tokens)
+    else:
+        T = tokens.shape[1] if tokens is not None else x_oh.shape[1]
+        out = global_decoder_greedy(gview, z, T)
+    return {"out": out, "mu": mu, "std": std, "z": z,
+            "log_logit": log_logit, "qy_x": qy_x,
+            "y": torch.argmax(qy_x, dim=-1)}

@@ -196,16 +196,32 @@ def global_decoder_greedy(p: dict, z: torch.Tensor, steps: int,
 
 
 def global_decoder_teacher(p: dict, z: torch.Tensor,
-                           x_oh: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced decode over the whole sequence from one-hot inputs:
-    inputs [start, x_0, ..., x_{T-2}] with the start one-hot at the LAST
-    vocab index, outputs predict [x_0, ..., x_{T-1}] (reference
-    model_v2.py:127-142 with eps=100). Teacher forcing decouples the two
-    layers into two consecutive recurrences over hoisted projections, each
-    one generic stacked-GRU call (kernels 1/2 on CUDA tensors, their plain
-    version on the CPU), as the JAX package's TPU path does
-    (models/modules.py:336-347); layer 2 starts from layer 1's first state
-    (the reference's step-0 rule). Returns log-probs (B, T, V)."""
+                           x_oh: Optional[torch.Tensor],
+                           tokens: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Teacher-forced decode over the whole sequence: inputs [start, x_0,
+    ..., x_{T-2}] with the start one-hot at the LAST vocab index, outputs
+    predict [x_0, ..., x_{T-1}] (reference model_v2.py:127-142 with
+    eps=100). Returns log-probs (B, T, V).
+
+    With `tokens` (B, T) ids (x_oh = one_hot(tokens), and may then be
+    None) both layers advance in the fused teacher decoder
+    (`ops/cuda_decoder.py::decoder_teacher_fused`: kernels 7/8 on CUDA
+    tensors, their plain version on the CPU), the token row gathered
+    instead of multiplied, and the logits head is one product over all
+    T*B rows, as the JAX package's TPU path does (models/modules.py:
+    317-324).
+
+    Without `tokens`, teacher forcing decouples the two layers into two
+    consecutive recurrences over hoisted projections, each one generic
+    stacked-GRU call (kernels 1/2 on CUDA tensors, their plain version on
+    the CPU; JAX models/modules.py:336-347); layer 2 starts from layer 1's
+    first state (the reference's step-0 rule)."""
+    if tokens is not None:
+        V = p["linear_out_g"]["w"].shape[-1]
+        h2_bt = cuda_decoder.decoder_teacher_fused(p, z, tokens, V)
+        return torch.log_softmax(linear_apply(p["linear_out_g"], h2_bt),
+                                 dim=-1)
     B, T, V = x_oh.shape
     w_tok, w_z = _split_w_ih(p, V)
     start = x_oh.new_zeros((B, 1, V))
@@ -222,6 +238,39 @@ def global_decoder_teacher(p: dict, z: torch.Tensor,
                              cell2["b_hh"][None], h1_seq[:1])[0]
     logits = linear_apply(p["linear_out_g"], h2_seq.transpose(0, 1))
     return torch.log_softmax(logits, dim=-1)
+
+
+def global_decoder_scheduled(p: dict, z: torch.Tensor, x_oh: torch.Tensor,
+                             coins: torch.Tensor) -> torch.Tensor:
+    """Scheduled-sampling decode (reference model_v2.py:135-140; JAX
+    models/modules.py:425-457): at step t the coin for the whole batch,
+    coins[t], picks the teacher's input (True) or the model's own argmax
+    of the previous step (False). coins is a (T,) bool tensor, drawn by
+    the caller as `torch.rand(T, generator=gen) < eps` (the JAX package
+    draws `uniform(rng, (T,)) < eps` inside). All-True coins reproduce
+    `global_decoder_teacher`, all-False the greedy decode. No kernel in
+    either package: a loop over `_decoder_step`. Returns log-probs
+    (B, T, V)."""
+    B, T, V = x_oh.shape
+    w_tok, w_z = _split_w_ih(p, V)
+    pre_z = z @ w_z + p["grucell_g"]["b_ih"]
+    start = x_oh.new_zeros((B, 1, V))
+    start[:, 0, V - 1] = 1.0
+    teacher = torch.cat([start, x_oh[:, :-1]], dim=1)
+    teacher_pre = (teacher @ w_tok + pre_z[:, None, :]).transpose(0, 1)
+    h1 = linear_apply(p["linear_init_global"], z)
+    h2 = torch.zeros_like(h1)
+    tok = torch.full((B,), V - 1, dtype=torch.long, device=z.device)
+    coins = coins.tolist()
+    logps = []
+    for t in range(T):
+        pre_t = teacher_pre[t] if coins[t] else w_tok[tok] + pre_z
+        h1, h2, logp = _decoder_step(p, pre_t, h1, h2, t == 0)
+        logps.append(logp)
+        tok = torch.argmax(logp, dim=-1)
+    if not logps:
+        return z.new_zeros((B, 0, V))
+    return torch.stack(logps, dim=1)
 
 
 def global_decoder_teacher_nll(p: dict, z: torch.Tensor, x_oh, tokens,

@@ -127,15 +127,16 @@ def reg_vae_encode(params, x_oh: Optional[torch.Tensor],
 
 def _decode(params, z, x_oh, tokens, nll_targets, train: bool) -> Dict:
     """The global decoder's part of a training forward: the fused NLL
-    (B, T) with `nll_targets`, else teacher log-probs when `train`, else
-    the greedy decode's log-probs."""
+    (B, T) with `nll_targets`, else teacher log-probs when `train` (through
+    the fused teacher decoder with `tokens`), else the greedy decode's
+    log-probs."""
     out = nll_x = None
     gview = _global_view(params)
     if train and nll_targets is not None:
         nll_x = global_decoder_teacher_nll(gview, z, x_oh, tokens,
                                            nll_targets)
     elif train:
-        out = global_decoder_teacher(gview, z, x_oh)
+        out = global_decoder_teacher(gview, z, x_oh, tokens=tokens)
     else:
         T = tokens.shape[1] if tokens is not None else x_oh.shape[1]
         out = global_decoder_greedy(gview, z, T)
@@ -148,8 +149,9 @@ def reg_vae_forward(params, eps_r: torch.Tensor, eps_n: torch.Tensor, x_oh,
     """The training-path forward (reference model_v2.py:145-171): teacher-
     forced when `train` (the reference's eps=100 makes scheduled sampling
     a no-op), greedy otherwise. `tokens` (x_oh = one_hot(tokens)) routes
-    the encoder and the decoder + CE to their kernels, `track_ids` the
-    sub-decoders (fast layout); x_oh may then be None."""
+    the encoder and the decoder (with `nll_targets` the decoder + CE) to
+    their kernels, `track_ids` the sub-decoders (fast layout); x_oh may
+    then be None."""
     (mu_r, std_r), (mu_n, std_n) = reg_vae_encode(params, x_oh,
                                                   tokens=tokens)
     z_r = mu_r + std_r * eps_r
@@ -169,6 +171,13 @@ def global_decode(params, z_full: torch.Tensor, steps: int):
     [z, chroma] (SingleVAE) or [z, r_density, n_density] (CVAE,
     FaderNets)."""
     return global_decoder_greedy(_global_view(params), z_full, steps)
+
+
+# the JAX package's per-family names of the same decode
+reg_vae_global_decode = global_decode
+single_vae_global_decode = global_decode
+cvae_global_decode = global_decode
+fader_global_decode = global_decode
 
 
 def reg_vae_decode_tokens(params, z: torch.Tensor, steps: int, device=None):

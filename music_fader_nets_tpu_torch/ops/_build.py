@@ -115,6 +115,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_decoder_masses.restype = I
     lib.fader_decoder_masses_bwd.argtypes = [I] * 6 + [P] * 36
     lib.fader_decoder_masses_bwd.restype = I
+    lib.fader_decoder_teacher.argtypes = [I] * 4 + [P] * 15
+    lib.fader_decoder_teacher.restype = I
+    lib.fader_decoder_teacher_bwd.argtypes = [I] * 4 + [P] * 27
+    lib.fader_decoder_teacher_bwd.restype = I
     lib.fader_stacked_gru.argtypes = [I] * 4 + [P] * 7
     lib.fader_stacked_gru.restype = I
     lib.fader_stacked_gru_bwd.argtypes = [I] * 4 + [P] * 12

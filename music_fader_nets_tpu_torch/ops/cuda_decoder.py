@@ -1,8 +1,12 @@
-"""The teacher-forced decoder with its heads (`csrc/decoder_ce.cu`,
-`csrc/decoder_ce_bwd.cu`) and their plain PyTorch versions.
+"""The teacher-forced decoder, without a head and with its heads
+(`csrc/decoder_ce.cu`, `csrc/decoder_ce_bwd.cu`), and their plain PyTorch
+versions.
 
 Counterparts of `music_fader_nets_tpu/ops/pallas_gru.py`:
 
+- `decoder_teacher_fused` (:2269, through `_dec_teacher_core`): both
+  GRUCell layers over the teacher tokens, returning layer 2's states
+  h2_seq; the logits head stays with the caller.
 - `decoder_teacher_fused_nll` (:2098, through `_dec_nll_core` :1791): both
   GRUCell layers over the teacher tokens (the reference's step-0 rule:
   layer 2's previous hidden at t = 0 is layer 1's new state), the logits
@@ -13,14 +17,14 @@ Counterparts of `music_fader_nets_tpu/ops/pallas_gru.py`:
   perturbation decodes; its B rows may be n_rep copies of B/n_rep
   sequences that share their tokens.
 
-The (B, T, V) log-probs never exist. The products around the kernels
+With a head the (B, T, V) log-probs never exist. The products around the kernels
 (`pre_z`, `h1_0`, padding) stay torch ops with autograd, as the JAX package
 left them to XLA.
 
 Each wrapper runs the plain version for tensors on the CPU and the kernels
 for tensors on a GPU; there is no fallback between the two. On a GPU, a
-call whose float inputs want a gradient goes through `DecoderNLL` or
-`DecoderMasses`.
+call whose float inputs want a gradient goes through `DecoderTeacher`,
+`DecoderNLL` or `DecoderMasses`.
 """
 from __future__ import annotations
 
@@ -34,8 +38,10 @@ from music_fader_nets_tpu_torch.ops import _build, cuda_gru
 from music_fader_nets_tpu_torch.ops.gru import _gates, vocab_pad
 
 # wrapper calls that launched each kernel (forward: 2T + 1 device
-# launches; backward: 3T + 12, the masses head's with n_rep > 1: 3T + 13)
-LAUNCHES = {"decoder_ce": 0, "decoder_ce_bwd": 0, "decoder_masses": 0,
+# launches, 2T without a head; backward: 3T + 12, the masses head's with
+# n_rep > 1: 3T + 13, 3T + 8 without a head)
+LAUNCHES = {"decoder_teacher": 0, "decoder_teacher_bwd": 0, "decoder_ce": 0,
+            "decoder_ce_bwd": 0, "decoder_masses": 0,
             "decoder_masses_bwd": 0}
 # which path served the last call: "kernel" or "plain-cpu"
 LAST_TRAIN_PATH = None
@@ -57,6 +63,18 @@ def _teacher_h2_plain(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
         h2p = h1 if t == 0 else h2
         h2 = _gates(h1 @ wih2 + bih2, h2p @ whh2 + bhh2, h2p)
         yield h2
+
+
+def decoder_teacher_plain(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
+                          bhh2, h1_0):
+    """Plain PyTorch version of the decode without a head: tok_t (T, B)
+    int; w_tok (Vp, 3H); pre_z (B, 3H); whh1, wih2, whh2 (H, 3H); biases
+    (3H); h1_0 (B, H). Returns h2_seq (T, B, H)."""
+    out = list(_teacher_h2_plain(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2,
+                                 whh2, bhh2, h1_0))
+    if not out:
+        return h1_0.new_zeros((0,) + tuple(h1_0.shape))
+    return torch.stack(out)
 
 
 def decoder_teacher_nll_plain(tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2,
@@ -98,17 +116,20 @@ def decoder_teacher_masses_plain(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2,
 
 
 def _check(tok_t, B: int, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
-           bhh2, h1_0, w_out, b_out, tgt_t=None):
-    """Shapes and types of a call over B rows (tok_t (T, B / n_rep))."""
+           bhh2, h1_0, w_out=None, b_out=None, tgt_t=None):
+    """Shapes and types of a call over B rows (tok_t (T, B / n_rep));
+    w_out and b_out are None for the decode without a head."""
     T = tok_t.shape[0]
     H = h1_0.shape[-1]
     G, Vp = 3 * H, w_tok.shape[0]
     want = {"w_tok": (Vp, G), "pre_z": (B, G), "whh1": (H, G),
             "bhh1": (G,), "wih2": (H, G), "bih2": (G,), "whh2": (H, G),
-            "bhh2": (G,), "h1_0": (B, H), "w_out": (H, Vp), "b_out": (Vp,)}
+            "bhh2": (G,), "h1_0": (B, H)}
     got = dict(w_tok=w_tok, pre_z=pre_z, whh1=whh1, bhh1=bhh1, wih2=wih2,
-               bih2=bih2, whh2=whh2, bhh2=bhh2, h1_0=h1_0, w_out=w_out,
-               b_out=b_out)
+               bih2=bih2, whh2=whh2, bhh2=bhh2, h1_0=h1_0)
+    if w_out is not None:
+        want.update(w_out=(H, Vp), b_out=(Vp,))
+        got.update(w_out=w_out, b_out=b_out)
     if tgt_t is not None:
         want["tgt_t"], got["tgt_t"] = (T, B), tgt_t
     for name, shape in want.items():
@@ -149,6 +170,23 @@ def _fwd_buffers(T, B, H, dev, stash: bool):
     g4 = (lambda: torch.empty((T, B, 4 * H), **f32) if stash else None)
     return (torch.empty((T, B, H), **f32), torch.empty((T, B, H), **f32),
             g4(), g4())
+
+
+def _launch_teacher_fwd(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
+                        bhh2, h1_0, stash: bool):
+    """fader_decoder_teacher: (h1_seq, h2_seq, g41, g42); the stashes are
+    None without `stash`."""
+    T, B = tok_t.shape
+    dev = h1_0.device
+    bufs = _fwd_buffers(T, B, h1_0.shape[-1], dev, stash)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.fader_decoder_teacher(
+            T, B, h1_0.shape[-1], w_tok.shape[0], *(_ptr(t) for t in (
+                tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2,
+                h1_0, *bufs)), cuda_gru._stream(dev))
+    _build.check(err, "fader_decoder_teacher")
+    return bufs
 
 
 def _launch_fwd(tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
@@ -193,21 +231,42 @@ def _launch_masses_fwd(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
     return (masses, *bufs)
 
 
-def _bwd_buffers(T, B, H, Vp, dev):
+def _bwd_buffers(T, B, H, Vp, dev, head: bool = True):
     """(transpose of a weight, scratch list, outputs list) of a backward:
-    scratch dlogits, dh2_head, dh2_buf, dh1_carry, dh1_mid, s1x, s1h, s2x,
-    s2h; outputs dw_tok, dpre_z, dwhh1, dbhh1, dwih2, dbih2, dwhh2, dbhh2,
-    dh1_0, dw_out, db_out."""
+    scratch dlogits, dh2_head (both only with a head), dh2_buf, dh1_carry,
+    dh1_mid, s1x, s1h, s2x, s2h; outputs dw_tok, dpre_z, dwhh1, dbhh1,
+    dwih2, dbih2, dwhh2, dbhh2, dh1_0 and, with a head, dw_out, db_out."""
     G = 3 * H
     f32 = dict(dtype=torch.float32, device=dev)
-    scratch = [torch.empty((T, B, Vp), **f32), torch.empty((T, B, H), **f32),
-               torch.empty((2, B, H), **f32), torch.empty((B, H), **f32),
-               torch.empty((B, H), **f32)] + [
-                   torch.empty((T, B, G), **f32) for _ in range(4)]
+    scratch = ([torch.empty((T, B, Vp), **f32),
+                torch.empty((T, B, H), **f32)] if head else []) + [
+        torch.empty((2, B, H), **f32), torch.empty((B, H), **f32),
+        torch.empty((B, H), **f32)] + [
+            torch.empty((T, B, G), **f32) for _ in range(4)]
     outs = [torch.empty(s, **f32) for s in (
-        (Vp, G), (B, G), (H, G), (G,), (H, G), (G,), (H, G), (G,), (B, H),
-        (H, Vp), (Vp,))]
+        (Vp, G), (B, G), (H, G), (G,), (H, G), (G,), (H, G), (G,), (B, H))
+        + (((H, Vp), (Vp,)) if head else ())]
     return (lambda w: w.t().contiguous()), scratch, outs
+
+
+def _launch_teacher_bwd(g2, tok_t, h1_seq, h2_seq, g41, g42, whh1, wih2,
+                        whh2, h1_0, Vp: int):
+    """fader_decoder_teacher_bwd: (dw_tok, dpre_z, dwhh1, dbhh1, dwih2,
+    dbih2, dwhh2, dbhh2, dh1_0) from g2 (T, B, H), the cotangent of
+    h2_seq."""
+    T, B, H = h1_seq.shape
+    dev = h1_0.device
+    tr, scratch, outs = _bwd_buffers(T, B, H, Vp, dev, head=False)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.fader_decoder_teacher_bwd(
+            T, B, H, Vp, *(t.data_ptr() for t in (
+                tok_t, g2, h1_seq, h2_seq, g41, g42, h1_0, tr(whh1),
+                tr(wih2), tr(whh2), *scratch, *outs)),
+            cuda_gru._stream(dev))
+    _build.check(err, "fader_decoder_teacher_bwd")
+    del scratch
+    return tuple(outs)
 
 
 def _launch_bwd(g, tok_t, tgt_t, h1_seq, h2_seq, g41, g42, whh1, wih2, whh2,
@@ -251,6 +310,34 @@ def _launch_masses_bwd(g, tok_t, h1_seq, h2_seq, g41, g42, whh1, wih2,
     _build.check(err, "fader_decoder_masses_bwd")
     del scratch, fold
     return tuple(outs)
+
+
+class DecoderTeacher(torch.autograd.Function):
+    """Kernels 7 (forward with the two gate stashes) and 8 (backward) as
+    one differentiable op over (tok_t, w_tok, pre_z, whh1, bhh1, wih2,
+    bih2, whh2, bhh2, h1_0) -> h2_seq (T, B, H)."""
+
+    @staticmethod
+    def forward(ctx, tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2,
+                h1_0):
+        h1_seq, h2_seq, g41, g42 = _launch_teacher_fwd(
+            tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0,
+            stash=True)
+        LAUNCHES["decoder_teacher"] += 1
+        ctx.save_for_backward(tok_t, h1_seq, h2_seq, g41, g42, whh1, wih2,
+                              whh2, h1_0)
+        ctx.Vp = w_tok.shape[0]
+        return h2_seq
+
+    @staticmethod
+    def backward(ctx, g2):
+        saved = ctx.saved_tensors
+        # the cotangent usually arrives as a transposed view of a (B, T, H)
+        # tensor: the kernel reads (T, B, H) rows
+        grads = _launch_teacher_bwd(g2.contiguous(), *saved, ctx.Vp)
+        LAUNCHES["decoder_teacher_bwd"] += 1
+        del saved
+        return cuda_gru._mask(ctx, (None,) + grads)
 
 
 class DecoderNLL(torch.autograd.Function):
@@ -303,6 +390,29 @@ class DecoderMasses(torch.autograd.Function):
         LAUNCHES["decoder_masses_bwd"] += 1
         del saved
         return cuda_gru._mask(ctx, (None,) + grads + (None, None))
+
+
+def decoder_teacher(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2,
+                    h1_0):
+    """Layer 2's states h2_seq (T, B, H) of the teacher-forced decode. CPU
+    tensors take the plain version; CUDA tensors launch the kernels,
+    through `DecoderTeacher` when a gradient is wanted."""
+    global LAST_TRAIN_PATH
+    args = (tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0)
+    if cuda_gru.kernel_device(args) is None:
+        LAST_TRAIN_PATH = "plain-cpu"
+        return decoder_teacher_plain(*args)
+    T, B = tok_t.shape
+    _check(tok_t, B, *args[1:])
+    args = tuple(t.contiguous() for t in args)
+    LAST_TRAIN_PATH = "kernel"
+    if T * B == 0:
+        return h1_0.new_zeros((T, B, h1_0.shape[-1]))
+    if cuda_gru.wants_grad(*args[1:]):
+        return DecoderTeacher.apply(*args)
+    h2_seq = _launch_teacher_fwd(*args, stash=False)[1]
+    LAUNCHES["decoder_teacher"] += 1
+    return h2_seq
 
 
 def decoder_teacher_nll(tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2,
@@ -369,13 +479,12 @@ def _dec_w_split(p: Dict, V: int):
     return F.pad(w_ih[:V], (0, 0, 0, vocab_pad(V) - V)), w_ih[V:]
 
 
-def _fused_args(p: Dict, z: torch.Tensor, tokens: torch.Tensor, V: int):
-    """The kernels' inputs from the decoder's params, z (B, Zt) and the
+def _recurrence_args(p: Dict, z: torch.Tensor, tokens: torch.Tensor,
+                     V: int):
+    """The recurrence's inputs from the decoder's params, z (B, Zt) and the
     token rows (B0, T): tok_t (T, B0) = [start = V-1, tokens[:, :-1]] and
-    (w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0, w_out, b_out),
-    the head padded to Vp (pad logits -1e30)."""
+    (w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0)."""
     w_tok, w_z = _dec_w_split(p, V)
-    Vp = w_tok.shape[0]
     g1, g2 = p["grucell_g"], p["grucell_g_2"]
     pre_z = z @ w_z + g1["b_ih"]
     init = p["linear_init_global"]
@@ -384,10 +493,27 @@ def _fused_args(p: Dict, z: torch.Tensor, tokens: torch.Tensor, V: int):
     start = torch.full((tgt.shape[0], 1), V - 1, dtype=torch.int32,
                        device=tgt.device)
     tok_t = torch.cat([start, tgt[:, :-1]], dim=1).t()
+    return tok_t, (w_tok, pre_z, g1["w_hh"], g1["b_hh"], g2["w_ih"],
+                   g2["b_ih"], g2["w_hh"], g2["b_hh"], h1_0)
+
+
+def _fused_args(p: Dict, z: torch.Tensor, tokens: torch.Tensor, V: int):
+    """`_recurrence_args` and the head padded to Vp (pad logits -1e30):
+    tok_t and (w_tok, ..., h1_0, w_out, b_out)."""
+    tok_t, weights = _recurrence_args(p, z, tokens, V)
+    Vp = weights[0].shape[0]
     w_out = F.pad(p["linear_out_g"]["w"], (0, Vp - V))
     b_out = F.pad(p["linear_out_g"]["b"], (0, Vp - V), value=PAD_LOGIT)
-    return tok_t, (w_tok, pre_z, g1["w_hh"], g1["b_hh"], g2["w_ih"],
-                   g2["b_ih"], g2["w_hh"], g2["b_hh"], h1_0, w_out, b_out)
+    return tok_t, weights + (w_out, b_out)
+
+
+def decoder_teacher_fused(p: Dict, z: torch.Tensor, tokens: torch.Tensor,
+                          V: int) -> torch.Tensor:
+    """Teacher decode without a head: layer 2's states (B, T, H) over the
+    inputs [start = V-1, tokens[:, :-1]]; the logits head stays with the
+    caller (one product over all T*B rows)."""
+    tok_t, weights = _recurrence_args(p, z, tokens, V)
+    return decoder_teacher(tok_t, *weights).transpose(0, 1)     # (B, T, H)
 
 
 def decoder_teacher_fused_nll(p: Dict, z: torch.Tensor, tokens: torch.Tensor,

@@ -12,6 +12,7 @@ import torch
 
 import music_fader_nets_tpu_torch as port
 from music_fader_nets_tpu_torch.config import ModelConfig
+from music_fader_nets_tpu_torch.eval import cli as eval_cli
 from music_fader_nets_tpu_torch.models.gmvae import (
     init_reg_gmvae, reg_gmvae_encode,
 )
@@ -48,7 +49,7 @@ def test_imports_without_jax_or_reference_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 47
 
 
 def test_no_reference_imports_in_sources():
@@ -58,7 +59,7 @@ def test_no_reference_imports_in_sources():
         r"^\s*(?:import|from)\s+(?:jax\b|music_fader_nets_tpu(?!_torch))",
         re.MULTILINE)
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) >= 49
     hits = [(f.name, m.group(0).strip()) for f in files
             for m in pat.finditer(f.read_text())]
     assert hits == []
@@ -88,6 +89,8 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
         reg_gmvae_encode(params, torch.zeros((1, 6), dtype=torch.int32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.run_server(["--random-init", "--bench", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_cli.main(["gmm", "--samples", "1"])
     # the CPU, asked for explicitly, works
     assert port.resolve_device("cpu").type == "cpu"
     toks = cuda_decode.greedy_decode_tokens(_global_view(params), z, 3,

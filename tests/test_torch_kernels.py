@@ -7,8 +7,8 @@ need a CUDA device and skip without one; run them on the card with
 Encoder finals to 1e-5 (float32, two summation orders, 7 steps); decode
 tokens exactly, the head sharpened 8x so no step is a near-tie. The
 training kernels (autograd Functions of `ops/cuda_gru.py`,
-`ops/cuda_stacked.py` and `ops/cuda_decoder.py`, the last with both its
-heads) against autograd of their plain versions: values to
+`ops/cuda_stacked.py` and `ops/cuda_decoder.py`, the last without a head
+and with both its heads) against autograd of their plain versions: values to
 1e-5, gradients to atol=rtol=1e-4 (float32; the weight gradients sum up to
 T*B products in another order than cuBLAS does). Their reductions use no
 atomics, so two runs give bitwise the same gradients."""
@@ -264,6 +264,76 @@ def test_decoder_masses_kernels_match_plain(dev, B, T, n_rep):
     assert cuda_decoder.LAST_TRAIN_PATH == "kernel"
     assert cuda_decoder.LAUNCHES["decoder_masses_bwd"] == before[
         "decoder_masses_bwd"] + 2
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 7), (37, 1), (37, 7)])
+def test_decoder_teacher_kernels_match_plain(dev, B, T):
+    """Kernels 7/8: h2_seq (T, B, H) and every gradient from its
+    cotangent; without a gradient the forward alone, no stash."""
+    gen = torch.Generator().manual_seed(B * 10 + T + 5)
+    V, H, Z = 342, 80, 40
+    Vp, G = vocab_pad(V), 3 * H
+    p = global_decoder_init(gen, Z, V, H)
+    w_tok = torch.zeros((Vp, G))
+    w_tok[:V] = p["grucell_g"]["w_ih"][:V]
+    pre_z = torch.randn((B, G), generator=gen) * 0.3
+    h1_0 = torch.randn((B, H), generator=gen) * 0.5
+    g1, g2 = p["grucell_g"], p["grucell_g_2"]
+    tok = torch.randint(0, V, (T, B), generator=gen,
+                        dtype=torch.int32).to(dev)
+    floats = [w_tok, pre_z, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
+              g2["w_hh"], g2["b_hh"], h1_0]
+    before = dict(cuda_decoder.LAUNCHES)
+    _grad_check(cuda_decoder.decoder_teacher,
+                cuda_decoder.decoder_teacher_plain, tok, floats, dev, B + T)
+    assert cuda_decoder.LAST_TRAIN_PATH == "kernel"
+    assert cuda_decoder.LAUNCHES["decoder_teacher"] == before[
+        "decoder_teacher"] + 2
+    assert cuda_decoder.LAUNCHES["decoder_teacher_bwd"] == before[
+        "decoder_teacher_bwd"] + 2
+    with torch.no_grad():
+        args = [t.to(dev) for t in floats]
+        torch.testing.assert_close(
+            cuda_decoder.decoder_teacher(tok, *args),
+            cuda_decoder.decoder_teacher_plain(tok, *args), rtol=0,
+            atol=1e-5)
+    assert cuda_decoder.LAUNCHES["decoder_teacher_bwd"] == before[
+        "decoder_teacher_bwd"] + 2
+
+
+def test_teacher_decode_with_tokens_runs_the_fused_decoder(dev):
+    """`global_decoder_teacher` with token ids runs kernels 7/8 on the
+    card, not the generic stacked-GRU kernels, and its log-probs and the
+    gradients of z and the weights match its plain run on the CPU; the
+    cotangent reaches kernel 8 through the (B, T, H) transpose."""
+    gen = torch.Generator().manual_seed(12)
+    V, H, Z, B, T = 342, 80, 40, 5, 9
+    p = global_decoder_init(gen, Z, V, H)
+    z = torch.randn((B, Z), generator=gen)
+    tok = torch.randint(0, V, (B, T), generator=gen)
+    proj = torch.randn((B, T, V), generator=gen)
+
+    def run(device):
+        pd = {k: {n: t.detach().clone().to(device).requires_grad_(True)
+                  for n, t in v.items()} for k, v in p.items()}
+        zd = z.clone().to(device).requires_grad_(True)
+        out = global_decoder_teacher(pd, zd, None, tokens=tok.to(device))
+        (out * proj.to(device)).sum().backward()
+        return out.detach().cpu(), [zd.grad.cpu()] + [
+            t.grad.cpu() for v in pd.values() for t in v.values()]
+
+    want, g_want = run("cpu")
+    before = (dict(cuda_decoder.LAUNCHES), dict(cuda_stacked.LAUNCHES))
+    got, g_got = run(dev)
+    assert cuda_decoder.LAUNCHES["decoder_teacher"] == before[0][
+        "decoder_teacher"] + 1
+    assert cuda_decoder.LAUNCHES["decoder_teacher_bwd"] == before[0][
+        "decoder_teacher_bwd"] + 1
+    assert cuda_stacked.LAUNCHES == before[1]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    for i, (a, b) in enumerate(zip(g_got, g_want)):
+        torch.testing.assert_close(a, b, msg=f"leaf {i}", atol=1e-3,
+                                   rtol=1e-3)
 
 
 def test_teacher_decode_without_tokens_runs_stacked_kernels(dev):

@@ -99,8 +99,17 @@ def test_datasets_and_batch_order_match_jax():
                         j_batches(arrays, 5, seed=seed)):
             for k in x:
                 np.testing.assert_array_equal(x[k], y[k])
-    with pytest.raises(NotImplementedError, match="ragged"):
-        datasets.VGMIDIDataset([[1, 2], [3]], *vg[1:])
+    # the released ragged format: EOS re-inserted, rows padded, densities
+    # over the unpadded tracks
+    from music_fader_nets_tpu.data.synthetic import synth_vgmidi_ragged
+    d, r, n, a, v, c = synth_vgmidi_ragged(24, seed=5)
+    for mode in ("train", "val", "test"):
+        a_, b_ = (cls(d, r, n, c, a, v, mode=mode).arrays()
+                  for cls in (datasets.VGMIDIDataset,
+                              j_datasets.VGMIDIDataset))
+        for k in a_:
+            assert a_[k].dtype == b_[k].dtype, k
+            np.testing.assert_array_equal(a_[k], b_[k], err_msg=k)
 
 
 def test_anneal_beta_and_config_match_jax():
