@@ -28,7 +28,12 @@ float64 witness, and the evaluation path runs at full width on the
 synthetic corpus: the eval CLI, a reconstruction report (kernel path
 against plain path), the rhythm and note controllability evaluators (every
 decoded row against the plain decode) and one epoch of the CVAE's
-condition sweep. Every phase prints one JSON
+condition sweep. Each training-kernel phase also runs its backward twice
+and fails unless every gradient has the same bits; the encoder's and the
+generic stacked GRU's phases print their backward's device ms by part
+(chain, dW GEMM, scatter, sums; CUPTI), and a `ragged_backward` phase holds
+both against their plain versions at a shape that crosses the tiles of the
+persistent chain and the split-K seam. Every phase prints one JSON
 line; the kernels line follows, then the card's name and power limit as
 nvidia-smi reports them, then the final status line. Any failed check
 exits non-zero without the status line. Needs one CUDA device; imports
@@ -189,6 +194,7 @@ def main() -> int:
     from music_fader_nets_tpu_torch.losses.regularizers import (
         GLSR_MASK_RANGES,
     )
+    from music_fader_nets_tpu_torch.train.bwd_split import kernel_split
     from music_fader_nets_tpu_torch.train.cli import _forward_for
     from music_fader_nets_tpu_torch.train.objectives import gmm_loss
     from music_fader_nets_tpu_torch.train.profile import (
@@ -498,13 +504,24 @@ def main() -> int:
         return f_ms, b_ms
 
     def train_kernel_phase(phase, names, srcs, replaces, fn, plain, ids,
-                           floats, cot, shape, flops, lib=None, extra=None):
+                           floats, cot, shape, flops, lib=None, extra=None,
+                           split=False, pad_rows=None):
         """names/srcs/replaces: (forward, backward). flops: (forward,
         backward). lib: (forward callable, its leaves, its cotangent) or
-        None. extra: more keys for the phase's line."""
+        None. extra: more keys for the phase's line. split: also the
+        backward's device ms by part (chain, dW GEMM, scatter, sums).
+        pad_rows: (index of a float input, first pad row) whose gradient
+        rows from there on must be exactly 0."""
         ts, out, grads = fwd_bwd(fn, ids, floats, cot)
         _, out_p, grads_p = fwd_bwd(plain, ids, floats, cot)
+        # the reductions use no atomics: a second backward call gives the
+        # same bits
+        grads_2 = torch.autograd.grad(out, ts, cot, retain_graph=True)
         torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, b) for a, b in zip(grads, grads_2))
+        pads_zero = (pad_rows is None or float(
+            grads[pad_rows[0]][:, pad_rows[1]:].abs().max()) == 0.0)
+        del grads_2
         out_err = float((out - out_p).detach().abs().max())
         g_abs, g_rel = grad_errors(grads, grads_p)
         k_f, k_b = time_fwd_bwd(fn, ids, ts, cot, 10)
@@ -519,6 +536,10 @@ def main() -> int:
             lib_out = lib_fn()
             l_b = time_ms(lambda: torch.autograd.grad(
                 lib_out, lib_leaves, lib_cot, retain_graph=True), 10)
+        bwd_split = None
+        if split:
+            bwd_split = kernel_split(lambda: torch.autograd.grad(
+                out, ts, cot, retain_graph=True))
         in_bytes = nbytes(ids, *floats)
         f_bound, f_by = bound(flops[0], in_bytes + nbytes(out))
         b_bound, b_by = bound(flops[1], in_bytes + nbytes(cot, *grads))
@@ -529,10 +550,17 @@ def main() -> int:
               "plain_fwd_ms": p_f, "plain_bwd_ms": p_b,
               "library_fwd_ms": l_f, "library_bwd_ms": l_b,
               "library_max_abs_err": lib_err, "bound_fwd_ms": f_bound,
-              "bound_bwd_ms": b_bound, **(extra or {})})
+              "bound_bwd_ms": b_bound, "determinism": same_bits,
+              **({} if pad_rows is None else {"pad_rows_zero": pads_zero}),
+              **({} if bwd_split is None else {"bwd_split_ms": bwd_split}),
+              **(extra or {})})
         if not (out_err <= TOL_TRAIN_OUT and g_rel <= TOL_TRAIN_GRAD_REL):
             return fail(f"{phase}: kernel vs plain output {out_err}, "
                         f"gradients {g_rel} (relative)")
+        if not same_bits:
+            return fail(f"{phase}: two backward calls differ in a bit")
+        if not pads_zero:
+            return fail(f"{phase}: a pad row's gradient is not exactly 0")
         for i, (nm, src, rep, err, ms_, pms, lms, bd, by) in enumerate((
                 (names[0], srcs[0], replaces[0], out_err, k_f, p_f, l_f,
                  f_bound, f_by),
@@ -584,7 +612,8 @@ def main() -> int:
         cuda_gru.stacked_gru_embed_finals_plain, tok_lt,
         [w_ih_p, b_ih, w_hh, b_hh, h0], cot,
         {"L": L, "T": T, "B": TB, "H": H, "Vp": Vp},
-        (enc_f, 2 * enc_f), lib=(cudnn_enc, enc_leaves, cot))
+        (enc_f, 2 * enc_f), lib=(cudnn_enc, enc_leaves, cot), split=True,
+        pad_rows=(0, V))
     if rc:
         return rc
     del grus, x_oh, dirs
@@ -743,7 +772,7 @@ def main() -> int:
         skip_ids(cuda_stacked.stacked_gru_plain), no_ids,
         [e_pre, e_whh, e_bhh, e_h0], e_cot,
         {"L": 2, "T": T, "B": TB, "H": H, "I": I},
-        (st_f, 2 * st_f), lib=(cudnn_stacked, e_leaves, e_cot),
+        (st_f, 2 * st_f), lib=(cudnn_stacked, e_leaves, e_cot), split=True,
         extra={"einsum_ms": einsum_ms,
                "library_note": "cuDNN bidirectional nn.GRU over x_in "
                                "includes the input projection: compare "
@@ -781,6 +810,45 @@ def main() -> int:
     if rc:
         return rc
     del m_prez, m_h10, m_cot
+
+    # the persistent backward chain and the split-K weight-gradient GEMM at
+    # a ragged shape: B = 37 (a partial row tile, the h0 | h_seq seam inside
+    # the GEMM's first k-slabs), T = 21 (T * B = 777 rows: K splits, a
+    # partial last slab), H = 136 (an 8-unit column tile, partial GEMM
+    # tiles), both backward entries against autograd of their plain versions
+    rL, rT, rB, rH = 2, 21, 37, 136
+    r_gen = torch.Generator().manual_seed(SEED + 7)
+    r_wih, r_bih, r_whh, r_bhh = (t.to(dev) for t in stack_directions(
+        [gru_init(r_gen, V, rH) for _ in range(rL)]))
+    r_tok = direction_tokens(torch.randint(
+        0, V, (rB, rT), generator=r_gen).to(dev), [False, True])
+    r_h0 = (torch.randn((rL, rB, rH), generator=r_gen) * 0.5).to(dev)
+    r_pre = (torch.randn((rL, rT, rB, 3 * rH), generator=r_gen) * 0.5).to(dev)
+    ragged = {}
+    for name, fn, plain, ids, floats, cot_shape in (
+            ("embed_gru_bwd", cuda_gru.stacked_gru_embed_finals,
+             cuda_gru.stacked_gru_embed_finals_plain, r_tok,
+             [r_wih, r_bih, r_whh, r_bhh, r_h0], (rL, rB, rH)),
+            ("stacked_gru_bwd", skip_ids(cuda_stacked.stacked_gru),
+             skip_ids(cuda_stacked.stacked_gru_plain), no_ids,
+             [r_pre, r_whh, r_bhh, r_h0], (rL, rT, rB, rH))):
+        r_cot = torch.randn(cot_shape, generator=r_gen).to(dev)
+        _, r_out, r_grads = fwd_bwd(fn, ids, floats, r_cot)
+        _, r_out_p, r_grads_p = fwd_bwd(plain, ids, floats, r_cot)
+        torch.cuda.synchronize()
+        r_abs, r_rel = grad_errors(r_grads, r_grads_p)
+        ragged[name] = {
+            "out_max_abs_err": float((r_out - r_out_p).detach().abs().max()),
+            "grad_max_abs_err": r_abs, "grad_max_rel_err": r_rel}
+    emit({"phase": "ragged_backward",
+          "shape": {"L": rL, "T": rT, "B": rB, "H": rH},
+          "tol_out": TOL_TRAIN_OUT, "tol_grad_rel": TOL_TRAIN_GRAD_REL,
+          **ragged})
+    for name, e in ragged.items():
+        if not (e["out_max_abs_err"] <= TOL_TRAIN_OUT
+                and e["grad_max_rel_err"] <= TOL_TRAIN_GRAD_REL):
+            return fail(f"ragged_backward, {name}: {e}")
+    del r_wih, r_pre, r_grads, r_grads_p
 
     # ------------------------------------------------------- train step
     # The port's Trainer at ModelConfig() widths on random in-schema

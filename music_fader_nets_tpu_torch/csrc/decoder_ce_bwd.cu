@@ -46,7 +46,8 @@
 // dh2 @ w_hh2^T), rows_gemm_add (dh1 += dpre2x @ w_ih2^T), and the
 // layer-1 step; each stashes its dpre
 // rows, and grad_reduce.cu turns them into the weight gradients after the
-// chain with deterministic GEMMs, scatter and sums.
+// chain with deterministic GEMMs (split-K through scratch), scatter and
+// sums.
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
@@ -99,7 +100,7 @@ cudaError_t decoder_bwd_from_dh2(
     float* dh2_buf, float* dh1_carry, float* dh1_mid, float* s1x, float* s1h,
     float* s2x, float* s2h, float* fold, float* dw_tok, float* dpre_z,
     float* dw_hh1, float* db_hh1, float* dw_ih2, float* db_ih2,
-    float* dw_hh2, float* db_hh2, float* dh1_0, cudaStream_t s) {
+    float* dw_hh2, float* db_hh2, float* dh1_0, float* red, cudaStream_t s) {
   const long long BH = (long long)B * H, G = 3LL * H;
   const int R = T * B;
   cudaError_t err;
@@ -145,12 +146,12 @@ cudaError_t decoder_bwd_from_dh2(
   const SplitRows h2prev{h1_seq, 0, B, h2_seq, 0, H};
   if ((err = segment_rows(1, T * B0, (int)G, Vp, tok, tok_rows, dw_tok, s)) ||
       (err = sum_over_t(1, T, (int)(B * G), s1x, dpre_z, s)) ||
-      (err = gemm_tn(1, H, (int)G, R, h1prev, s1h, 0, dw_hh1, 0, s)) ||
-      (err = colsum(1, R, (int)G, s1h, db_hh1, s)) ||
-      (err = gemm_tn(1, H, (int)G, R, h1cur, s2x, 0, dw_ih2, 0, s)) ||
-      (err = colsum(1, R, (int)G, s2x, db_ih2, s)) ||
-      (err = gemm_tn(1, H, (int)G, R, h2prev, s2h, 0, dw_hh2, 0, s)) ||
-      (err = colsum(1, R, (int)G, s2h, db_hh2, s)))
+      (err = gemm_tn(1, H, (int)G, R, h1prev, s1h, 0, dw_hh1, 0, red, s)) ||
+      (err = colsum(1, R, (int)G, s1h, db_hh1, red, s)) ||
+      (err = gemm_tn(1, H, (int)G, R, h1cur, s2x, 0, dw_ih2, 0, red, s)) ||
+      (err = colsum(1, R, (int)G, s2x, db_ih2, red, s)) ||
+      (err = gemm_tn(1, H, (int)G, R, h2prev, s2h, 0, dw_hh2, 0, red, s)) ||
+      (err = colsum(1, R, (int)G, s2h, db_hh2, red, s)))
     return err;
   return cudaSuccess;
 }
@@ -167,7 +168,7 @@ cudaError_t decoder_bwd_from_dlogits(
     float* dh1_mid, float* s1x, float* s1h, float* s2x, float* s2h,
     float* fold, float* dw_tok, float* dpre_z, float* dw_hh1,
     float* db_hh1, float* dw_ih2, float* db_ih2, float* dw_hh2,
-    float* db_hh2, float* dh1_0, float* dw_out, float* db_out,
+    float* db_hh2, float* dh1_0, float* dw_out, float* db_out, float* red,
     cudaStream_t s) {
   const int R = T * B;
   cudaError_t err;
@@ -177,22 +178,35 @@ cudaError_t decoder_bwd_from_dlogits(
                              g42, h1_0, w_hh1T, w_ih2T, w_hh2T, dh2_head,
                              dh2_buf, dh1_carry, dh1_mid, s1x, s1h, s2x, s2h,
                              fold, dw_tok, dpre_z, dw_hh1, db_hh1, dw_ih2,
-                             db_ih2, dw_hh2, db_hh2, dh1_0, s);
+                             db_ih2, dw_hh2, db_hh2, dh1_0, red, s);
   if (err != cudaSuccess) return err;
   const SplitRows h2cur{nullptr, 0, 0, h2_seq, 0, H};
-  if ((err = gemm_tn(1, H, Vp, R, h2cur, dlogits, 0, dw_out, 0, s)) ||
-      (err = colsum(1, R, Vp, dlogits, db_out, s)))
+  if ((err = gemm_tn(1, H, Vp, R, h2cur, dlogits, 0, dw_out, 0, red, s)) ||
+      (err = colsum(1, R, Vp, dlogits, db_out, red, s)))
     return err;
   return cudaSuccess;
 }
 
 }  // namespace fader
 
-// The arguments common to both entries, after their head's own: h1_seq,
+// Floats of scratch the three backward entries need at these sizes on the
+// current device: the split-K partial tiles of the weight-gradient GEMMs
+// ((H, 3H) and, with a head, (H, Vp), over T*B rows) and the column sums'
+// partials, one after the other through the same buffer.
+extern "C" long long fader_decoder_bwd_scratch_floats(int T, int B, int H,
+                                                      int Vp) {
+  const long long a = fader::reduce_scratch_floats(1, H, 3 * H, T * B);
+  const long long b = fader::reduce_scratch_floats(1, H, Vp, T * B);
+  return a > b ? a : b;
+}
+
+// The arguments common to the entries, after their head's own: h1_seq,
 // h2_seq (T,B,H), g41, g42 (T,B,4H) from the forward; h1_0 (B,H); w_hh1T,
 // w_ih2T, w_hh2T (3H,H) the transposed weights; w_out (H,Vp), b_out (Vp),
 // w_outT (Vp,H). Scratch: dlogits (T,B,Vp); dh2_head (T,B,H); dh2_buf
-// (2,B,H); dh1_carry, dh1_mid (B,H); s1x, s1h, s2x, s2h (T,B,3H). Outputs:
+// (2,B,H); dh1_carry, dh1_mid (B,H); s1x, s1h, s2x, s2h (T,B,3H); after
+// the outputs, scratch with scratch_floats >=
+// fader_decoder_bwd_scratch_floats(T,B,H,Vp) floats. Outputs:
 // dw_tok (Vp,3H); dpre_z (B,3H); dw_hh1, dw_ih2, dw_hh2 (H,3H); db_hh1,
 // db_ih2, db_hh2 (3H); dh1_0 (B,H); dw_out (H,Vp); db_out (Vp). T >= 1.
 //
@@ -207,9 +221,12 @@ extern "C" int fader_decoder_ce_bwd(
     float* dh1_mid, float* s1x, float* s1h, float* s2x, float* s2h,
     float* dw_tok, float* dpre_z, float* dw_hh1, float* db_hh1,
     float* dw_ih2, float* db_ih2, float* dw_hh2, float* db_hh2,
-    float* dh1_0, float* dw_out, float* db_out, void* stream) {
+    float* dh1_0, float* dw_out, float* db_out, float* scratch,
+    long long scratch_floats, void* stream) {
   using namespace fader;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch_floats < fader_decoder_bwd_scratch_floats(T, B, H, Vp))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = launch_ce_head(T * B, H, Vp, h2_seq, w_out, b_out, tgt,
                                    g, nullptr, dlogits, s);
   if (err != cudaSuccess) return (int)err;
@@ -217,7 +234,7 @@ extern "C" int fader_decoder_ce_bwd(
       T, B, H, Vp, 1, tok, h1_seq, h2_seq, g41, g42, h1_0, w_hh1T, w_ih2T,
       w_hh2T, w_outT, dlogits, dh2_head, dh2_buf, dh1_carry, dh1_mid, s1x,
       s1h, s2x, s2h, nullptr, dw_tok, dpre_z, dw_hh1, db_hh1, dw_ih2, db_ih2,
-      dw_hh2, db_hh2, dh1_0, dw_out, db_out, s);
+      dw_hh2, db_hh2, dh1_0, dw_out, db_out, scratch, s);
 }
 
 // Masses head: K ranges as 2K ints in host memory; n_rep copies (B =
@@ -235,12 +252,13 @@ extern "C" int fader_decoder_masses_bwd(
     float* fold, float* dw_tok, float* dpre_z, float* dw_hh1,
     float* db_hh1, float* dw_ih2, float* db_ih2, float* dw_hh2,
     float* db_hh2, float* dh1_0, float* dw_out, float* db_out,
-    void* stream) {
+    float* scratch, long long scratch_floats, void* stream) {
   using namespace fader;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MassRanges rg;
   if (!make_ranges(K, ranges, &rg) || n_rep < 1 || B % n_rep != 0 ||
-      (n_rep > 1 && fold == nullptr))
+      (n_rep > 1 && fold == nullptr) ||
+      scratch_floats < fader_decoder_bwd_scratch_floats(T, B, H, Vp))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = launch_mass_head(T * B, B, H, Vp, rg, h2_seq, w_out,
                                      b_out, g, nullptr, dlogits, s);
@@ -249,7 +267,7 @@ extern "C" int fader_decoder_masses_bwd(
       T, B, H, Vp, n_rep, tok, h1_seq, h2_seq, g41, g42, h1_0, w_hh1T,
       w_ih2T, w_hh2T, w_outT, dlogits, dh2_head, dh2_buf, dh1_carry,
       dh1_mid, s1x, s1h, s2x, s2h, fold, dw_tok, dpre_z, dw_hh1, db_hh1,
-      dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0, dw_out, db_out, s);
+      dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0, dw_out, db_out, scratch, s);
 }
 
 // No head (kernel 8): g2 (T,B,H) is the cotangent of h2_seq, read as
@@ -263,11 +281,13 @@ extern "C" int fader_decoder_teacher_bwd(
     float* dh1_carry, float* dh1_mid, float* s1x, float* s1h, float* s2x,
     float* s2h, float* dw_tok, float* dpre_z, float* dw_hh1, float* db_hh1,
     float* dw_ih2, float* db_ih2, float* dw_hh2, float* db_hh2,
-    float* dh1_0, void* stream) {
+    float* dh1_0, float* scratch, long long scratch_floats, void* stream) {
   using namespace fader;
+  if (scratch_floats < fader_decoder_bwd_scratch_floats(T, B, H, Vp))
+    return (int)cudaErrorInvalidValue;
   return (int)decoder_bwd_from_dh2(
       T, B, H, Vp, 1, tok, h1_seq, h2_seq, g41, g42, h1_0, w_hh1T, w_ih2T,
       w_hh2T, g2, dh2_buf, dh1_carry, dh1_mid, s1x, s1h, s2x, s2h, nullptr,
       dw_tok, dpre_z, dw_hh1, db_hh1, dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0,
-      static_cast<cudaStream_t>(stream));
+      scratch, static_cast<cudaStream_t>(stream));
 }

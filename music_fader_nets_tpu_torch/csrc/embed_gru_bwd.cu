@@ -21,15 +21,33 @@
 // 2.4 ms at 67 TFLOP/s; the dpre stashes (2 x 315 MB) are written once and
 // read once.
 //
-// Design: the chain launches once per step (dh needs all of the previous
-// step's dh), T launches from one host call. A block owns 32 hidden units
-// of 8 batch rows: it runs the gate backward of ALL H units of its rows
-// into a shared-memory A tile (the 3H-deep dpre_h rows; the elementwise
-// work is repeated by the H/32 column blocks, the price of one launch a
-// step), stores dpre_x / dpre_h of its own 32 units, and multiplies the
-// tile by its 32 columns of w_hh^T (pre-transposed so lanes read
-// consecutive addresses) with the split-K tile of gru_tile.cuh. The weight
-// gradients are grad_reduce.cu's deterministic GEMM, scatter and sums.
+// Design: the chain is ONE persistent, cooperatively launched kernel for
+// all T steps (gru_bwd_chain), for both cotangent forms. A block owns 32
+// hidden units of a 32- or 64-row tile of one direction for the whole call
+// and keeps its 32 columns of w_hh^T (3H x 32 floats, 196 KB at H = 512) in
+// shared memory, so the weights leave L2 once a call, and its dh tile in
+// registers, so dh never touches device memory. A step is: the gate
+// backward of the block's own units only (inputs loaded a step ahead),
+// written, transposed through shared memory, to a small k-major scratch
+// (3H x B, double-buffered over t); an arrive on the barrier of the H/32
+// blocks that share the row tile (a counter in device memory; the
+// cooperative launch guarantees they are all resident); the stores of
+// dpx[t] / dph[t] for the weight gradients and the next step's loads while
+// the others arrive; then the 3H-deep product: each warp copies the k rows
+// it multiplies itself (8 of every slab, for 32 rows of the tile) through a
+// cp.async ring of its own, so the product loop has no block-wide barrier,
+// with an 8 x 4 register tile a lane; the warps' partial tiles are added in
+// a fixed order through shared memory. The row tile is the smallest whose
+// grid is co-resident (L=2: 32 rows, L=4: 64 rows, 128 blocks each at
+// H=512, B=128); if none is, or the weights do not fit, the launch fails
+// and the error is returned. The product loop is bound by shared-memory
+// bandwidth, not by FMAs: a lane reads 12 words for 32 FMAs, and the slabs
+// landing in shared memory take their share of the same port. The per-step
+// kernel (gru_bwd_step: a launch a step, 8 rows x 32 units a block, the
+// gate backward of all H units redone by every column block) stays for the
+// decoder's chains (decoder_ce_bwd.cu), which interleave two layers. The
+// weight gradients are grad_reduce.cu's deterministic GEMM, scatter and
+// sums.
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
@@ -119,50 +137,371 @@ cudaError_t launch_gru_bwd_step(int L, int T, int B, int H, int t,
   return cudaGetLastError();
 }
 
+
+// ----------------------------------------------------------------------
+// The persistent chain.
+
+constexpr int kChainCols = 32;    // hidden units (dh columns) a block owns
+constexpr int kChainStages = 4;   // slabs in a warp's ring
+constexpr int kWarpK = 8;         // k rows of a slab that one warp multiplies
+constexpr int kWarpRows = 32;     // rows of the tile that one warp multiplies
+constexpr int kLaneRows = 8;      // a lane's register tile: 8 rows x 4 columns
+constexpr int kChainGPad = 64;    // the weights' k is zero-padded to this
+constexpr int kCtrStride = 32;    // ints between two barriers' counters
+constexpr int kChainBPad = 64;    // scratch rows are padded to this
+// ring | transpose buffer | partial tiles share these floats of a block
+constexpr int kChainBuf = kWarps * kChainStages * kWarpK * kWarpRows;
+
+struct ChainParams {
+  int L, T, B, H, Bp;
+  const float* g;
+  long long g_ls, g_ts;
+  int g_every_step;
+  const float* stash;
+  const float* h_seq;
+  const float* h0;
+  const float* w_hhT;
+  float* dpx;
+  float* dph;
+  float* dh0;
+  float* dphT;          // (2, L, 3H, Bp): dph[t] of step parity t & 1, k-major
+  unsigned* counters;   // one per (direction, row tile), kCtrStride apart
+};
+
+inline size_t chain_smem_bytes(int H) {
+  const size_t Gp = (size_t)(3 * H + kChainGPad - 1) / kChainGPad * kChainGPad;
+  return (Gp * kChainCols + kChainBuf) * sizeof(float);
+}
+
+// Row i of the RB/8 rows a thread of warp `warp` owns in the gate phase and
+// the epilogue: quads of 4 consecutive rows, quad index warp (+ 8).
+__device__ __forceinline__ int chain_row(int warp, int i) {
+  return (i / 4) * 32 + 4 * warp + (i % 4);
+}
+
+template <int RB>
+__global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
+  static_assert(RB == 32 || RB == 64, "row tiles of 32 or 64");
+  constexpr int RT = RB / 8;      // rows a thread owns (gate phase, epilogue)
+  constexpr int NQ = RB / 4;      // row quads of the tile
+  constexpr int kHalves = RB / kWarpRows;     // warps side by side over rows
+  constexpr int kSets = kWarps / kHalves;     // warps that split a slab's k
+  constexpr int KK = kSets * kWarpK;          // k rows of a slab
+  constexpr int kTStride = 3 * kChainCols + 1;   // float4s a quad of sT
+  static_assert(NQ * kTStride * 4 <= kChainBuf, "transpose buffer fits");
+  static_assert(kSets * RB * kChainCols <= kChainBuf, "partial tiles fit");
+  extern __shared__ float4 smem4[];
+  const int T = p.T, B = p.B, H = p.H, G = 3 * H, Bp = p.Bp;
+  const int Gp = (G + kChainGPad - 1) / kChainGPad * kChainGPad;
+  float* sW = reinterpret_cast<float*>(smem4);       // [Gp][32]
+  float* buf = sW + (size_t)Gp * kChainCols;         // ring | sT | red
+  const int l = blockIdx.z, b0 = blockIdx.y * RB, c0 = blockIdx.x * kChainCols;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int j = c0 + lane;
+  const bool col_ok = j < H;
+  const size_t BH = (size_t)B * H;
+
+  const float* wl = p.w_hhT + (size_t)l * G * H;
+  for (int idx = tid; idx < Gp * kChainCols; idx += kThreads) {
+    const int k = idx / kChainCols, c = idx % kChainCols;
+    sW[idx] = (k < G && c0 + c < H) ? wl[(size_t)k * H + c0 + c] : 0.f;
+  }
+
+  // gate inputs of the step to come, loaded a step ahead
+  float in_r[RT], in_z[RT], in_n[RT], in_hn[RT], in_hp[RT], in_g[RT];
+  auto prefetch = [&](int t) {
+    const float* hp =
+        t == 0 ? p.h0 + l * BH : p.h_seq + ((size_t)l * T + t - 1) * BH;
+    const bool add_g = p.g_every_step || t == T - 1;
+    const float* gt = p.g + l * p.g_ls + (p.g_every_step ? t * p.g_ts : 0);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int b = b0 + chain_row(warp, i);
+      in_r[i] = in_z[i] = in_n[i] = in_hn[i] = in_hp[i] = in_g[i] = 0.f;
+      if (col_ok && b < B) {
+        const float* st = p.stash + (((size_t)l * T + t) * B + b) * 4 * H;
+        in_r[i] = st[j];
+        in_z[i] = st[H + j];
+        in_n[i] = st[2 * H + j];
+        in_hn[i] = st[3 * H + j];
+        in_hp[i] = hp[(size_t)b * H + j];
+        if (add_g) in_g[i] = gt[(size_t)b * H + j];
+      }
+    }
+  };
+
+  unsigned* ctr = p.counters + (l * gridDim.y + blockIdx.y) * kCtrStride;
+  const unsigned group = gridDim.x;     // blocks that share this row tile
+  // product phase: warp (set, half) multiplies k = set*8 .. set*8+7 of each
+  // slab with rows half*32 .. +32 of the tile, which it alone loads into a
+  // ring of its own; lane (ry, cx) holds rows ry*8 .. +8 of those and
+  // columns cx*4 .. +4
+  const int set = warp / kHalves, half = warp % kHalves;
+  const int ry = lane >> 3, cx = lane & 7;
+  float* ring = buf + warp * (kChainStages * kWarpK * kWarpRows);
+
+  float dh[RT] = {};
+  prefetch(T - 1);
+  __syncthreads();
+  for (int t = T - 1, step = 1; t >= 0; --t, ++step) {
+    // ---- gate backward of the block's own units
+    float dhz[RT], dar[RT], daz[RT], dan[RT], dhn[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      dhz[i] = dar[i] = daz[i] = dan[i] = dhn[i] = 0.f;
+      if (col_ok && b0 + chain_row(warp, i) < B) {
+        const float d = dh[i] + in_g[i];
+        gate_bwd(d, in_r[i], in_z[i], in_n[i], in_hn[i], in_hp[i], dar[i],
+                 daz[i], dan[i], dhn[i]);
+        dhz[i] = d * in_z[i];
+      }
+    }
+    // transpose through shared memory: sT[quad][gate*32 + c] holds the
+    // dpre_h of 4 consecutive rows at unit c (pad rows and columns: 0)
+    float4* sT = reinterpret_cast<float4*>(buf);
+#pragma unroll
+    for (int q = 0; q < RT / 4; ++q) {
+      float4* dst = sT + (size_t)(q * 8 + warp) * kTStride + lane;
+      dst[0] = make_float4(dar[4 * q], dar[4 * q + 1], dar[4 * q + 2],
+                           dar[4 * q + 3]);
+      dst[kChainCols] = make_float4(daz[4 * q], daz[4 * q + 1],
+                                    daz[4 * q + 2], daz[4 * q + 3]);
+      dst[2 * kChainCols] = make_float4(dhn[4 * q], dhn[4 * q + 1],
+                                        dhn[4 * q + 2], dhn[4 * q + 3]);
+    }
+    __syncthreads();
+    float* dT = p.dphT + ((size_t)(t & 1) * p.L + l) * G * Bp + b0;
+#pragma unroll
+    for (int n = 0; n < 3 * kChainCols * NQ / kThreads; ++n) {
+      const int idx = tid + n * kThreads;
+      const int quad = idx % NQ, gc = idx / NQ;
+      const int c = gc % kChainCols;
+      if (c0 + c < H) {
+        const int k = (gc / kChainCols) * H + c0 + c;
+        *reinterpret_cast<float4*>(dT + (size_t)k * Bp + 4 * quad) =
+            sT[(size_t)quad * kTStride + gc];
+      }
+    }
+    // ---- barrier among the blocks of this row tile: arrive; while
+    // waiting, store dpx[t] / dph[t] for the weight gradients (no block
+    // reads them in this kernel) and load the next step's gate inputs; wait
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();
+      atomicAdd(ctr, 1u);
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int b = b0 + chain_row(warp, i);
+      if (col_ok && b < B) {
+        const size_t lt = ((size_t)l * T + t) * B + b;
+        float* px = p.dpx + lt * G;
+        float* pq = p.dph + lt * G;
+        px[j] = dar[i];
+        px[H + j] = daz[i];
+        px[2 * H + j] = dan[i];
+        pq[j] = dar[i];
+        pq[H + j] = daz[i];
+        pq[2 * H + j] = dhn[i];
+      }
+    }
+    if (t > 0) prefetch(t - 1);
+    if (tid == 0) {
+      while (*reinterpret_cast<volatile unsigned*>(ctr) < group * step) {
+      }
+      __threadfence();
+    }
+    __syncthreads();
+
+    // ---- acc = dph[t] (rows of the tile) @ w_hh^T (the block's columns)
+    const float* src = dT + half * kWarpRows;
+    auto fill_slab = [&](int sl) {
+      float* dst = ring + (sl % kChainStages) * (kWarpK * kWarpRows);
+#pragma unroll
+      for (int n = 0; n < kWarpK * kWarpRows / 4 / 32; ++n) {
+        const int idx = lane + n * 32;
+        const int kk = idx / (kWarpRows / 4), quad = idx % (kWarpRows / 4);
+        const int k = sl * KK + set * kWarpK + kk;
+        cp_async<16>(dst + kk * kWarpRows + 4 * quad,
+                     k < G ? src + (size_t)k * Bp + 4 * quad : src,
+                     k < G ? 16 : 0);
+      }
+    };
+    const int nslab = Gp / KK;
+    float acc[kLaneRows][4] = {};
+#pragma unroll
+    for (int sl = 0; sl < kChainStages - 1; ++sl) {
+      if (sl < nslab) fill_slab(sl);
+      cp_async_commit();
+    }
+    for (int sl = 0; sl < nslab; ++sl) {
+      cp_async_wait<kChainStages - 2>();
+      // the warp's own copies have landed and its lanes have left the
+      // stage that is refilled next
+      __syncwarp();
+      if (sl + kChainStages - 1 < nslab) fill_slab(sl + kChainStages - 1);
+      cp_async_commit();
+      const float* as = ring + (sl % kChainStages) * (kWarpK * kWarpRows) +
+                        ry * kLaneRows;
+      const float* ws =
+          sW + ((size_t)sl * KK + set * kWarpK) * kChainCols + cx * 4;
+#pragma unroll
+      for (int kk = 0; kk < kWarpK; ++kk) {
+        const float4 a_lo =
+            *reinterpret_cast<const float4*>(as + kk * kWarpRows);
+        const float4 a_hi =
+            *reinterpret_cast<const float4*>(as + kk * kWarpRows + 4);
+        const float4 w =
+            *reinterpret_cast<const float4*>(ws + kk * kChainCols);
+        const float a[kLaneRows] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
+                                    a_hi.x, a_hi.y, a_hi.z, a_hi.w};
+#pragma unroll
+        for (int i = 0; i < kLaneRows; ++i) {
+          acc[i][0] = fmaf(a[i], w.x, acc[i][0]);
+          acc[i][1] = fmaf(a[i], w.y, acc[i][1]);
+          acc[i][2] = fmaf(a[i], w.z, acc[i][2]);
+          acc[i][3] = fmaf(a[i], w.w, acc[i][3]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // ---- add the sets' partial tiles in set order; dh = dh*z + sum
+    float* red = buf;                                // [set][RB][32]
+#pragma unroll
+    for (int i = 0; i < kLaneRows; ++i)
+      *reinterpret_cast<float4*>(
+          red + ((size_t)set * RB + half * kWarpRows + ry * kLaneRows + i) *
+                    kChainCols + cx * 4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float* rp = red + (size_t)chain_row(warp, i) * kChainCols + lane;
+      float s = rp[0];
+#pragma unroll
+      for (int q = 1; q < kSets; ++q)
+        s = __fadd_rn(s, rp[(size_t)q * RB * kChainCols]);
+      dh[i] = dhz[i] + s;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int b = b0 + chain_row(warp, i);
+    if (col_ok && b < B) p.dh0[l * BH + (size_t)b * H + j] = dh[i];
+  }
+}
+
+namespace {
+
+int chain_bp(int B) { return (B + kChainBPad - 1) / kChainBPad * kChainBPad; }
+
+// counters first (one per 32-row tile at most), then dphT
+long long chain_counter_floats(int L, int B) {
+  return (long long)L * ((B + 31) / 32) * kCtrStride;
+}
+
+template <int RB>
+cudaError_t try_chain(const ChainParams& p, bool* fits, cudaStream_t s) {
+  const size_t smem = chain_smem_bytes(p.H);
+  *fits = false;
+  cudaError_t err = allow_smem(gru_bwd_chain<RB>, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, gru_bwd_chain<RB>, kThreads, smem)) != cudaSuccess)
+    return err;
+  const dim3 grid((p.H + kChainCols - 1) / kChainCols, (p.B + RB - 1) / RB,
+                  p.L);
+  if ((long long)grid.x * grid.y * grid.z > (long long)per_sm * sms)
+    return cudaSuccess;
+  *fits = true;
+  ChainParams args = p;
+  void* kargs[] = {&args};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(gru_bwd_chain<RB>), grid, dim3(kThreads), kargs,
+      smem, s);
+}
+
+}  // namespace
+
+long long chain_scratch_floats(int L, int B, int H) {
+  return chain_counter_floats(L, B) + 2LL * L * 3 * H * chain_bp(B);
+}
+
+cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
+                                 long long g_ls, long long g_ts,
+                                 int g_every_step, const float* stash,
+                                 const float* h_seq, const float* h0,
+                                 const float* w_hhT, float* dpx, float* dph,
+                                 float* dh0, float* scratch, cudaStream_t s) {
+  const long long nctr = chain_counter_floats(L, B);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, nctr * sizeof(float), s);
+  if (err != cudaSuccess) return err;
+  const ChainParams p{L, T, B, H, chain_bp(B), g, g_ls, g_ts, g_every_step,
+                      stash, h_seq, h0, w_hhT, dpx, dph, dh0, scratch + nctr,
+                      reinterpret_cast<unsigned*>(scratch)};
+  // the smallest row tile whose whole grid is resident at once
+  bool fits = false;
+  if ((err = try_chain<32>(p, &fits, s)) != cudaSuccess || fits) return err;
+  if ((err = try_chain<64>(p, &fits, s)) != cudaSuccess || fits) return err;
+  return cudaErrorCooperativeLaunchTooLarge;
+}
+
 }  // namespace fader
+
+// Floats of scratch fader_embed_gru_bwd and fader_stacked_gru_bwd need at
+// these sizes on the current device: the chain's barrier counters and
+// k-major dpre_h buffers, then the split-K partial tiles of the dW_hh GEMM
+// (shared with the column sums' partials).
+extern "C" long long fader_gru_bwd_scratch_floats(int L, int T, int B,
+                                                  int H) {
+  return fader::chain_scratch_floats(L, B, H) +
+         fader::reduce_scratch_floats(L, H, 3 * H, T * B);
+}
 
 // ids (L,T,B) int32; g: (L,B,H) final-state cotangent (seq_grad = 0) or
 // (L,T,B,H) per-step cotangent (seq_grad = 1); stash (L,T,B,4H), h_seq
 // (L,T,B,H), h0 (L,B,H) from the forward; w_hhT (L,3H,H) = w_hh
-// transposed. Scratch: dh_buf (2,L,B,H), dpx / dph (L,T,B,3H). Outputs:
-// dw_in (L,V,3H); db_in (L,3H) or null; dprez (L,B,3H) or null; dw_hh
-// (L,H,3H); db_hh (L,3H); dh0 (L,B,H). T >= 1.
+// transposed. Scratch: dpx / dph (L,T,B,3H); scratch, scratch_floats >=
+// fader_gru_bwd_scratch_floats(L,T,B,H) floats. Outputs: dw_in (L,V,3H);
+// db_in (L,3H) or null; dprez (L,B,3H) or null; dw_hh (L,H,3H); db_hh
+// (L,3H); dh0 (L,B,H). T >= 1. One cooperative launch for the chain, then
+// the reductions.
 extern "C" int fader_embed_gru_bwd(int L, int T, int B, int H, int V,
                                    int seq_grad, const int* ids,
                                    const float* g, const float* stash,
                                    const float* h_seq, const float* h0,
-                                   const float* w_hhT, float* dh_buf,
-                                   float* dpx, float* dph, float* dw_in,
-                                   float* db_in, float* dprez, float* dw_hh,
-                                   float* db_hh, float* dh0, void* stream) {
+                                   const float* w_hhT, float* dpx, float* dph,
+                                   float* dw_in, float* db_in, float* dprez,
+                                   float* dw_hh, float* db_hh, float* dh0,
+                                   float* scratch, long long scratch_floats,
+                                   void* stream) {
   using namespace fader;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch_floats < fader_gru_bwd_scratch_floats(L, T, B, H))
+    return (int)cudaErrorInvalidValue;
   const long long BH = (long long)B * H, G = 3LL * H;
-  cudaError_t err = cudaMemsetAsync(dh_buf, 0, BH * L * sizeof(float), s);
+  cudaError_t err = launch_gru_bwd_chain(
+      L, T, B, H, g, seq_grad ? T * BH : BH, BH, seq_grad, stash, h_seq, h0,
+      w_hhT, dpx, dph, dh0, scratch, s);
   if (err != cudaSuccess) return (int)err;
-  const float* dh_in = dh_buf;
-  for (int t = T - 1; t >= 0; --t) {
-    float* dh_out = (t == 0) ? dh0 : dh_buf + ((T - t) % 2) * BH * L;
-    const float* g_t = seq_grad ? g + t * BH : (t == T - 1 ? g : nullptr);
-    const long long g_ls = seq_grad ? T * BH : BH;
-    const float* hp = t == 0 ? h0 : h_seq + (t - 1) * BH;
-    const long long hp_ls = t == 0 ? BH : T * BH;
-    err = launch_gru_bwd_step(L, T, B, H, t, g_t, g_ls, stash, hp, hp_ls,
-                              w_hhT, dh_in, dh_out, dpx, dph, s);
-    if (err != cudaSuccess) return (int)err;
-    dh_in = dh_out;
-  }
+  float* red = scratch + chain_scratch_floats(L, B, H);
   const int R = T * B;
   if ((err = segment_rows(L, R, (int)G, V, ids, dpx, dw_in, s)) != cudaSuccess)
     return (int)err;
-  if (db_in && (err = colsum(L, R, (int)G, dpx, db_in, s)) != cudaSuccess)
+  if (db_in && (err = colsum(L, R, (int)G, dpx, db_in, red, s)) != cudaSuccess)
     return (int)err;
   if (dprez &&
       (err = sum_over_t(L, T, (int)(BH * 3), dpx, dprez, s)) != cudaSuccess)
     return (int)err;
   SplitRows hp{h0, BH, B, h_seq, T * BH, H};
-  if ((err = gemm_tn(L, H, (int)G, R, hp, dph, R * G, dw_hh, H * G, s)) !=
-      cudaSuccess)
+  if ((err = gemm_tn(L, H, (int)G, R, hp, dph, R * G, dw_hh, H * G, red,
+                     s)) != cudaSuccess)
     return (int)err;
-  return (int)colsum(L, R, (int)G, dph, db_hh, s);
+  return (int)colsum(L, R, (int)G, dph, db_hh, red, s);
 }

@@ -1,7 +1,7 @@
 // Weight-gradient reductions of the training backward kernels
-// (embed_gru_bwd.cu, decoder_ce_bwd.cu): dW = h_prev^T dpre over all T*B
-// rows, the scatter of dpre_x rows into embedding rows by token or class,
-// and the bias / per-sequence sums.
+// (embed_gru_bwd.cu, stacked_gru.cu, decoder_ce_bwd.cu): dW = h_prev^T dpre
+// over all T*B rows, the scatter of dpre_x rows into embedding rows by
+// token or class, and the bias / per-sequence sums.
 //
 // Replaces the accumulator updates inside the TPU backward kernels
 // (pallas_gru.py:600-603 `dwih += onehot^T dpx`, `dw += h_prev^T dph`,
@@ -13,56 +13,172 @@
 // 4 x 2 x 512 x 1536 x 12800 = 80.5 GFLOP, 1.2 ms at 67 TFLOP/s); the sums
 // and the scatter read each stashed row once (bytes).
 //
-// Design: a plain shared-memory tiled GEMM (64 x 64 output tile, k-slabs of
-// 16, 4 x 4 outputs per thread, float32 FMA on the CUDA cores; tensor cores
-// are later work). Every sum runs in a fixed order, so results are the
-// same from run to run: the scatter compacts each chunk's matching rows
-// with warp ballots and adds them in row order (no float atomics); the
-// column sums give each warp every 8th row and add the 8 partial sums in
-// warp order.
+// Design: gemm_tn is a register-blocked float32 FMA GEMM on the CUDA cores
+// (tensor cores would need a 3 x TF32 split to hold the gradients' 1e-4
+// bound over 12,800-term sums; not done). A block owns a 128 x 128 output
+// tile, a thread 8 x 8 outputs in registers (64 FMAs for four 16-byte
+// shared-memory reads). Both operands are row-major with k outermost, so a
+// 16-deep k-slab is 16 contiguous row segments of each: a ring of 4 slabs
+// in shared memory is filled by 16-byte cp.async copies, slab k+3 landing
+// while slab k is multiplied; the SplitRows seam is resolved once a copy
+// (two copies a thread and slab), ragged edges by zero-filling copies.
+// With 128 x 128 tiles one direction has only 4 x 12 tiles, so K is split
+// into S parts (S chosen so the blocks fill whole waves of two blocks an
+// SM), each part writes its partial tile to scratch and a second pass adds
+// the S partials in order: the same bits every run, no float atomics. The
+// column sums split the rows over blocks the same way (256-row chunks, 8
+// warps a chunk, 16-byte loads, partials added in chunk order). The
+// scatter compacts each chunk's matching rows with warp ballots and adds
+// them in row order. gemm_nn (dh2_head = dlogits @ w_out^T, 5 GFLOP) keeps
+// the plain 64 x 64 shared-memory tile.
+#include <stdint.h>
+
+#include "gru_tile.cuh"
 #include "train_ops.cuh"
 
 namespace fader {
 
-constexpr int kGT = 64;   // GEMM output tile (rows and columns)
-constexpr int kGK = 16;   // k-slab depth
+constexpr int kBM = 128;      // gemm_tn output tile rows (m)
+constexpr int kBN = 128;      // gemm_tn output tile columns (n)
+constexpr int kBK = 16;       // k-slab depth
+constexpr int kStages = 4;    // slabs in the shared-memory ring
+constexpr int kMaxSplits = 32;
+constexpr int kMinSplitK = 256;   // least k rows worth a split of their own
+constexpr size_t kGemmSmem =
+    (size_t)kStages * kBK * (kBM + kBN) * sizeof(float);
 
-template <bool kTransA>
+// C_part[l, sp] (M, N) = sum over k in [sp*kchunk, (sp+1)*kchunk) of
+// A(k, m) B[l](k, n); blockIdx.z = l * S + sp. VEC: 16-byte copies (M, N,
+// the strides and the base addresses are multiples of 4 floats), else
+// 4-byte copies.
+template <bool VEC>
+__global__ void __launch_bounds__(256, 2)
+    gemm_tn_kernel(int M, int N, int K, int S, int kchunk, SplitRows a,
+                   const float* __restrict__ b, long long b_ls,
+                   float* __restrict__ c, long long c_ls, long long c_ss) {
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);     // [stage][kBK][kBM]
+  float* Bs = As + kStages * kBK * kBM;            // [stage][kBK][kBN]
+  const int l = blockIdx.z / S, sp = blockIdx.z % S;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const int kbeg = sp * kchunk;
+  const int kend = min(K, kbeg + kchunk);
+  const int nslab = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
+  const float* bl = b + l * b_ls;
+  const float* a0l = a.a0 + l * a.a0_ls;
+  const float* a1l = a.a1 + l * a.a1_ls;
+
+  constexpr int W = VEC ? 4 : 1;              // floats a copy
+  constexpr int kPerRow = kBM / W;            // copies a k-row (kBM == kBN)
+  constexpr int kCopies = kBK * kPerRow / 256;
+  auto fill_slab = [&](int sl) {
+    float* as = As + (sl % kStages) * kBK * kBM;
+    float* bs = Bs + (sl % kStages) * kBK * kBN;
+    const int k0 = kbeg + sl * kBK;
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const int idx = tid + i * 256;
+      const int kk = idx / kPerRow, col = (idx % kPerRow) * W;
+      const int k = k0 + kk;
+      const bool a_ok = k < kend && m0 + col < M;
+      const float* arow = (k < a.n0) ? a0l + (long long)k * a.lda
+                                     : a1l + (long long)(k - a.n0) * a.lda;
+      cp_async<4 * W>(as + kk * kBM + col, a_ok ? arow + m0 + col : bl,
+                      a_ok ? 4 * W : 0);
+      const bool b_ok = k < kend && n0 + col < N;
+      cp_async<4 * W>(bs + kk * kBN + col,
+                      b_ok ? bl + (long long)k * N + n0 + col : bl,
+                      b_ok ? 4 * W : 0);
+    }
+  };
+
+  float acc[8][8] = {};
+#pragma unroll
+  for (int sl = 0; sl < kStages - 1; ++sl) {
+    if (sl < nslab) fill_slab(sl);
+    cp_async_commit();
+  }
+  for (int sl = 0; sl < nslab; ++sl) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    // the stage refilled here was read in iteration sl - 1, which every
+    // thread has left
+    if (sl + kStages - 1 < nslab) fill_slab(sl + kStages - 1);
+    cp_async_commit();
+    const float* as = As + (sl % kStages) * kBK * kBM + ty * 4;
+    const float* bs = Bs + (sl % kStages) * kBK * kBN + tx * 4;
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a_lo = *reinterpret_cast<const float4*>(as + kk * kBM);
+      const float4 a_hi = *reinterpret_cast<const float4*>(as + kk * kBM + 64);
+      const float4 b_lo = *reinterpret_cast<const float4*>(bs + kk * kBN);
+      const float4 b_hi = *reinterpret_cast<const float4*>(bs + kk * kBN + 64);
+      const float ar[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
+                           a_hi.x, a_hi.y, a_hi.z, a_hi.w};
+      const float br[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w,
+                           b_hi.x, b_hi.y, b_hi.z, b_hi.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // thread (ty, tx) holds rows m0 + {0, 64} + ty*4 + 0..3 and columns
+  // n0 + {0, 64} + tx*4 + 0..3
+  float* cl = c + l * c_ls + sp * c_ss;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i / 4) * 64 + ty * 4 + (i % 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (j / 4) * 64 + tx * 4 + (j % 4);
+      if (n < N) cl[(long long)m * N + n] = acc[i][j];
+    }
+  }
+}
+
+// c[l, i] = part[l, 0, i] + part[l, 1, i] + ... + part[l, S-1, i], i < n.
 __global__ void __launch_bounds__(256)
-    gemm_kernel(int M, int N, int K, SplitRows a, const float* __restrict__ b,
-                long long b_ls, float* __restrict__ c, long long c_ls) {
+    splitk_sum_kernel(long long n, int S, const float* __restrict__ part,
+                      float* __restrict__ c, long long c_ls) {
+  const int l = blockIdx.y;
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  const float* pl = part + (long long)l * S * n + i;
+  float s = pl[0];
+  for (int sp = 1; sp < S; ++sp) s += pl[sp * n];
+  c[l * c_ls + i] = s;
+}
+
+constexpr int kGT = 64;   // gemm_nn output tile (rows and columns)
+constexpr int kGK = 16;   // gemm_nn k-slab depth
+
+// C (M, N) = A (M, K) @ B (K, N), a 64 x 64 tile a block, 4 x 4 outputs a
+// thread.
+__global__ void __launch_bounds__(256)
+    gemm_nn_kernel(int M, int N, int K, const float* __restrict__ a,
+                   const float* __restrict__ b, float* __restrict__ c) {
   __shared__ __align__(16) float As[kGK][kGT];
   __shared__ __align__(16) float Bs[kGK][kGT];
-  const int l = blockIdx.z;
   const int m0 = blockIdx.y * kGT, n0 = blockIdx.x * kGT;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-  const float* bl = b + l * b_ls;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += kGK) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int idx = tid + i * 256;
-      if (kTransA) {
-        const int kk = idx / kGT, mm = idx % kGT;
-        const int k = k0 + kk, m = m0 + mm;
-        float v = 0.f;
-        if (k < K && m < M) {
-          const float* row = (k < a.n0)
-              ? a.a0 + l * a.a0_ls + (long long)k * a.lda
-              : a.a1 + l * a.a1_ls + (long long)(k - a.n0) * a.lda;
-          v = row[m];
-        }
-        As[kk][mm] = v;
-      } else {
-        const int mm = idx / kGK, kk = idx % kGK;
-        const int k = k0 + kk, m = m0 + mm;
-        As[kk][mm] =
-            (k < K && m < M) ? a.a1[(long long)m * a.lda + k] : 0.f;
-      }
+      const int mm = idx / kGK, ka = idx % kGK;
+      As[ka][mm] = (k0 + ka < K && m0 + mm < M)
+                       ? a[(long long)(m0 + mm) * K + k0 + ka] : 0.f;
       const int kk = idx / kGT, nn = idx % kGT;
       const int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < N) ? bl[(long long)k * N + n] : 0.f;
+      Bs[kk][nn] = (k < K && n < N) ? b[(long long)k * N + n] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -78,7 +194,6 @@ __global__ void __launch_bounds__(256)
     }
     __syncthreads();
   }
-  float* cl = c + l * c_ls;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
@@ -86,7 +201,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < N) cl[(long long)m * N + n] = acc[i][j];
+      if (n < N) c[(long long)m * N + n] = acc[i][j];
     }
   }
 }
@@ -125,31 +240,73 @@ __global__ void __launch_bounds__(256)
   if (c < N) out[((long long)l * V + v) * N + c] = acc;
 }
 
+constexpr int kSumRows = 256;   // rows a column-sum block walks
+
+// part[l, chunk, :] = sum over the chunk's rows of x[l, r, :]. A block owns
+// 32 * W columns of one 256-row chunk; warp w takes rows w, w + 8, ... and
+// the 8 warps' sums are added in warp order. W = 4: 16-byte loads.
+template <int W>
 __global__ void __launch_bounds__(256)
-    colsum_kernel(int R, int N, const float* __restrict__ x,
-                  float* __restrict__ out) {
-  __shared__ float part[8][33];
-  const int l = blockIdx.y;
+    colsum_part_kernel(int R, int N, const float* __restrict__ x,
+                       float* __restrict__ part) {
+  __shared__ float sums[8][32 * W + 1];
+  const int l = blockIdx.z, chunk = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * 32 + lane;
-  const float* xl = x + (long long)l * R * N;
-  float s0 = 0.f, s1 = 0.f;
+  const int c = (blockIdx.x * 32 + lane) * W;
+  const int r1 = min(R, (chunk + 1) * kSumRows);
+  const float* xl = x + (long long)l * R * N + c;
+  float s[2][W] = {};
   if (c < N) {
-    int r = warp;
-    for (; r + 8 < R; r += 16) {
-      s0 += xl[(long long)r * N + c];
-      s1 += xl[(long long)(r + 8) * N + c];
+    int r = chunk * kSumRows + warp;
+    for (; r + 8 < r1; r += 16) {
+      if constexpr (W == 4) {
+        const float4 u =
+            *reinterpret_cast<const float4*>(xl + (long long)r * N);
+        const float4 v =
+            *reinterpret_cast<const float4*>(xl + (long long)(r + 8) * N);
+        s[0][0] += u.x;
+        s[0][1] += u.y;
+        s[0][2] += u.z;
+        s[0][3] += u.w;
+        s[1][0] += v.x;
+        s[1][1] += v.y;
+        s[1][2] += v.z;
+        s[1][3] += v.w;
+      } else {
+        s[0][0] += xl[(long long)r * N];
+        s[1][0] += xl[(long long)(r + 8) * N];
+      }
     }
-    if (r < R) s0 += xl[(long long)r * N + c];
-  }
-  part[warp][lane] = s0 + s1;
-  __syncthreads();
-  if (warp == 0 && c < N) {
-    float s = 0.f;
+    if (r < r1) {
 #pragma unroll
-    for (int w = 0; w < 8; ++w) s += part[w][lane];
-    out[(long long)l * N + c] = s;
+      for (int i = 0; i < W; ++i) s[0][i] += xl[(long long)r * N + i];
+    }
   }
+#pragma unroll
+  for (int i = 0; i < W; ++i) sums[warp][lane * W + i] = s[0][i] + s[1][i];
+  __syncthreads();
+  const int nchunk = gridDim.y;
+  for (int i = threadIdx.x; i < 32 * W; i += 256) {
+    const int col = blockIdx.x * 32 * W + i;
+    if (col >= N) continue;
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += sums[w][i];
+    part[((long long)l * nchunk + chunk) * N + col] = t;
+  }
+}
+
+// out[l, c] = part[l, 0, c] + part[l, 1, c] + ... in chunk order.
+__global__ void __launch_bounds__(256)
+    colsum_final_kernel(int nchunk, int N, const float* __restrict__ part,
+                        float* __restrict__ out) {
+  const int l = blockIdx.y;
+  const int c = blockIdx.x * 256 + threadIdx.x;
+  if (c >= N) return;
+  const float* pl = part + (long long)l * nchunk * N + c;
+  float s = pl[0];
+  for (int k = 1; k < nchunk; ++k) s += pl[(long long)k * N];
+  out[(long long)l * N + c] = s;
 }
 
 __global__ void __launch_bounds__(256)
@@ -164,19 +321,90 @@ __global__ void __launch_bounds__(256)
   out[(long long)l * n + i] = s;
 }
 
+namespace {
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      n < 1)
+    return 1;
+  return n;
+}
+
+// The split of K for gemm_tn: the least S whose L * tiles * S blocks fill
+// at least nine tenths of whole waves of two blocks an SM, or the S that
+// fills them best; a split has at least kMinSplitK rows of k.
+struct GemmPlan {
+  int S, kchunk;
+};
+
+GemmPlan gemm_plan(int L, int M, int N, int K) {
+  const long long tiles =
+      (long long)L * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  const long long slots = 2LL * sm_count();
+  const int max_s = max(1, min(kMaxSplits, K / kMinSplitK));
+  int best = 1;
+  double best_fill = 0.0;
+  for (int S = 1; S <= max_s; ++S) {
+    const long long blocks = tiles * S;
+    const long long waves = (blocks + slots - 1) / slots;
+    const double fill = (double)blocks / (double)(waves * slots);
+    if (fill > best_fill) {
+      best = S;
+      best_fill = fill;
+    }
+    if (fill >= 0.9) break;
+  }
+  const int per = (K + best - 1) / best;
+  return {best, (per + kBK - 1) / kBK * kBK};
+}
+
+int colsum_chunks(int R) { return (R + kSumRows - 1) / kSumRows; }
+
+}  // namespace
+
+long long reduce_scratch_floats(int L, int M, int N, int K) {
+  const GemmPlan p = gemm_plan(L, M, N, K);
+  const long long gemm = p.S > 1 ? (long long)L * p.S * M * N : 0;
+  const int nchunk = colsum_chunks(K);
+  const long long sums = nchunk > 1 ? (long long)L * nchunk * N : 0;
+  return max(gemm, sums);
+}
+
 cudaError_t gemm_tn(int L, int M, int N, int K, SplitRows a, const float* b,
-                    long long b_ls, float* c, long long c_ls,
+                    long long b_ls, float* c, long long c_ls, float* scratch,
                     cudaStream_t s) {
-  const dim3 grid((N + kGT - 1) / kGT, (M + kGT - 1) / kGT, L);
-  gemm_kernel<true><<<grid, 256, 0, s>>>(M, N, K, a, b, b_ls, c, c_ls);
+  const GemmPlan p = gemm_plan(L, M, N, K);
+  if (p.S > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  const bool vec = M % 4 == 0 && N % 4 == 0 && a.lda % 4 == 0 &&
+                   a.a0_ls % 4 == 0 && a.a1_ls % 4 == 0 && b_ls % 4 == 0 &&
+                   aligned16(a.a0) && aligned16(a.a1) && aligned16(b);
+  auto kernel = vec ? gemm_tn_kernel<true> : gemm_tn_kernel<false>;
+  cudaError_t err = allow_smem(kernel, kGemmSmem);
+  if (err != cudaSuccess) return err;
+  const long long mn = (long long)M * N;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, L * p.S);
+  if (p.S == 1) {
+    kernel<<<grid, 256, kGemmSmem, s>>>(M, N, K, 1, p.kchunk, a, b, b_ls, c,
+                                        c_ls, 0);
+    return cudaGetLastError();
+  }
+  kernel<<<grid, 256, kGemmSmem, s>>>(M, N, K, p.S, p.kchunk, a, b, b_ls,
+                                      scratch, p.S * mn, mn);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 grid_sum((unsigned)((mn + 255) / 256), L);
+  splitk_sum_kernel<<<grid_sum, 256, 0, s>>>(mn, p.S, scratch, c, c_ls);
   return cudaGetLastError();
 }
 
 cudaError_t gemm_nn(int M, int N, int K, const float* a, const float* b,
                     float* c, cudaStream_t s) {
-  SplitRows ar{nullptr, 0, 0, a, 0, K};
   const dim3 grid((N + kGT - 1) / kGT, (M + kGT - 1) / kGT, 1);
-  gemm_kernel<false><<<grid, 256, 0, s>>>(M, N, K, ar, b, 0, c, 0);
+  gemm_nn_kernel<<<grid, 256, 0, s>>>(M, N, K, a, b, c);
   return cudaGetLastError();
 }
 
@@ -188,9 +416,21 @@ cudaError_t segment_rows(int L, int R, int N, int V, const int* ids,
 }
 
 cudaError_t colsum(int L, int R, int N, const float* x, float* out,
-                   cudaStream_t s) {
-  const dim3 grid((N + 31) / 32, L);
-  colsum_kernel<<<grid, 256, 0, s>>>(R, N, x, out);
+                   float* scratch, cudaStream_t s) {
+  const int nchunk = colsum_chunks(R);
+  if (nchunk > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  float* part = nchunk > 1 ? scratch : out;
+  if (N % 4 == 0 && aligned16(x)) {
+    const dim3 grid((N + 127) / 128, nchunk, L);
+    colsum_part_kernel<4><<<grid, 256, 0, s>>>(R, N, x, part);
+  } else {
+    const dim3 grid((N + 31) / 32, nchunk, L);
+    colsum_part_kernel<1><<<grid, 256, 0, s>>>(R, N, x, part);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nchunk == 1) return err;
+  const dim3 grid_fin((N + 255) / 256, L);
+  colsum_final_kernel<<<grid_fin, 256, 0, s>>>(nchunk, N, scratch, out);
   return cudaGetLastError();
 }
 

@@ -129,6 +129,37 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// Asynchronous copies from device memory into shared memory (cp.async):
+// `BYTES` (16 or 4) are written, the first `src_bytes` of them read from
+// `gmem` and the rest zero-filled, so src_bytes = 0 masks a ragged edge
+// (gmem must still be a valid address aligned to BYTES). The 16-byte form
+// goes through L2 only. A thread's copies complete in the order of its
+// commit groups: cp_async_wait<N>() returns when all but its N newest
+// groups have landed; other threads see them after a __syncthreads().
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int src_bytes) {
+  static_assert(BYTES == 16 || BYTES == 4, "cp.async of 16 or 4 bytes");
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(gmem), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(gmem), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }

@@ -23,12 +23,16 @@
 // pre and dpre (157 MB each there) are read and written once.
 //
 // Design: the embedded-id kernels' (embed_gru.cu, embed_gru_bwd.cu) with
-// the input row read from pre in place of a gather. One launch per step
-// from a C host loop (h_{t+1} needs all of h_t); a block owns (direction,
-// 32 hidden units with their r/z/n columns, 16 batch rows), the split-K
-// tile of gru_tile.cuh. The backward chain is embed_gru_bwd.cu's step,
-// whose input-projection cotangent is the output dpre; dW_hh and db_hh are
-// grad_reduce.cu's deterministic GEMM and column sums (no float atomics).
+// the input row read from pre in place of a gather. The forward is one
+// launch per step from a C host loop (h_{t+1} needs all of h_t); a block
+// owns (direction, 32 hidden units with their r/z/n columns, 16 batch
+// rows), the split-K tile of gru_tile.cuh. The backward chain is
+// embed_gru_bwd.cu's persistent kernel (one cooperative launch for all T
+// steps, the block's w_hh^T columns resident in shared memory, a barrier a
+// step among the blocks of a row tile), taking the cotangent g_seq[l, t] on
+// every step; its input-projection cotangent is the output dpre. dW_hh and
+// db_hh are grad_reduce.cu's split-K GEMM and chunked column sums
+// (deterministic, no float atomics).
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
@@ -112,34 +116,34 @@ extern "C" int fader_stacked_gru(int L, int T, int B, int H, const float* pre,
 }
 
 // g (L,T,B,H) the h_seq cotangent; stash (L,T,B,4H), h_seq (L,T,B,H) and h0
-// (L,B,H) from the forward; w_hhT (L,3H,H) = w_hh transposed. Scratch:
-// dh_buf (2,L,B,H), dph (L,T,B,3H). Outputs: dpre (L,T,B,3H); dw_hh
-// (L,H,3H); db_hh (L,3H); dh0 (L,B,H). T >= 1.
+// (L,B,H) from the forward; w_hhT (L,3H,H) = w_hh transposed. Scratch: dph
+// (L,T,B,3H); scratch, scratch_floats >= fader_gru_bwd_scratch_floats(L,T,
+// B,H) floats (embed_gru_bwd.cu). Outputs: dpre (L,T,B,3H); dw_hh (L,H,3H);
+// db_hh (L,3H); dh0 (L,B,H). T >= 1. One cooperative launch for the chain,
+// then the GEMM and the column sums.
+extern "C" long long fader_gru_bwd_scratch_floats(int L, int T, int B, int H);
+
 extern "C" int fader_stacked_gru_bwd(int L, int T, int B, int H,
                                      const float* g, const float* stash,
                                      const float* h_seq, const float* h0,
-                                     const float* w_hhT, float* dh_buf,
-                                     float* dph, float* dpre, float* dw_hh,
-                                     float* db_hh, float* dh0, void* stream) {
+                                     const float* w_hhT, float* dph,
+                                     float* dpre, float* dw_hh, float* db_hh,
+                                     float* dh0, float* scratch,
+                                     long long scratch_floats, void* stream) {
   using namespace fader;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch_floats < fader_gru_bwd_scratch_floats(L, T, B, H))
+    return (int)cudaErrorInvalidValue;
   const long long BH = (long long)B * H, G = 3LL * H;
-  cudaError_t err = cudaMemsetAsync(dh_buf, 0, BH * L * sizeof(float), s);
+  cudaError_t err =
+      launch_gru_bwd_chain(L, T, B, H, g, T * BH, BH, 1, stash, h_seq, h0,
+                           w_hhT, dpre, dph, dh0, scratch, s);
   if (err != cudaSuccess) return (int)err;
-  const float* dh_in = dh_buf;
-  for (int t = T - 1; t >= 0; --t) {
-    float* dh_out = (t == 0) ? dh0 : dh_buf + ((T - t) % 2) * BH * L;
-    const float* hp = t == 0 ? h0 : h_seq + (t - 1) * BH;
-    const long long hp_ls = t == 0 ? BH : T * BH;
-    err = launch_gru_bwd_step(L, T, B, H, t, g + t * BH, T * BH, stash, hp,
-                              hp_ls, w_hhT, dh_in, dh_out, dpre, dph, s);
-    if (err != cudaSuccess) return (int)err;
-    dh_in = dh_out;
-  }
+  float* red = scratch + chain_scratch_floats(L, B, H);
   const int R = T * B;
   const SplitRows h_prev{h0, BH, B, h_seq, T * BH, H};
-  if ((err = gemm_tn(L, H, (int)G, R, h_prev, dph, R * G, dw_hh, H * G, s)) !=
-      cudaSuccess)
+  if ((err = gemm_tn(L, H, (int)G, R, h_prev, dph, R * G, dw_hh, H * G, red,
+                     s)) != cudaSuccess)
     return (int)err;
-  return (int)colsum(L, R, (int)G, dph, db_hh, s);
+  return (int)colsum(L, R, (int)G, dph, db_hh, red, s);
 }

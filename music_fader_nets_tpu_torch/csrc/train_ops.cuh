@@ -1,5 +1,6 @@
 // Host launchers shared by the training kernels (embed_gru.cu,
-// embed_gru_bwd.cu, decoder_ce.cu, decoder_ce_bwd.cu, grad_reduce.cu).
+// embed_gru_bwd.cu, stacked_gru.cu, decoder_ce.cu, decoder_ce_bwd.cu,
+// grad_reduce.cu).
 // Each enqueues its launches on `s`, allocates nothing, and returns the
 // first launch error (cudaSuccess = 0).
 #pragma once
@@ -47,6 +48,23 @@ cudaError_t launch_gru_bwd_step(int L, int T, int B, int H, int t,
                                 const float* dh_in, float* dh_out,
                                 float* dpx, float* dph, cudaStream_t s);
 
+// The whole reversed GRU backward chain of L directions in one persistent,
+// cooperatively launched kernel: for t = T-1 .. 0, dh += g_t (g at g +
+// l*g_ls + t*g_ts on every step when g_every_step, else g + l*g_ls on step
+// T-1 only), (dpx[l, t], dph[l, t]) = gate_bwd(dh, stash[l, t], h_prev(t))
+// with h_prev(0) = h0[l] and h_prev(t) = h_seq[l, t-1], dh = dh * z +
+// dph[l, t] @ w_hh[l]^T (w_hhT (L, 3H, H)); dh0[l] = the last dh. `scratch`
+// holds chain_scratch_floats(L, B, H) floats. Fails (no other path is
+// taken) when the grid cannot be co-resident on the device or the weights
+// of a block do not fit its shared memory.
+long long chain_scratch_floats(int L, int B, int H);
+cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
+                                 long long g_ls, long long g_ts,
+                                 int g_every_step, const float* stash,
+                                 const float* h_seq, const float* h0,
+                                 const float* w_hhT, float* dpx, float* dph,
+                                 float* dh0, float* scratch, cudaStream_t s);
+
 // The cross-entropy head over R rows of h2 (R, H): logits = h2 @ w_out +
 // b_out over Vp lanes. With g null it writes nll[r] = logsumexp(logits[r])
 // - logits[r, tgt[r]]; with g (R) it writes dlogits (R, Vp) =
@@ -88,10 +106,18 @@ cudaError_t launch_decoder_recurrence(
     const float* b_hh2, const float* h1_0, float* h1_seq, float* h2_seq,
     float* g41, float* g42, cudaStream_t s);
 
+// Floats of scratch that gemm_tn(L, M, N, K) and colsum(L, K, N) need (the
+// larger of the two: they run one after the other on a stream and share
+// it). Depends on the current device's SM count.
+long long reduce_scratch_floats(int L, int M, int N, int K);
+
 // C[l] (M, N) = sum over k < K of A(k, m) B[l](k, n); A a SplitRows (K, M)
 // operand, B row-major (K, N) at b + l*b_ls, C row-major at c + l*c_ls.
+// K is split into parts whose partial products go through `scratch`
+// (reduce_scratch_floats) and are added in a fixed order.
 cudaError_t gemm_tn(int L, int M, int N, int K, SplitRows a, const float* b,
-                    long long b_ls, float* c, long long c_ls, cudaStream_t s);
+                    long long b_ls, float* c, long long c_ls, float* scratch,
+                    cudaStream_t s);
 
 // C (M, N) = A (M, K) @ B (K, N), all row-major and contiguous.
 cudaError_t gemm_nn(int M, int N, int K, const float* a, const float* b,
@@ -103,9 +129,11 @@ cudaError_t gemm_nn(int M, int N, int K, const float* a, const float* b,
 cudaError_t segment_rows(int L, int R, int N, int V, const int* ids,
                          const float* x, float* out, cudaStream_t s);
 
-// out[l, :] = sum over r < R of x[l, r, :]; x (L, R, N) contiguous.
+// out[l, :] = sum over r < R of x[l, r, :]; x (L, R, N) contiguous. Rows
+// are summed in 256-row chunks whose partial sums go through `scratch`
+// (reduce_scratch_floats with K = R) and are added in chunk order.
 cudaError_t colsum(int L, int R, int N, const float* x, float* out,
-                   cudaStream_t s);
+                   float* scratch, cudaStream_t s);
 
 // out[l, i] = sum over t < T of x[l, t, i] for i < n; x (L, T, n).
 cudaError_t sum_over_t(int L, int T, int n, const float* x, float* out,

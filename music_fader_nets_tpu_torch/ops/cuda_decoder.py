@@ -259,13 +259,15 @@ def _launch_teacher_bwd(g2, tok_t, h1_seq, h2_seq, g41, g42, whh1, wih2,
     tr, scratch, outs = _bwd_buffers(T, B, H, Vp, dev, head=False)
     lib = _build.load_library()
     with torch.cuda.device(dev):
+        red, n_red = _build.bwd_scratch(
+            lib.fader_decoder_bwd_scratch_floats, (T, B, H, Vp), dev)
         err = lib.fader_decoder_teacher_bwd(
             T, B, H, Vp, *(t.data_ptr() for t in (
                 tok_t, g2, h1_seq, h2_seq, g41, g42, h1_0, tr(whh1),
-                tr(wih2), tr(whh2), *scratch, *outs)),
+                tr(wih2), tr(whh2), *scratch, *outs, red)), n_red,
             cuda_gru._stream(dev))
     _build.check(err, "fader_decoder_teacher_bwd")
-    del scratch
+    del scratch, red
     return tuple(outs)
 
 
@@ -279,13 +281,15 @@ def _launch_bwd(g, tok_t, tgt_t, h1_seq, h2_seq, g41, g42, whh1, wih2, whh2,
     tr, scratch, outs = _bwd_buffers(T, B, H, Vp, dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
+        red, n_red = _build.bwd_scratch(
+            lib.fader_decoder_bwd_scratch_floats, (T, B, H, Vp), dev)
         err = lib.fader_decoder_ce_bwd(
             T, B, H, Vp, *(t.data_ptr() for t in (
                 tok_t, tgt_t, g, h1_seq, h2_seq, g41, g42, h1_0, tr(whh1),
                 tr(wih2), tr(whh2), w_out, b_out, tr(w_out), *scratch,
-                *outs)), cuda_gru._stream(dev))
+                *outs, red)), n_red, cuda_gru._stream(dev))
     _build.check(err, "fader_decoder_ce_bwd")
-    del scratch
+    del scratch, red
     return tuple(outs)
 
 
@@ -301,14 +305,16 @@ def _launch_masses_bwd(g, tok_t, h1_seq, h2_seq, g41, g42, whh1, wih2,
                         device=dev) if n_rep > 1 else None)
     lib = _build.load_library()
     with torch.cuda.device(dev):
+        red, n_red = _build.bwd_scratch(
+            lib.fader_decoder_bwd_scratch_floats, (T, B, H, Vp), dev)
         err = lib.fader_decoder_masses_bwd(
             T, B, H, Vp, n_rep, len(ranges), _ranges_arg(ranges),
             *(_ptr(t) for t in (
                 tok_t, g, h1_seq, h2_seq, g41, g42, h1_0, tr(whh1),
                 tr(wih2), tr(whh2), w_out, b_out, tr(w_out), *scratch,
-                fold, *outs)), cuda_gru._stream(dev))
+                fold, *outs, red)), n_red, cuda_gru._stream(dev))
     _build.check(err, "fader_decoder_masses_bwd")
-    del scratch, fold
+    del scratch, fold, red
     return tuple(outs)
 
 

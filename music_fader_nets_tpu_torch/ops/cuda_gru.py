@@ -23,8 +23,9 @@ import torch
 from music_fader_nets_tpu_torch.ops import _build
 from music_fader_nets_tpu_torch.ops.gru import _gates
 
-# wrapper calls that launched each kernel (one call = T device launches of
-# its recurrence, plus the backward's reductions)
+# wrapper calls that launched each kernel (a forward call = T device
+# launches of its recurrence; a backward call = one cooperative launch of
+# the whole chain, plus the reductions)
 LAUNCHES = {"embed_gru": 0, "embed_gru_train": 0, "embed_gru_bwd": 0,
             "embed_seq": 0, "embed_seq_bwd": 0}
 # which path served the last encoder call: "kernel" or "plain-cpu"
@@ -145,7 +146,6 @@ def _launch_bwd(ids, g, seq_grad: bool, stash, h_seq, h0, w_hh, V: int,
     lib = _build.load_library()
     f32 = dict(dtype=torch.float32, device=dev)
     w_hhT = w_hh.transpose(1, 2).contiguous()
-    dh_buf = torch.empty((2, L, B, H), **f32)
     dpx = torch.empty((L, T, B, G), **f32)
     dph = torch.empty((L, T, B, G), **f32)
     dw_in = torch.empty((L, V, G), **f32)
@@ -156,12 +156,15 @@ def _launch_bwd(ids, g, seq_grad: bool, stash, h_seq, h0, w_hh, V: int,
     dh0 = torch.empty((L, B, H), **f32)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
+        scratch, n_scratch = _build.bwd_scratch(
+            lib.fader_gru_bwd_scratch_floats, (L, T, B, H), dev)
         err = lib.fader_embed_gru_bwd(
             L, T, B, H, V, int(seq_grad), ids.data_ptr(), g.data_ptr(),
             stash.data_ptr(), h_seq.data_ptr(), h0.data_ptr(),
-            w_hhT.data_ptr(), dh_buf.data_ptr(), dpx.data_ptr(),
-            dph.data_ptr(), dw_in.data_ptr(), ptr(db_in), ptr(dprez),
-            dw_hh.data_ptr(), db_hh.data_ptr(), dh0.data_ptr(), _stream(dev))
+            w_hhT.data_ptr(), dpx.data_ptr(), dph.data_ptr(),
+            dw_in.data_ptr(), ptr(db_in), ptr(dprez), dw_hh.data_ptr(),
+            db_hh.data_ptr(), dh0.data_ptr(), scratch.data_ptr(), n_scratch,
+            _stream(dev))
     _build.check(err, "fader_embed_gru_bwd")
     return dw_in, db_in, dprez, dw_hh, db_hh, dh0
 

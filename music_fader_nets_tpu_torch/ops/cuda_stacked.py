@@ -26,7 +26,8 @@ from music_fader_nets_tpu_torch.ops import _build, cuda_gru
 from music_fader_nets_tpu_torch.ops.gru import _gates
 
 # wrapper calls that launched each kernel (forward: T device launches;
-# backward: T + 2)
+# backward: one cooperative launch of the whole chain, then the split-K
+# GEMM with its sum and the column sums with theirs)
 LAUNCHES = {"stacked_gru": 0, "stacked_gru_bwd": 0}
 # which path served the last call: "kernel" or "plain-cpu"
 LAST_TRAIN_PATH = None
@@ -88,17 +89,18 @@ def _launch_bwd(g, stash, h_seq, h0, w_hh):
     lib = _build.load_library()
     f32 = dict(dtype=torch.float32, device=dev)
     w_hhT = w_hh.transpose(1, 2).contiguous()
-    dh_buf = torch.empty((2, L, B, H), **f32)
     dph = torch.empty((L, T, B, G), **f32)
     dpre = torch.empty((L, T, B, G), **f32)
     dw_hh = torch.empty((L, H, G), **f32)
     db_hh = torch.empty((L, G), **f32)
     dh0 = torch.empty((L, B, H), **f32)
     with torch.cuda.device(dev):
+        scratch, n_scratch = _build.bwd_scratch(
+            lib.fader_gru_bwd_scratch_floats, (L, T, B, H), dev)
         err = lib.fader_stacked_gru_bwd(
             L, T, B, H, *(t.data_ptr() for t in (
-                g, stash, h_seq, h0, w_hhT, dh_buf, dph, dpre, dw_hh, db_hh,
-                dh0)), cuda_gru._stream(dev))
+                g, stash, h_seq, h0, w_hhT, dph, dpre, dw_hh, db_hh, dh0,
+                scratch)), n_scratch, cuda_gru._stream(dev))
     _build.check(err, "fader_stacked_gru_bwd")
     return dpre, dw_hh, db_hh, dh0
 

@@ -11,7 +11,9 @@ training kernels (autograd Functions of `ops/cuda_gru.py`,
 and with both its heads) against autograd of their plain versions: values to
 1e-5, gradients to atol=rtol=1e-4 (float32; the weight gradients sum up to
 T*B products in another order than cuBLAS does). Their reductions use no
-atomics, so two runs give bitwise the same gradients."""
+atomics, so two runs give bitwise the same gradients. The embedded and the
+generic stacked GRU run at shapes that cross the tiles of the persistent
+backward chain and of the split-K weight-gradient GEMM (`RAGGED`)."""
 import pytest
 import torch
 
@@ -129,14 +131,23 @@ def _grad_check(fn, plain, ids, floats, dev, seed):
     assert all(torch.equal(a, b) for a, b in zip(g_got, g_again))
 
 
-@pytest.mark.parametrize("B,T", [(1, 1), (1, 7), (37, 1), (37, 7)])
-def test_embed_finals_training_kernels_match_plain(dev, B, T):
+# (B, T, L, H): partial tiles in every dimension; B = 130 crosses the
+# chain's 32- and 64-row tiles and the GEMM's 128-row slabs' seam, T * B >=
+# 512 splits K (the h0 | h_seq seam at row B lies inside the first part),
+# H = 136 leaves an 8-unit column tile, H = 30 takes the 4-byte copy paths
+RAGGED = [(1, 1, 4, 80), (1, 7, 4, 80), (37, 1, 4, 80), (37, 7, 4, 80),
+          (130, 3, 4, 80), (130, 9, 2, 136), (37, 101, 2, 136),
+          (70, 5, 1, 136), (5, 3, 2, 30), (33, 40, 4, 30)]
+
+
+@pytest.mark.parametrize("B,T,L,H", RAGGED)
+def test_embed_finals_training_kernels_match_plain(dev, B, T, L, H):
     gen = torch.Generator().manual_seed(B * 10 + T)
-    L, V, H = 4, 342, 80
+    V = 342
     w_ih_p, b_ih, w_hh, b_hh = stack_directions(
         [gru_init(gen, V, H) for _ in range(L)])
     tokens = torch.randint(0, V, (B, T), generator=gen)
-    tok_lt = direction_tokens(tokens, [False, True] * 2).to(dev)
+    tok_lt = direction_tokens(tokens, ([False, True] * 2)[:L]).to(dev)
     h0 = torch.randn((L, B, H), generator=gen) * 0.5
     before = dict(cuda_gru.LAUNCHES)
     _grad_check(cuda_gru.stacked_gru_embed_finals,
@@ -169,7 +180,8 @@ def test_embed_seq_training_kernels_match_plain(dev, B, T):
     assert cuda_gru.LAUNCHES["embed_seq_bwd"] == before["embed_seq_bwd"] + 2
 
 
-@pytest.mark.parametrize("B,T", [(1, 1), (1, 7), (37, 1), (37, 7)])
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 7), (37, 1), (37, 7),
+                                 (37, 31)])
 def test_decoder_ce_kernels_match_plain(dev, B, T):
     gen = torch.Generator().manual_seed(B * 10 + T + 2)
     V, H, Z = 342, 80, 40
@@ -203,10 +215,9 @@ def test_decoder_ce_kernels_match_plain(dev, B, T):
         "decoder_ce_bwd"] + 2
 
 
-@pytest.mark.parametrize("B,T", [(1, 1), (1, 7), (37, 1), (37, 7)])
-def test_stacked_gru_kernels_match_plain(dev, B, T):
+@pytest.mark.parametrize("B,T,L,H", RAGGED)
+def test_stacked_gru_kernels_match_plain(dev, B, T, L, H):
     gen = torch.Generator().manual_seed(B * 10 + T + 3)
-    L, H = 2, 80
     G = 3 * H
     pre = torch.randn((L, T, B, G), generator=gen) * 0.5
     w_hh = torch.randn((L, H, G), generator=gen) * 0.1

@@ -14,7 +14,10 @@ teacher decode without tokens to 1e-4.
 The last tests hold the wrappers' rule for CUDA tensors on the CPU, with
 the device check and the launches faked: a call whose inputs want a
 gradient goes through the autograd Function, whose backward returns each
-gradient to the input it belongs to, and nothing else."""
+gradient to the input it belongs to, and nothing else; and, with the
+kernel library faked too, that every backward launcher sizes its scratch
+by the library's own function, passes it where `_build._declare` says,
+and raises on a non-zero return code."""
 import functools
 
 import jax
@@ -478,3 +481,138 @@ def test_decoder_masses_wrapper_differentiates(monkeypatch):
     assert fake.calls[-1] == ("fwd", False)
     with pytest.raises(ValueError, match="ranges"):
         cuda_decoder.decoder_teacher_masses(tok, *fl, ((0, 1),) * 5, n_rep)
+
+
+# ------------------------------------------------- the backward launchers
+
+class _FakeLib:
+    """Stands in for the kernel library on the CPU: `_build._declare` gives
+    every entry its argtypes as it does for the real one; a call records
+    its arguments and returns `rc`, a `*_scratch_floats` call the floats
+    the entries are said to need."""
+
+    def __init__(self, rc, scratch_floats):
+        self.rc, self.scratch_floats, self.calls = rc, scratch_floats, {}
+
+    def __getattr__(self, name):
+        if not name.startswith("fader_"):
+            raise AttributeError(name)
+        entry = _FakeEntry(self, name)
+        setattr(self, name, entry)
+        return entry
+
+
+class _FakeEntry:
+    def __init__(self, lib, name):
+        self.lib, self.name = lib, name
+
+    def __call__(self, *args):
+        self.lib.calls[self.name] = args
+        if self.name.endswith("_scratch_floats"):
+            return self.lib.scratch_floats
+        if self.name == "fader_error_string":
+            return b"fake error"
+        return self.lib.rc
+
+
+def _fake_library(monkeypatch, rc, scratch_floats=1234):
+    import contextlib
+
+    from music_fader_nets_tpu_torch.ops import _build
+    lib = _FakeLib(rc, scratch_floats)
+    _build._declare(lib)
+    made = []
+    real = _build.bwd_scratch
+
+    def bwd_scratch(size_fn, dims, dev):
+        made.append(real(size_fn, dims, dev))
+        return made[-1]
+
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "bwd_scratch", bwd_scratch)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(cuda_gru, "_stream", lambda dev: 0)
+    return lib, made
+
+
+def _backward_launch(case):
+    """(entry name, size function's name, its dims, a call of the case's
+    backward launcher on small CPU tensors)."""
+    from music_fader_nets_tpu_torch.ops import cuda_stacked
+    L, T, B, H, Vp = 2, 3, 5, 8, 384
+    G = 3 * H
+    z = torch.zeros
+    if case in ("embed_finals", "embed_seq"):
+        seq = case == "embed_seq"
+        ids = z((L, T, B), dtype=torch.int32)
+        g = z((L, T, B, H)) if seq else z((L, B, H))
+        return ("fader_embed_gru_bwd", "fader_gru_bwd_scratch_floats",
+                (L, T, B, H), lambda: cuda_gru._launch_bwd(
+                    ids, g, seq, z((L, T, B, 4 * H)), z((L, T, B, H)),
+                    z((L, B, H)), z((L, H, G)), 16, want_db_in=not seq,
+                    want_dprez=seq))
+    if case == "stacked":
+        return ("fader_stacked_gru_bwd", "fader_gru_bwd_scratch_floats",
+                (L, T, B, H), lambda: cuda_stacked._launch_bwd(
+                    z((L, T, B, H)), z((L, T, B, 4 * H)), z((L, T, B, H)),
+                    z((L, B, H)), z((L, H, G))))
+    tok = z((T, B), dtype=torch.int32)
+    saved = (z((T, B, H)), z((T, B, H)), z((T, B, 4 * H)), z((T, B, 4 * H)),
+             z((H, G)), z((H, G)), z((H, G)), z((B, H)))
+    head = (z((H, Vp)), z((Vp,)))
+    dims = (T, B, H, Vp)
+    size_fn = "fader_decoder_bwd_scratch_floats"
+    if case == "decoder_ce":
+        return ("fader_decoder_ce_bwd", size_fn, dims,
+                lambda: cuda_decoder._launch_bwd(z((T, B)), tok, tok, *saved,
+                                                 *head))
+    if case == "decoder_masses":
+        return ("fader_decoder_masses_bwd", size_fn, dims,
+                lambda: cuda_decoder._launch_masses_bwd(
+                    z((T, 2, B)), tok, *saved, *head, ((2, 90), (180, 278)),
+                    1))
+    return ("fader_decoder_teacher_bwd", size_fn, dims,
+            lambda: cuda_decoder._launch_teacher_bwd(z((T, B, H)), tok,
+                                                     *saved, Vp))
+
+
+BACKWARD_CASES = ["embed_finals", "embed_seq", "stacked", "decoder_ce",
+                  "decoder_masses", "decoder_teacher"]
+
+
+@pytest.mark.parametrize("case", BACKWARD_CASES)
+def test_backward_launcher_passes_the_scratch(monkeypatch, case):
+    """Each backward launcher asks the library how much scratch its entry
+    needs at the call's sizes, allocates exactly that, and passes the
+    buffer, its size and the stream as the entry's last three arguments;
+    the call has as many arguments as `_build._declare` declared, an int
+    for every int and a pointer (or None) for every pointer."""
+    import ctypes
+    lib, made = _fake_library(monkeypatch, rc=0)
+    entry, size_fn, dims, launch = _backward_launch(case)
+    launch()
+    assert lib.calls[size_fn] == dims
+    (scratch, n), = made
+    assert n == lib.scratch_floats == scratch.numel()
+    assert scratch.dtype == torch.float32
+    args, argtypes = lib.calls[entry], getattr(lib, entry).argtypes
+    assert len(args) == len(argtypes)
+    assert argtypes[-3:] == [ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_void_p]
+    assert args[-3:] == (scratch.data_ptr(), n, 0)
+    for a, ty in zip(args, argtypes):
+        if ty is ctypes.c_void_p:
+            assert a is None or isinstance(a, (int, ctypes.Array))
+        else:
+            assert isinstance(a, int)
+
+
+@pytest.mark.parametrize("case", BACKWARD_CASES)
+def test_backward_launcher_raises_on_a_cuda_error(monkeypatch, case):
+    """A non-zero return code of the entry (a refused cooperative launch,
+    too little scratch) raises; no other path is taken."""
+    lib, _ = _fake_library(monkeypatch, rc=720)
+    entry, _, _, launch = _backward_launch(case)
+    with pytest.raises(RuntimeError, match=f"{entry}: CUDA error 720"):
+        launch()
