@@ -29,15 +29,18 @@ synthetic corpus: the eval CLI, a reconstruction report (kernel path
 against plain path), the rhythm and note controllability evaluators (every
 decoded row against the plain decode) and one epoch of the CVAE's
 condition sweep. Each training-kernel phase also runs its backward twice
-and fails unless every gradient has the same bits; the encoder's and the
-generic stacked GRU's phases print their backward's device ms by part
-(chain, dW GEMM, scatter, sums; CUPTI), and a `ragged_backward` phase holds
-both against their plain versions at a shape that crosses the tiles of the
-persistent chain and the split-K seam. Every phase prints one JSON
-line; the kernels line follows, then the card's name and power limit as
-nvidia-smi reports them, then the final status line. Any failed check
-exits non-zero without the status line. Needs one CUDA device; imports
-nothing of JAX.
+and fails unless every gradient has the same bits; the encoder's, the
+generic stacked GRU's and the three decoder phases print their backward's
+device ms by part (chain, head, NN GEMM, dW GEMM, scatter, sums; CUPTI) and
+its device launches, and a `ragged_backward` phase holds the five backward
+entries against their plain versions at a shape that crosses the tiles of
+the persistent chain, the split-K seam and the NN GEMM's tiles. Every
+token tensor a decode kernel returns (greedy_decode, sample_decode,
+serving, evaluation) is range-checked right after its launch. Every phase
+prints one JSON line; the kernels line follows, then the card's name and
+power limit as nvidia-smi reports them, then the final status line. Any
+failed check exits non-zero without the status line. Needs one CUDA
+device; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -154,6 +157,48 @@ def dataclass_values(scores):
             for f in SCORE_FIELDS}
 
 
+class TokenGuard:
+    """Stands in for `cuda_decode._launch` while the script runs: every
+    token tensor a decode kernel returns is range-checked (0 <= token < V,
+    after a synchronise) right after its launch, before any plain code
+    indexes with it. A tensor out of range raises and is recorded with the
+    phase and the tensor's name; `paused` skips the check inside timing
+    loops."""
+
+    def __init__(self, cuda_decode):
+        self.launch = cuda_decode._launch
+        self.phase = None
+        self.paused = False
+        self.checked = 0
+        self.bad = []
+        cuda_decode._launch = self
+
+    def __call__(self, args, V, Vp, steps, noise=None, inv_t=None):
+        toks = self.launch(args, V, Vp, steps, noise, inv_t)
+        if self.paused or toks.numel() == 0:
+            return toks
+        lo, hi = (int(v) for v in toks.aminmax())
+        self.checked += 1
+        if not (0 <= lo and hi < V):
+            name = "sample_decode" if noise is not None else "greedy_decode"
+            msg = (f"phase {self.phase}: {name} tokens {tuple(toks.shape)} "
+                   f"span [{lo}, {hi}], outside [0, {V})")
+            self.bad.append(msg)
+            raise AssertionError(msg)
+        return toks
+
+    def start(self, phase):
+        self.phase, self.checked = phase, 0
+
+    @contextlib.contextmanager
+    def pause(self):
+        self.paused = True
+        try:
+            yield
+        finally:
+            self.paused = False
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -251,6 +296,7 @@ def main() -> int:
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
+    guard = TokenGuard(cuda_decode)
     cfg = ModelConfig()
     H, Z, V = cfg.hidden_dims, cfg.z_dims, cfg.roll_dims
     Vp = vocab_pad(V)
@@ -316,6 +362,7 @@ def main() -> int:
         gview = tree_to(global_decoder_init(gen, Zt, V, H), dev)
         res = {}
         for nb in (64, 1):
+            guard.start("greedy_decode")
             z = torch.from_numpy(rng.standard_normal((nb, Zt))
                                  .astype(np.float32)).to(dev)
             args, _, _ = cuda_decode._prep_decode_args(gview, z)
@@ -326,15 +373,16 @@ def main() -> int:
                     args, V, got, ref, tol=TOL_NEAR_TIE)
             except AssertionError as e:
                 return fail(f"greedy decode B={nb}: {e}")
-            kms = time_ms(
-                lambda: cuda_decode.cuda_greedy_decode(gview, z, steps), 10)
+            with guard.pause():
+                kms = time_ms(lambda: cuda_decode.cuda_greedy_decode(
+                    gview, z, steps), 10)
             pms = (time_ms(lambda: cuda_decode.plain_decode_tokens(
                 gview, z, steps), 3, warm=1) if nb == 64 else None)
             res[nb] = (z, got, kms, pms, args, gap)
             emit({"phase": "greedy_decode", "B": nb, "steps": steps,
                   "identical": bool(parted == 0), "near_tie_rows": parted,
                   "largest_gap": gap, "tol": TOL_NEAR_TIE, "ms": kms,
-                  "plain_ms": pms})
+                  "plain_ms": pms, "token_checks": guard.checked})
         z64, greedy64, g_ms, g_plain_ms, args64, _ = res[64]
         # for token outputs the error is the largest near-tie gap at which
         # kernel and plain tokens parted (0.0: identical)
@@ -358,6 +406,7 @@ def main() -> int:
 
         # sampling: rows alternate sampled (T = 0.9, noise) and greedy
         # (inv_t = 1, zero noise)
+        guard.start("sample_decode")
         seeds = [1000 + b if b % 2 == 0 else None for b in range(64)]
         noise = gumbel_rows(seeds, steps, Vp, dev)
         inv_t = torch.tensor([1.0 / 0.9 if s is not None else 1.0
@@ -375,15 +424,16 @@ def main() -> int:
             steps)
         bit_exact = bool(torch.equal(as_greedy, greedy64))
         greedy_rows_same = bool(torch.equal(got[1::2], greedy64[1::2]))
-        s_ms = time_ms(lambda: cuda_decode.cuda_sample_decode(
-            gview, z64, noise, inv_t, steps), 10)
+        with guard.pause():
+            s_ms = time_ms(lambda: cuda_decode.cuda_sample_decode(
+                gview, z64, noise, inv_t, steps), 10)
         s_plain_ms = time_ms(lambda: cuda_decode.plain_sample_tokens(
             gview, z64, noise, inv_t, steps), 3, warm=1)
     emit({"phase": "sample_decode", "B": 64, "steps": steps,
           "identical": bool(parted == 0), "near_tie_rows": parted,
           "largest_gap": gap, "inv_t1_zero_noise_equals_greedy": bit_exact,
           "greedy_rows_in_mixed_batch_equal_greedy": greedy_rows_same,
-          "ms": s_ms, "plain_ms": s_plain_ms})
+          "ms": s_ms, "plain_ms": s_plain_ms, "token_checks": guard.checked})
     if not (bit_exact and greedy_rows_same):
         return fail("sampling kernel with inv_t=1 and zero noise differs "
                     "from the greedy kernel")
@@ -411,6 +461,7 @@ def main() -> int:
         if i in sampled_ids:
             r["temperature"] = 0.9
         reqs.append(r)
+    guard.start("serving")
     with TransferServer(params, cfg, steps=steps, max_batch=64,
                         max_wait_ms=5.0, device="cuda") as srv:
         # the counts of the main path's run: every kernel launch from here
@@ -470,7 +521,9 @@ def main() -> int:
           "mean_batch_rows": stats["mean_batch_rows"],
           "serving_path": stats["serving_path"], "launches": launches,
           "plain_checked_rows": checked, "plain_near_tie_rows": ref_parted,
-          "z_max_abs_err": z_err})
+          "z_max_abs_err": z_err, "token_checks": guard.checked})
+    if guard.bad:
+        return fail(f"decode kernel tokens out of range: {guard.bad}")
     if bad:
         return fail(f"{len(bad)} bad responses, first: {bad[0]}")
     if stats["serving_path"] != "kernel":
@@ -540,6 +593,8 @@ def main() -> int:
         if split:
             bwd_split = kernel_split(lambda: torch.autograd.grad(
                 out, ts, cot, retain_graph=True))
+            bwd_split = {"bwd_split_ms": bwd_split[0],
+                         "bwd_launches": bwd_split[1]}
         in_bytes = nbytes(ids, *floats)
         f_bound, f_by = bound(flops[0], in_bytes + nbytes(out))
         b_bound, b_by = bound(flops[1], in_bytes + nbytes(cot, *grads))
@@ -552,7 +607,7 @@ def main() -> int:
               "library_max_abs_err": lib_err, "bound_fwd_ms": f_bound,
               "bound_bwd_ms": b_bound, "determinism": same_bits,
               **({} if pad_rows is None else {"pad_rows_zero": pads_zero}),
-              **({} if bwd_split is None else {"bwd_split_ms": bwd_split}),
+              **(bwd_split or {}),
               **(extra or {})})
         if not (out_err <= TOL_TRAIN_OUT and g_rel <= TOL_TRAIN_GRAD_REL):
             return fail(f"{phase}: kernel vs plain output {out_err}, "
@@ -696,7 +751,7 @@ def main() -> int:
         [d_wtok, d_prez, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
          g2["w_hh"], g2["b_hh"], d_h10, d_wout, d_bout], d_cot,
         {"T": T, "B": TB, "H": H, "Vp": Vp},
-        (dec_f, 2.0 * T * TB * (6 * H * G + 3 * H * Vp)))
+        (dec_f, 2.0 * T * TB * (6 * H * G + 3 * H * Vp)), split=True)
     if rc:
         return rc
 
@@ -714,7 +769,7 @@ def main() -> int:
         cuda_decoder.decoder_teacher_plain, d_tok,
         [d_wtok, d_prez, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
          g2["w_hh"], g2["b_hh"], d_h10], t_cot,
-        {"T": T, "B": TB, "H": H, "Vp": Vp}, (tea_f, 2 * tea_f))
+        {"T": T, "B": TB, "H": H, "Vp": Vp}, (tea_f, 2 * tea_f), split=True)
     if rc:
         return rc
     del t_cot
@@ -806,16 +861,19 @@ def main() -> int:
         {"T": T, "B0": TB, "n_rep": n_rep, "rows": MB, "H": H, "Vp": Vp,
          "K": len(GLSR_MASK_RANGES)},
         (2.0 * T * MB * (3 * H * G + H * Vp),
-         2.0 * T * MB * (6 * H * G + 3 * H * Vp)))
+         2.0 * T * MB * (6 * H * G + 3 * H * Vp)), split=True)
     if rc:
         return rc
     del m_prez, m_h10, m_cot
 
-    # the persistent backward chain and the split-K weight-gradient GEMM at
-    # a ragged shape: B = 37 (a partial row tile, the h0 | h_seq seam inside
-    # the GEMM's first k-slabs), T = 21 (T * B = 777 rows: K splits, a
-    # partial last slab), H = 136 (an 8-unit column tile, partial GEMM
-    # tiles), both backward entries against autograd of their plain versions
+    # the persistent backward chain, the split-K weight-gradient GEMM and
+    # the decoder's NN GEMM at a ragged shape: B = 37 (a partial row tile,
+    # the h0 | h_seq seam inside the GEMM's first k-slabs), T = 21 (T * B =
+    # 777 rows: K splits, a partial last slab, a partial NN row tile), H =
+    # 136 (an 8-unit column tile, partial GEMM tiles), the two GRU backward
+    # entries and the three decoder backward entries (the CE head and no
+    # head at B = 37, the masses head at n_rep = 4 copies of 9 token rows)
+    # against autograd of their plain versions
     rL, rT, rB, rH = 2, 21, 37, 136
     r_gen = torch.Generator().manual_seed(SEED + 7)
     r_wih, r_bih, r_whh, r_bhh = (t.to(dev) for t in stack_directions(
@@ -824,31 +882,69 @@ def main() -> int:
         0, V, (rB, rT), generator=r_gen).to(dev), [False, True])
     r_h0 = (torch.randn((rL, rB, rH), generator=r_gen) * 0.5).to(dev)
     r_pre = (torch.randn((rL, rT, rB, 3 * rH), generator=r_gen) * 0.5).to(dev)
+
+    def r_rand(shape, scale):
+        return (torch.randn(shape, generator=r_gen) * scale).to(dev)
+
+    def r_rec(rows):
+        """w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0."""
+        G_ = 3 * rH
+        return [r_rand((Vp, G_), 0.05), r_rand((rows, G_), 0.5),
+                r_rand((rH, G_), 0.05), r_rand((G_,), 0.05),
+                r_rand((rH, G_), 0.05), r_rand((G_,), 0.05),
+                r_rand((rH, G_), 0.05), r_rand((G_,), 0.05),
+                r_rand((rows, rH), 0.5)]
+
+    r_tgt = torch.randint(0, V, (rT, rB), generator=r_gen,
+                          dtype=torch.int32).to(dev)
+    r_dtok = torch.cat([torch.full((1, rB), V - 1, dtype=torch.int32,
+                                   device=dev), r_tgt[:-1]])
+    r_head = [torch.nn.functional.pad(r_rand((rH, V), 0.05), (0, Vp - V)),
+              torch.nn.functional.pad(r_rand((V,), 0.05), (0, Vp - V),
+                                      value=cuda_decoder.PAD_LOGIT)]
+    rB0, r_rep = 9, 4
+    r_ranges = (lambda f: lambda ids, *fl: f(ids, *fl, GLSR_MASK_RANGES,
+                                             r_rep))
     ragged = {}
-    for name, fn, plain, ids, floats, cot_shape in (
+    for name, fn, plain, ids, floats, cot in (
             ("embed_gru_bwd", cuda_gru.stacked_gru_embed_finals,
              cuda_gru.stacked_gru_embed_finals_plain, r_tok,
-             [r_wih, r_bih, r_whh, r_bhh, r_h0], (rL, rB, rH)),
+             [r_wih, r_bih, r_whh, r_bhh, r_h0], r_rand((rL, rB, rH), 1.0)),
             ("stacked_gru_bwd", skip_ids(cuda_stacked.stacked_gru),
              skip_ids(cuda_stacked.stacked_gru_plain), no_ids,
-             [r_pre, r_whh, r_bhh, r_h0], (rL, rT, rB, rH))):
-        r_cot = torch.randn(cot_shape, generator=r_gen).to(dev)
-        _, r_out, r_grads = fwd_bwd(fn, ids, floats, r_cot)
-        _, r_out_p, r_grads_p = fwd_bwd(plain, ids, floats, r_cot)
+             [r_pre, r_whh, r_bhh, r_h0], r_rand((rL, rT, rB, rH), 1.0)),
+            ("decoder_ce_bwd",
+             lambda ids, *fl: cuda_decoder.decoder_teacher_nll(
+                 ids, r_tgt, *fl),
+             lambda ids, *fl: cuda_decoder.decoder_teacher_nll_plain(
+                 ids, r_tgt, *fl), r_dtok, r_rec(rB) + r_head,
+             r_rand((rT, rB), 1.0 / (rT * rB))),
+            ("decoder_teacher_bwd", cuda_decoder.decoder_teacher,
+             cuda_decoder.decoder_teacher_plain, r_dtok, r_rec(rB),
+             r_rand((rT, rB, rH), 0.01)),
+            ("decoder_masses_bwd",
+             r_ranges(cuda_decoder.decoder_teacher_masses),
+             r_ranges(cuda_decoder.decoder_teacher_masses_plain),
+             r_dtok[:, :rB0], r_rec(r_rep * rB0) + r_head,
+             r_rand((rT, len(GLSR_MASK_RANGES), r_rep * rB0),
+                    1.0 / (rT * rB0)))):
+        _, r_out, r_grads = fwd_bwd(fn, ids, floats, cot)
+        _, r_out_p, r_grads_p = fwd_bwd(plain, ids, floats, cot)
         torch.cuda.synchronize()
         r_abs, r_rel = grad_errors(r_grads, r_grads_p)
         ragged[name] = {
             "out_max_abs_err": float((r_out - r_out_p).detach().abs().max()),
             "grad_max_abs_err": r_abs, "grad_max_rel_err": r_rel}
     emit({"phase": "ragged_backward",
-          "shape": {"L": rL, "T": rT, "B": rB, "H": rH},
+          "shape": {"L": rL, "T": rT, "B": rB, "H": rH, "Vp": Vp,
+                    "masses_rows": f"{r_rep} x {rB0}"},
           "tol_out": TOL_TRAIN_OUT, "tol_grad_rel": TOL_TRAIN_GRAD_REL,
           **ragged})
     for name, e in ragged.items():
         if not (e["out_max_abs_err"] <= TOL_TRAIN_OUT
                 and e["grad_max_rel_err"] <= TOL_TRAIN_GRAD_REL):
             return fail(f"ragged_backward, {name}: {e}")
-    del r_wih, r_pre, r_grads, r_grads_p
+    del r_wih, r_pre, r_grads, r_grads_p, r_head
 
     # ------------------------------------------------------- train step
     # The port's Trainer at ModelConfig() widths on random in-schema
@@ -1168,6 +1264,7 @@ def main() -> int:
     # the plain decode of the same z. (4) One epoch of the CVAE's
     # condition sweep, which decodes through the `global_decode` loop.
     n_seg = 1536
+    guard.start("evaluation")
     for counts in all_counts + (cuda_decode.LAUNCHES,):
         for k in counts:
             counts[k] = 0
@@ -1314,7 +1411,10 @@ def main() -> int:
           "evaluators": evaluators,
           "cvae_condition_sweep": {
               "seconds": cv_s, "decode_calls": cv_calls,
-              "scores": dataclass_values(cv_scores)}})
+              "scores": dataclass_values(cv_scores)},
+          "token_checks": guard.checked})
+    if guard.bad:
+        return fail(f"decode kernel tokens out of range: {guard.bad}")
     if cli_text.count("Consistency:") != 2:
         return fail(f"eval CLI printed no two reports:\n{cli_text[-2000:]}")
     if not (cli_launches.get("greedy_decode", 0) > 0

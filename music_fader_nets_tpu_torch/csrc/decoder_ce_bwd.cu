@@ -4,11 +4,11 @@
 // Replaces: music_fader_nets_tpu/ops/pallas_gru.py::_dec_bwd_kernel :1304
 // (the backward of decoder_teacher_fused :2269, from the cotangent of
 // h2_seq, through the shared chain _dec_bwd_chain :1222; entry
-// fader_decoder_teacher_bwd) and ::_dec_bwd_ce_kernel with head="ce" (the
-// backward of decoder_teacher_fused_nll, through _dec_nll_core and the same
-// chain; entry fader_decoder_ce_bwd) and with head = vocabulary ranges (the
-// backward of decoder_teacher_fused_masses, through _dec_mask_core; entry
-// fader_decoder_masses_bwd).
+// fader_decoder_teacher_bwd) and ::_dec_bwd_ce_kernel :1627 with head="ce"
+// (the backward of decoder_teacher_fused_nll, through _dec_nll_core and the
+// same chain; entry fader_decoder_ce_bwd) and with head = vocabulary ranges
+// (the backward of decoder_teacher_fused_masses, through _dec_mask_core;
+// entry fader_decoder_masses_bwd).
 //
 // What it computes, from the head's cotangent g (NLL: (T, B); masses:
 // (T, K, B); no head: dh2_head = g (T, B, H) itself) and the forward's
@@ -37,99 +37,80 @@
 // and dh2_head), ~2 ms at 67 TFLOP/s at T=100, B=128; the masses head at
 // 512 rows 544 GFLOP, 8.1 ms; without a head 2 x 60.4 GFLOP, 1.8 ms.
 //
-// Design: the head runs first and batched over all T*B rows (ce_head or
-// mass_head in decoder_ce.cu writes dlogits, then one hand-written GEMM
-// gives dh2_head for every step; decoder_bwd_from_dlogits). All three
-// entries share what follows (decoder_bwd_from_dh2): without a head the
-// cotangent of h2_seq is dh2_head as it stands. The chains take three
-// launches a step: the layer-2 step of embed_gru_bwd.cu (gate backward +
-// dh2 @ w_hh2^T), rows_gemm_add (dh1 += dpre2x @ w_ih2^T), and the
-// layer-1 step; each stashes its dpre
-// rows, and grad_reduce.cu turns them into the weight gradients after the
-// chain with deterministic GEMMs (split-K through scratch), scatter and
-// sums.
+// Design: a fixed number of launches, whatever T is. The reference's chain
+// interleaves the layers a step at a time, but layer 2's recurrence never
+// reads layer 1, and layer 1 takes layer 2 only through an additive
+// cotangent a step, inject[t] = dpre2x[t] @ w_ih2^T (+ the dh2 that leaves
+// step 0, at t = 0). So the backward is three parts (decoder_bwd_from_dh2):
+// (1) layer 2's chain alone, the persistent cooperative kernel of
+// embed_gru_bwd.cu (gru_bwd_chain) at L = 1 with dh2_head as its cotangent
+// every step; (2) inject for all T steps as one (T*B) x 3H by 3H x H
+// product (grad_reduce.cu's gemm_nn, the step-0 term added in its
+// epilogue); (3) layer 1's chain, the same kernel with inject as its
+// cotangent every step. Each chain keeps its layer's w_hh^T columns resident
+// in shared memory for all T steps, so no block holds two layers' weights.
+// The head runs first and batched over all T*B rows (ce_head or mass_head
+// in decoder_ce.cu writes dlogits, then gemm_nn gives dh2_head for every
+// step; decoder_bwd_from_dlogits); without a head the cotangent of h2_seq
+// is dh2_head as it stands. The chains stash their dpre rows, and
+// grad_reduce.cu turns them into the weight gradients with deterministic
+// GEMMs (split-K through scratch), scatter and sums.
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
 namespace fader {
 
-constexpr int kAddTB = 8;
+namespace {
 
-// out[b, j] = add1[b, j] + A[b, :] @ W[:, j] (+ add2[b, j] when given);
-// A (B, K) rows, W (K, H).
-template <int TB>
-__global__ void __launch_bounds__(kThreads, 2)
-    rows_gemm_add(int B, int H, int K, const float* __restrict__ A,
-                  const float* __restrict__ W,
-                  const float* __restrict__ add1,
-                  const float* __restrict__ add2, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* sA = reinterpret_cast<float*>(smem4);
-  float* red = sA + (size_t)K * (TB + 4);
-  const int warp = threadIdx.x >> 5;
-  const int j = blockIdx.x * kTileN + (threadIdx.x & 31);
-  const int b0 = blockIdx.y * TB;
+// The scratch of a backward call, in floats, each part 16-byte aligned: the
+// chain's barrier counters and k-major rows (used by both chains in turn),
+// dh2_0 (B, H), inject (T, B, H), then the reductions' partials.
+long long up4(long long n) { return (n + 3) / 4 * 4; }
 
-  load_a_tile<TB>(sA, A, K, B, b0, K);
-  __syncthreads();
-  float acc[TB][1] = {};
-  splitk_gemm<TB, 1>(acc, sA, K, W, H, 0, j < H, j);
-  float o[TB / kWarps][1];
-  splitk_reduce<TB, 1>(acc, o, red);
-  if (j >= H) return;
-#pragma unroll
-  for (int i = 0; i < TB / kWarps; ++i) {
-    const int b = b0 + warp + kWarps * i;
-    if (b >= B) continue;
-    const size_t at = (size_t)b * H + j;
-    float v = add1[at] + o[i][0];
-    if (add2 != nullptr) v += add2[at];
-    out[at] = v;
-  }
+long long dh2_0_at(int B, int H) { return up4(chain_scratch_floats(1, B, H)); }
+
+long long inject_at(int B, int H) {
+  return dh2_0_at(B, H) + up4((long long)B * H);
 }
+
+long long red_at(int T, int B, int H) {
+  return inject_at(B, H) + up4((long long)T * B * H);
+}
+
+}  // namespace
 
 // The two chains and the recurrence's weight gradients, from dh2_head
 // (T, B, H), the cotangent of h2_seq. tok (T, B/n_rep) are the input ids of
 // the B/n_rep distinct sequences; fold (T, B/n_rep, 3H) is scratch when
-// n_rep > 1 (else unused).
+// n_rep > 1 (else unused); scratch as laid out above.
 cudaError_t decoder_bwd_from_dh2(
     int T, int B, int H, int Vp, int n_rep, const int* tok,
     const float* h1_seq, const float* h2_seq, const float* g41,
     const float* g42, const float* h1_0, const float* w_hh1T,
     const float* w_ih2T, const float* w_hh2T, const float* dh2_head,
-    float* dh2_buf, float* dh1_carry, float* dh1_mid, float* s1x, float* s1h,
-    float* s2x, float* s2h, float* fold, float* dw_tok, float* dpre_z,
-    float* dw_hh1, float* db_hh1, float* dw_ih2, float* db_ih2,
-    float* dw_hh2, float* db_hh2, float* dh1_0, float* red, cudaStream_t s) {
+    float* s1x, float* s1h, float* s2x, float* s2h, float* fold,
+    float* dw_tok, float* dpre_z, float* dw_hh1, float* db_hh1,
+    float* dw_ih2, float* db_ih2, float* dw_hh2, float* db_hh2,
+    float* dh1_0, float* scratch, cudaStream_t s) {
   const long long BH = (long long)B * H, G = 3LL * H;
   const int R = T * B;
+  float* chain = scratch;
+  float* dh2_0 = scratch + dh2_0_at(B, H);
+  float* inject = scratch + inject_at(B, H);
+  float* red = scratch + red_at(T, B, H);
   cudaError_t err;
-  if ((err = cudaMemsetAsync(dh2_buf, 0, BH * sizeof(float), s)) !=
+  // (1) layer 2, h2p(0) = h1_seq[0]; dh2_0 is the dh2 that leaves step 0
+  if ((err = launch_gru_bwd_chain(1, T, B, H, dh2_head, 0, BH, 1, g42,
+                                  h2_seq, h1_seq, w_hh2T, s2x, s2h, dh2_0,
+                                  chain, s)) != cudaSuccess ||
+      // (2) inject = dpre2x @ w_ih2^T, + dh2_0 on step 0's B rows
+      (err = gemm_nn(R, H, (int)G, s2x, w_ih2T, inject, dh2_0, B, s)) !=
           cudaSuccess ||
-      (err = cudaMemsetAsync(dh1_carry, 0, BH * sizeof(float), s)) !=
+      // (3) layer 1, h1p(0) = h1_0
+      (err = launch_gru_bwd_chain(1, T, B, H, inject, 0, BH, 1, g41, h1_seq,
+                                  h1_0, w_hh1T, s1x, s1h, dh1_0, chain, s)) !=
           cudaSuccess)
     return err;
-  const size_t smem_add = smem_bytes<kAddTB>(3, H);
-  if ((err = allow_smem(rows_gemm_add<kAddTB>, smem_add)) != cudaSuccess)
-    return err;
-  const dim3 grid_add((H + kTileN - 1) / kTileN, (B + kAddTB - 1) / kAddTB);
-  for (int t = T - 1; t >= 0; --t) {
-    const float* dh2_in = dh2_buf + ((T - 1 - t) % 2) * BH;
-    float* dh2_out = dh2_buf + ((T - t) % 2) * BH;
-    const float* h2p = t == 0 ? h1_seq : h2_seq + (t - 1) * BH;
-    err = launch_gru_bwd_step(1, T, B, H, t, dh2_head + t * BH, 0, g42, h2p,
-                              0, w_hh2T, dh2_in, dh2_out, s2x, s2h, s);
-    if (err != cudaSuccess) return err;
-    rows_gemm_add<kAddTB><<<grid_add, kThreads, smem_add, s>>>(
-        B, H, (int)G, s2x + t * B * G, w_ih2T, dh1_carry,
-        t == 0 ? dh2_out : nullptr, dh1_mid);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const float* h1p = t == 0 ? h1_0 : h1_seq + (t - 1) * BH;
-    err = launch_gru_bwd_step(1, T, B, H, t, nullptr, 0, g41, h1p, 0,
-                              w_hh1T, dh1_mid, t == 0 ? dh1_0 : dh1_carry,
-                              s1x, s1h, s);
-    if (err != cudaSuccess) return err;
-  }
   // dW_tok: with n_rep copies, fold dpre1x over them first (sum_over_t
   // over the copy axis of s1x viewed as (T, n_rep, B0 * 3H)), then scatter
   // the T * B0 folded rows by their token
@@ -164,22 +145,23 @@ cudaError_t decoder_bwd_from_dlogits(
     const float* h1_seq, const float* h2_seq, const float* g41,
     const float* g42, const float* h1_0, const float* w_hh1T,
     const float* w_ih2T, const float* w_hh2T, const float* w_outT,
-    float* dlogits, float* dh2_head, float* dh2_buf, float* dh1_carry,
-    float* dh1_mid, float* s1x, float* s1h, float* s2x, float* s2h,
-    float* fold, float* dw_tok, float* dpre_z, float* dw_hh1,
+    float* dlogits, float* dh2_head, float* s1x, float* s1h, float* s2x,
+    float* s2h, float* fold, float* dw_tok, float* dpre_z, float* dw_hh1,
     float* db_hh1, float* dw_ih2, float* db_ih2, float* dw_hh2,
-    float* db_hh2, float* dh1_0, float* dw_out, float* db_out, float* red,
-    cudaStream_t s) {
+    float* db_hh2, float* dh1_0, float* dw_out, float* db_out,
+    float* scratch, cudaStream_t s) {
   const int R = T * B;
   cudaError_t err;
-  if ((err = gemm_nn(R, H, Vp, dlogits, w_outT, dh2_head, s)) != cudaSuccess)
+  if ((err = gemm_nn(R, H, Vp, dlogits, w_outT, dh2_head, nullptr, 0, s)) !=
+      cudaSuccess)
     return err;
   err = decoder_bwd_from_dh2(T, B, H, Vp, n_rep, tok, h1_seq, h2_seq, g41,
                              g42, h1_0, w_hh1T, w_ih2T, w_hh2T, dh2_head,
-                             dh2_buf, dh1_carry, dh1_mid, s1x, s1h, s2x, s2h,
-                             fold, dw_tok, dpre_z, dw_hh1, db_hh1, dw_ih2,
-                             db_ih2, dw_hh2, db_hh2, dh1_0, red, s);
+                             s1x, s1h, s2x, s2h, fold, dw_tok, dpre_z,
+                             dw_hh1, db_hh1, dw_ih2, db_ih2, dw_hh2, db_hh2,
+                             dh1_0, scratch, s);
   if (err != cudaSuccess) return err;
+  float* red = scratch + red_at(T, B, H);
   const SplitRows h2cur{nullptr, 0, 0, h2_seq, 0, H};
   if ((err = gemm_tn(1, H, Vp, R, h2cur, dlogits, 0, dw_out, 0, red, s)) ||
       (err = colsum(1, R, Vp, dlogits, db_out, red, s)))
@@ -190,25 +172,28 @@ cudaError_t decoder_bwd_from_dlogits(
 }  // namespace fader
 
 // Floats of scratch the three backward entries need at these sizes on the
-// current device: the split-K partial tiles of the weight-gradient GEMMs
-// ((H, 3H) and, with a head, (H, Vp), over T*B rows) and the column sums'
-// partials, one after the other through the same buffer.
+// current device: the chains' barrier counters and k-major rows, dh2_0, the
+// cross-layer cotangent inject (T, B, H), then the split-K partial tiles of
+// the weight-gradient GEMMs ((H, 3H) and, with a head, (H, Vp), over T*B
+// rows) and the column sums' partials, one after the other through the
+// same buffer.
 extern "C" long long fader_decoder_bwd_scratch_floats(int T, int B, int H,
                                                       int Vp) {
   const long long a = fader::reduce_scratch_floats(1, H, 3 * H, T * B);
   const long long b = fader::reduce_scratch_floats(1, H, Vp, T * B);
-  return a > b ? a : b;
+  return fader::red_at(T, B, H) + (a > b ? a : b);
 }
 
 // The arguments common to the entries, after their head's own: h1_seq,
 // h2_seq (T,B,H), g41, g42 (T,B,4H) from the forward; h1_0 (B,H); w_hh1T,
 // w_ih2T, w_hh2T (3H,H) the transposed weights; w_out (H,Vp), b_out (Vp),
-// w_outT (Vp,H). Scratch: dlogits (T,B,Vp); dh2_head (T,B,H); dh2_buf
-// (2,B,H); dh1_carry, dh1_mid (B,H); s1x, s1h, s2x, s2h (T,B,3H); after
-// the outputs, scratch with scratch_floats >=
+// w_outT (Vp,H). Scratch: dlogits (T,B,Vp); dh2_head (T,B,H); s1x, s1h,
+// s2x, s2h (T,B,3H); after the outputs, scratch with scratch_floats >=
 // fader_decoder_bwd_scratch_floats(T,B,H,Vp) floats. Outputs:
 // dw_tok (Vp,3H); dpre_z (B,3H); dw_hh1, dw_ih2, dw_hh2 (H,3H); db_hh1,
 // db_ih2, db_hh2 (3H); dh1_0 (B,H); dw_out (H,Vp); db_out (Vp). T >= 1.
+// A fixed number of launches whatever T is; a cooperative
+// launch the device refuses returns its error.
 //
 // CE head: tok, tgt (T,B) int32; g (T,B) the NLL cotangent.
 extern "C" int fader_decoder_ce_bwd(
@@ -217,9 +202,8 @@ extern "C" int fader_decoder_ce_bwd(
     const float* g41, const float* g42, const float* h1_0,
     const float* w_hh1T, const float* w_ih2T, const float* w_hh2T,
     const float* w_out, const float* b_out, const float* w_outT,
-    float* dlogits, float* dh2_head, float* dh2_buf, float* dh1_carry,
-    float* dh1_mid, float* s1x, float* s1h, float* s2x, float* s2h,
-    float* dw_tok, float* dpre_z, float* dw_hh1, float* db_hh1,
+    float* dlogits, float* dh2_head, float* s1x, float* s1h, float* s2x,
+    float* s2h, float* dw_tok, float* dpre_z, float* dw_hh1, float* db_hh1,
     float* dw_ih2, float* db_ih2, float* dw_hh2, float* db_hh2,
     float* dh1_0, float* dw_out, float* db_out, float* scratch,
     long long scratch_floats, void* stream) {
@@ -232,9 +216,9 @@ extern "C" int fader_decoder_ce_bwd(
   if (err != cudaSuccess) return (int)err;
   return (int)decoder_bwd_from_dlogits(
       T, B, H, Vp, 1, tok, h1_seq, h2_seq, g41, g42, h1_0, w_hh1T, w_ih2T,
-      w_hh2T, w_outT, dlogits, dh2_head, dh2_buf, dh1_carry, dh1_mid, s1x,
-      s1h, s2x, s2h, nullptr, dw_tok, dpre_z, dw_hh1, db_hh1, dw_ih2, db_ih2,
-      dw_hh2, db_hh2, dh1_0, dw_out, db_out, scratch, s);
+      w_hh2T, w_outT, dlogits, dh2_head, s1x, s1h, s2x, s2h, nullptr, dw_tok,
+      dpre_z, dw_hh1, db_hh1, dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0, dw_out,
+      db_out, scratch, s);
 }
 
 // Masses head: K ranges as 2K ints in host memory; n_rep copies (B =
@@ -247,9 +231,8 @@ extern "C" int fader_decoder_masses_bwd(
     const float* g41, const float* g42, const float* h1_0,
     const float* w_hh1T, const float* w_ih2T, const float* w_hh2T,
     const float* w_out, const float* b_out, const float* w_outT,
-    float* dlogits, float* dh2_head, float* dh2_buf, float* dh1_carry,
-    float* dh1_mid, float* s1x, float* s1h, float* s2x, float* s2h,
-    float* fold, float* dw_tok, float* dpre_z, float* dw_hh1,
+    float* dlogits, float* dh2_head, float* s1x, float* s1h, float* s2x,
+    float* s2h, float* fold, float* dw_tok, float* dpre_z, float* dw_hh1,
     float* db_hh1, float* dw_ih2, float* db_ih2, float* dw_hh2,
     float* db_hh2, float* dh1_0, float* dw_out, float* db_out,
     float* scratch, long long scratch_floats, void* stream) {
@@ -265,29 +248,29 @@ extern "C" int fader_decoder_masses_bwd(
   if (err != cudaSuccess) return (int)err;
   return (int)decoder_bwd_from_dlogits(
       T, B, H, Vp, n_rep, tok, h1_seq, h2_seq, g41, g42, h1_0, w_hh1T,
-      w_ih2T, w_hh2T, w_outT, dlogits, dh2_head, dh2_buf, dh1_carry,
-      dh1_mid, s1x, s1h, s2x, s2h, fold, dw_tok, dpre_z, dw_hh1, db_hh1,
-      dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0, dw_out, db_out, scratch, s);
+      w_ih2T, w_hh2T, w_outT, dlogits, dh2_head, s1x, s1h, s2x, s2h, fold,
+      dw_tok, dpre_z, dw_hh1, db_hh1, dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0,
+      dw_out, db_out, scratch, s);
 }
 
 // No head (kernel 8): g2 (T,B,H) is the cotangent of h2_seq, read as
 // dh2_head; tok (T,B) int32. No dlogits, dh2_head scratch, w_out or its
-// gradients. 3T + 8 launches.
+// gradients.
 extern "C" int fader_decoder_teacher_bwd(
     int T, int B, int H, int Vp, const int* tok, const float* g2,
     const float* h1_seq, const float* h2_seq, const float* g41,
     const float* g42, const float* h1_0, const float* w_hh1T,
-    const float* w_ih2T, const float* w_hh2T, float* dh2_buf,
-    float* dh1_carry, float* dh1_mid, float* s1x, float* s1h, float* s2x,
-    float* s2h, float* dw_tok, float* dpre_z, float* dw_hh1, float* db_hh1,
-    float* dw_ih2, float* db_ih2, float* dw_hh2, float* db_hh2,
-    float* dh1_0, float* scratch, long long scratch_floats, void* stream) {
+    const float* w_ih2T, const float* w_hh2T, float* s1x, float* s1h,
+    float* s2x, float* s2h, float* dw_tok, float* dpre_z, float* dw_hh1,
+    float* db_hh1, float* dw_ih2, float* db_ih2, float* dw_hh2,
+    float* db_hh2, float* dh1_0, float* scratch, long long scratch_floats,
+    void* stream) {
   using namespace fader;
   if (scratch_floats < fader_decoder_bwd_scratch_floats(T, B, H, Vp))
     return (int)cudaErrorInvalidValue;
   return (int)decoder_bwd_from_dh2(
       T, B, H, Vp, 1, tok, h1_seq, h2_seq, g41, g42, h1_0, w_hh1T, w_ih2T,
-      w_hh2T, g2, dh2_buf, dh1_carry, dh1_mid, s1x, s1h, s2x, s2h, nullptr,
-      dw_tok, dpre_z, dw_hh1, db_hh1, dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0,
-      scratch, static_cast<cudaStream_t>(stream));
+      w_hh2T, g2, s1x, s1h, s2x, s2h, nullptr, dw_tok, dpre_z, dw_hh1,
+      db_hh1, dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0, scratch,
+      static_cast<cudaStream_t>(stream));
 }

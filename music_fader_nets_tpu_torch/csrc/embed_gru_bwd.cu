@@ -5,7 +5,9 @@
 // (backward of stacked_gru_embed_finals, the encoder: cotangent on the
 // final states only) and ::_bwd_embed_seq_kernel (backward of
 // stacked_gru_embed_seq, the sub-decoders: a cotangent on every step).
-// One entry, fader_embed_gru_bwd; `seq_grad` picks the cotangent form.
+// One entry, fader_embed_gru_bwd; `seq_grad` picks the cotangent form. The
+// chain also serves stacked_gru.cu's backward (kernel 2) and, once a layer,
+// the teacher-forced decoder's (decoder_ce_bwd.cu, kernels 8 and 10).
 //
 // What it computes, walking t from T-1 down to 0 with dh = 0:
 //   dh      += g_t                      (g_fin at t = T-1, or g_seq[t])
@@ -36,107 +38,21 @@
 // the others arrive; then the 3H-deep product: each warp copies the k rows
 // it multiplies itself (8 of every slab, for 32 rows of the tile) through a
 // cp.async ring of its own, so the product loop has no block-wide barrier,
-// with an 8 x 4 register tile a lane; the warps' partial tiles are added in
-// a fixed order through shared memory. The row tile is the smallest whose
-// grid is co-resident (L=2: 32 rows, L=4: 64 rows, 128 blocks each at
-// H=512, B=128); if none is, or the weights do not fit, the launch fails
-// and the error is returned. The product loop is bound by shared-memory
-// bandwidth, not by FMAs: a lane reads 12 words for 32 FMAs, and the slabs
-// landing in shared memory take their share of the same port. The per-step
-// kernel (gru_bwd_step: a launch a step, 8 rows x 32 units a block, the
-// gate backward of all H units redone by every column block) stays for the
-// decoder's chains (decoder_ce_bwd.cu), which interleave two layers. The
-// weight gradients are grad_reduce.cu's deterministic GEMM, scatter and
-// sums.
+// with an 8 x 4 register tile a lane (4 x 4 in a 16-row tile, where all 8
+// warps split k); the warps' partial tiles are added in a fixed order
+// through shared memory. The row tile is the smallest of 16, 32 and 64 rows
+// whose grid is co-resident, so that the grid fills the card (128 blocks at
+// H=512, B=128: 64 rows at L=4, 32 at L=2, 16 for the decoder's L=1 chains;
+// 64 rows for those at the masses head's 512 rows); if none is, or the
+// weights do not fit, the launch fails and the error is returned. The
+// product loop is bound by shared-memory bandwidth, not by FMAs: a lane
+// reads 12 words for 32 FMAs (8 for 16 in a 16-row tile), and the slabs
+// landing in shared memory take their share of the same port. The weight
+// gradients are grad_reduce.cu's deterministic GEMM, scatter and sums.
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
 namespace fader {
-
-constexpr int kBwdTB = 8;
-
-template <int TB>
-__global__ void __launch_bounds__(kThreads, 2)
-    gru_bwd_step(int T, int B, int H, int t, const float* __restrict__ g,
-                 long long g_ls, const float* __restrict__ stash,
-                 const float* __restrict__ h_prev, long long hp_ls,
-                 const float* __restrict__ w_hhT,
-                 const float* __restrict__ dh_in, float* __restrict__ dh_out,
-                 float* __restrict__ dpx, float* __restrict__ dph) {
-  extern __shared__ float4 smem4[];
-  float* sA = reinterpret_cast<float*>(smem4);
-  const int G = 3 * H;
-  float* red = sA + (size_t)G * (TB + 4);
-  const int l = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int j0 = blockIdx.x * kTileN;
-  const int j = j0 + (threadIdx.x & 31);
-  const int b0 = blockIdx.y * TB;
-  const float* gl = g ? g + l * g_ls : nullptr;
-  const float* hpl = h_prev + l * hp_ls;
-  const float* dhl = dh_in + (size_t)l * B * H;
-
-  for (int idx = threadIdx.x; idx < TB * H; idx += kThreads) {
-    const int r = idx / H, k = idx - r * H;
-    const int b = b0 + r;
-    float dar = 0.f, daz = 0.f, dan = 0.f, dhn = 0.f;
-    if (b < B) {
-      const size_t lt = ((size_t)l * T + t) * B + b;
-      const float* st = stash + lt * 4 * H;
-      float dh = dhl[(size_t)b * H + k];
-      if (gl) dh += gl[(size_t)b * H + k];
-      gate_bwd(dh, st[k], st[H + k], st[2 * H + k], st[3 * H + k],
-               hpl[(size_t)b * H + k], dar, daz, dan, dhn);
-      if (k >= j0 && k < j0 + kTileN) {
-        float* px = dpx + lt * G;
-        float* pq = dph + lt * G;
-        px[k] = dar;
-        px[H + k] = daz;
-        px[2 * H + k] = dan;
-        pq[k] = dar;
-        pq[H + k] = daz;
-        pq[2 * H + k] = dhn;
-      }
-    }
-    sA[(size_t)k * (TB + 4) + r] = dar;
-    sA[(size_t)(H + k) * (TB + 4) + r] = daz;
-    sA[(size_t)(2 * H + k) * (TB + 4) + r] = dhn;
-  }
-  __syncthreads();
-  float acc[TB][1] = {};
-  splitk_gemm<TB, 1>(acc, sA, G, w_hhT + (size_t)l * G * H, H, 0, j < H, j);
-  float out[TB / kWarps][1];
-  splitk_reduce<TB, 1>(acc, out, red);
-
-  if (j >= H) return;
-#pragma unroll
-  for (int i = 0; i < TB / kWarps; ++i) {
-    const int b = b0 + warp + kWarps * i;
-    if (b >= B) continue;
-    const size_t lt = ((size_t)l * T + t) * B + b;
-    float dh = dhl[(size_t)b * H + j];
-    if (gl) dh += gl[(size_t)b * H + j];
-    const float z = stash[lt * 4 * H + H + j];
-    dh_out[(size_t)l * B * H + (size_t)b * H + j] = dh * z + out[i][0];
-  }
-}
-
-cudaError_t launch_gru_bwd_step(int L, int T, int B, int H, int t,
-                                const float* g, long long g_ls,
-                                const float* stash, const float* h_prev,
-                                long long hp_ls, const float* w_hhT,
-                                const float* dh_in, float* dh_out,
-                                float* dpx, float* dph, cudaStream_t s) {
-  const size_t smem = smem_bytes<kBwdTB>(3, H);
-  cudaError_t err = allow_smem(gru_bwd_step<kBwdTB>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((H + kTileN - 1) / kTileN, (B + kBwdTB - 1) / kBwdTB, L);
-  gru_bwd_step<kBwdTB><<<grid, kThreads, smem, s>>>(
-      T, B, H, t, g, g_ls, stash, h_prev, hp_ls, w_hhT, dh_in, dh_out, dpx,
-      dph);
-  return cudaGetLastError();
-}
-
 
 // ----------------------------------------------------------------------
 // The persistent chain.
@@ -144,8 +60,7 @@ cudaError_t launch_gru_bwd_step(int L, int T, int B, int H, int t,
 constexpr int kChainCols = 32;    // hidden units (dh columns) a block owns
 constexpr int kChainStages = 4;   // slabs in a warp's ring
 constexpr int kWarpK = 8;         // k rows of a slab that one warp multiplies
-constexpr int kWarpRows = 32;     // rows of the tile that one warp multiplies
-constexpr int kLaneRows = 8;      // a lane's register tile: 8 rows x 4 columns
+constexpr int kWarpRows = 32;     // most rows of the tile one warp multiplies
 constexpr int kChainGPad = 64;    // the weights' k is zero-padded to this
 constexpr int kCtrStride = 32;    // ints between two barriers' counters
 constexpr int kChainBPad = 64;    // scratch rows are padded to this
@@ -174,17 +89,22 @@ inline size_t chain_smem_bytes(int H) {
 }
 
 // Row i of the RB/8 rows a thread of warp `warp` owns in the gate phase and
-// the epilogue: quads of 4 consecutive rows, quad index warp (+ 8).
+// the epilogue: quads of 4 consecutive rows, quad index warp (+ 8); with
+// RB = 16, rows 2*warp and 2*warp + 1, half of quad warp/2.
+template <int RB>
 __device__ __forceinline__ int chain_row(int warp, int i) {
+  if constexpr (RB == 16) return 2 * warp + i;
   return (i / 4) * 32 + 4 * warp + (i % 4);
 }
 
 template <int RB>
 __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
-  static_assert(RB == 32 || RB == 64, "row tiles of 32 or 64");
+  static_assert(RB == 16 || RB == 32 || RB == 64, "row tiles of 16-64");
   constexpr int RT = RB / 8;      // rows a thread owns (gate phase, epilogue)
   constexpr int NQ = RB / 4;      // row quads of the tile
-  constexpr int kHalves = RB / kWarpRows;     // warps side by side over rows
+  constexpr int WR = RB < kWarpRows ? RB : kWarpRows;   // a warp's rows
+  constexpr int LR = WR / 4;      // a lane's register tile: LR rows x 4 cols
+  constexpr int kHalves = RB / WR;            // warps side by side over rows
   constexpr int kSets = kWarps / kHalves;     // warps that split a slab's k
   constexpr int KK = kSets * kWarpK;          // k rows of a slab
   constexpr int kTStride = 3 * kChainCols + 1;   // float4s a quad of sT
@@ -216,7 +136,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
     const float* gt = p.g + l * p.g_ls + (p.g_every_step ? t * p.g_ts : 0);
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
-      const int b = b0 + chain_row(warp, i);
+      const int b = b0 + chain_row<RB>(warp, i);
       in_r[i] = in_z[i] = in_n[i] = in_hn[i] = in_hp[i] = in_g[i] = 0.f;
       if (col_ok && b < B) {
         const float* st = p.stash + (((size_t)l * T + t) * B + b) * 4 * H;
@@ -233,12 +153,12 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
   unsigned* ctr = p.counters + (l * gridDim.y + blockIdx.y) * kCtrStride;
   const unsigned group = gridDim.x;     // blocks that share this row tile
   // product phase: warp (set, half) multiplies k = set*8 .. set*8+7 of each
-  // slab with rows half*32 .. +32 of the tile, which it alone loads into a
-  // ring of its own; lane (ry, cx) holds rows ry*8 .. +8 of those and
+  // slab with rows half*WR .. +WR of the tile, which it alone loads into a
+  // ring of its own; lane (ry, cx) holds rows ry*LR .. +LR of those and
   // columns cx*4 .. +4
   const int set = warp / kHalves, half = warp % kHalves;
   const int ry = lane >> 3, cx = lane & 7;
-  float* ring = buf + warp * (kChainStages * kWarpK * kWarpRows);
+  float* ring = buf + warp * (kChainStages * kWarpK * WR);
 
   float dh[RT] = {};
   prefetch(T - 1);
@@ -249,7 +169,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
       dhz[i] = dar[i] = daz[i] = dan[i] = dhn[i] = 0.f;
-      if (col_ok && b0 + chain_row(warp, i) < B) {
+      if (col_ok && b0 + chain_row<RB>(warp, i) < B) {
         const float d = dh[i] + in_g[i];
         gate_bwd(d, in_r[i], in_z[i], in_n[i], in_hn[i], in_hp[i], dar[i],
                  daz[i], dan[i], dhn[i]);
@@ -259,24 +179,34 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
     // transpose through shared memory: sT[quad][gate*32 + c] holds the
     // dpre_h of 4 consecutive rows at unit c (pad rows and columns: 0)
     float4* sT = reinterpret_cast<float4*>(buf);
+    if constexpr (RB == 16) {
+      // two warps fill a quad: float2 halves of its float4s
+      float2* dst = reinterpret_cast<float2*>(
+                        sT + (size_t)(warp / 2) * kTStride + lane) + (warp & 1);
+      dst[0] = make_float2(dar[0], dar[1]);
+      dst[2 * kChainCols] = make_float2(daz[0], daz[1]);
+      dst[4 * kChainCols] = make_float2(dhn[0], dhn[1]);
+    } else {
 #pragma unroll
-    for (int q = 0; q < RT / 4; ++q) {
-      float4* dst = sT + (size_t)(q * 8 + warp) * kTStride + lane;
-      dst[0] = make_float4(dar[4 * q], dar[4 * q + 1], dar[4 * q + 2],
-                           dar[4 * q + 3]);
-      dst[kChainCols] = make_float4(daz[4 * q], daz[4 * q + 1],
-                                    daz[4 * q + 2], daz[4 * q + 3]);
-      dst[2 * kChainCols] = make_float4(dhn[4 * q], dhn[4 * q + 1],
-                                        dhn[4 * q + 2], dhn[4 * q + 3]);
+      for (int q = 0; q < RT / 4; ++q) {
+        float4* dst = sT + (size_t)(q * 8 + warp) * kTStride + lane;
+        dst[0] = make_float4(dar[4 * q], dar[4 * q + 1], dar[4 * q + 2],
+                             dar[4 * q + 3]);
+        dst[kChainCols] = make_float4(daz[4 * q], daz[4 * q + 1],
+                                      daz[4 * q + 2], daz[4 * q + 3]);
+        dst[2 * kChainCols] = make_float4(dhn[4 * q], dhn[4 * q + 1],
+                                          dhn[4 * q + 2], dhn[4 * q + 3]);
+      }
     }
     __syncthreads();
     float* dT = p.dphT + ((size_t)(t & 1) * p.L + l) * G * Bp + b0;
+    constexpr int kCopies = 3 * kChainCols * NQ;
 #pragma unroll
-    for (int n = 0; n < 3 * kChainCols * NQ / kThreads; ++n) {
+    for (int n = 0; n < (kCopies + kThreads - 1) / kThreads; ++n) {
       const int idx = tid + n * kThreads;
       const int quad = idx % NQ, gc = idx / NQ;
       const int c = gc % kChainCols;
-      if (c0 + c < H) {
+      if (idx < kCopies && c0 + c < H) {
         const int k = (gc / kChainCols) * H + c0 + c;
         *reinterpret_cast<float4*>(dT + (size_t)k * Bp + 4 * quad) =
             sT[(size_t)quad * kTStride + gc];
@@ -292,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
     }
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
-      const int b = b0 + chain_row(warp, i);
+      const int b = b0 + chain_row<RB>(warp, i);
       if (col_ok && b < B) {
         const size_t lt = ((size_t)l * T + t) * B + b;
         float* px = p.dpx + lt * G;
@@ -314,21 +244,21 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
     __syncthreads();
 
     // ---- acc = dph[t] (rows of the tile) @ w_hh^T (the block's columns)
-    const float* src = dT + half * kWarpRows;
+    const float* src = dT + half * WR;
     auto fill_slab = [&](int sl) {
-      float* dst = ring + (sl % kChainStages) * (kWarpK * kWarpRows);
+      float* dst = ring + (sl % kChainStages) * (kWarpK * WR);
 #pragma unroll
-      for (int n = 0; n < kWarpK * kWarpRows / 4 / 32; ++n) {
+      for (int n = 0; n < kWarpK * WR / 4 / 32; ++n) {
         const int idx = lane + n * 32;
-        const int kk = idx / (kWarpRows / 4), quad = idx % (kWarpRows / 4);
+        const int kk = idx / (WR / 4), quad = idx % (WR / 4);
         const int k = sl * KK + set * kWarpK + kk;
-        cp_async<16>(dst + kk * kWarpRows + 4 * quad,
+        cp_async<16>(dst + kk * WR + 4 * quad,
                      k < G ? src + (size_t)k * Bp + 4 * quad : src,
                      k < G ? 16 : 0);
       }
     };
     const int nslab = Gp / KK;
-    float acc[kLaneRows][4] = {};
+    float acc[LR][4] = {};
 #pragma unroll
     for (int sl = 0; sl < kChainStages - 1; ++sl) {
       if (sl < nslab) fill_slab(sl);
@@ -341,22 +271,26 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
       __syncwarp();
       if (sl + kChainStages - 1 < nslab) fill_slab(sl + kChainStages - 1);
       cp_async_commit();
-      const float* as = ring + (sl % kChainStages) * (kWarpK * kWarpRows) +
-                        ry * kLaneRows;
+      const float* as =
+          ring + (sl % kChainStages) * (kWarpK * WR) + ry * LR;
       const float* ws =
           sW + ((size_t)sl * KK + set * kWarpK) * kChainCols + cx * 4;
 #pragma unroll
       for (int kk = 0; kk < kWarpK; ++kk) {
-        const float4 a_lo =
-            *reinterpret_cast<const float4*>(as + kk * kWarpRows);
-        const float4 a_hi =
-            *reinterpret_cast<const float4*>(as + kk * kWarpRows + 4);
+        float a[LR];
+#pragma unroll
+        for (int q = 0; q < LR / 4; ++q) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(as + kk * WR + 4 * q);
+          a[4 * q] = v.x;
+          a[4 * q + 1] = v.y;
+          a[4 * q + 2] = v.z;
+          a[4 * q + 3] = v.w;
+        }
         const float4 w =
             *reinterpret_cast<const float4*>(ws + kk * kChainCols);
-        const float a[kLaneRows] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                                    a_hi.x, a_hi.y, a_hi.z, a_hi.w};
 #pragma unroll
-        for (int i = 0; i < kLaneRows; ++i) {
+        for (int i = 0; i < LR; ++i) {
           acc[i][0] = fmaf(a[i], w.x, acc[i][0]);
           acc[i][1] = fmaf(a[i], w.y, acc[i][1]);
           acc[i][2] = fmaf(a[i], w.z, acc[i][2]);
@@ -369,15 +303,15 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
     // ---- add the sets' partial tiles in set order; dh = dh*z + sum
     float* red = buf;                                // [set][RB][32]
 #pragma unroll
-    for (int i = 0; i < kLaneRows; ++i)
+    for (int i = 0; i < LR; ++i)
       *reinterpret_cast<float4*>(
-          red + ((size_t)set * RB + half * kWarpRows + ry * kLaneRows + i) *
-                    kChainCols + cx * 4) =
+          red + ((size_t)set * RB + half * WR + ry * LR + i) * kChainCols +
+          cx * 4) =
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
-      const float* rp = red + (size_t)chain_row(warp, i) * kChainCols + lane;
+      const float* rp = red + (size_t)chain_row<RB>(warp, i) * kChainCols + lane;
       float s = rp[0];
 #pragma unroll
       for (int q = 1; q < kSets; ++q)
@@ -388,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
   }
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
-    const int b = b0 + chain_row(warp, i);
+    const int b = b0 + chain_row<RB>(warp, i);
     if (col_ok && b < B) p.dh0[l * BH + (size_t)b * H + j] = dh[i];
   }
 }
@@ -397,9 +331,9 @@ namespace {
 
 int chain_bp(int B) { return (B + kChainBPad - 1) / kChainBPad * kChainBPad; }
 
-// counters first (one per 32-row tile at most), then dphT
+// counters first (one per 16-row tile at most), then dphT
 long long chain_counter_floats(int L, int B) {
-  return (long long)L * ((B + 31) / 32) * kCtrStride;
+  return (long long)L * ((B + 15) / 16) * kCtrStride;
 }
 
 template <int RB>
@@ -447,6 +381,7 @@ cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
                       reinterpret_cast<unsigned*>(scratch)};
   // the smallest row tile whose whole grid is resident at once
   bool fits = false;
+  if ((err = try_chain<16>(p, &fits, s)) != cudaSuccess || fits) return err;
   if ((err = try_chain<32>(p, &fits, s)) != cudaSuccess || fits) return err;
   if ((err = try_chain<64>(p, &fits, s)) != cudaSuccess || fits) return err;
   return cudaErrorCooperativeLaunchTooLarge;

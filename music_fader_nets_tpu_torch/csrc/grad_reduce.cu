@@ -29,8 +29,13 @@
 // column sums split the rows over blocks the same way (256-row chunks, 8
 // warps a chunk, 16-byte loads, partials added in chunk order). The
 // scatter compacts each chunk's matching rows with warp ballots and adds
-// them in row order. gemm_nn (dh2_head = dlogits @ w_out^T, 5 GFLOP) keeps
-// the plain 64 x 64 shared-memory tile.
+// them in row order. gemm_nn (the decoder backward's products off its
+// recurrences: dh2_head = dlogits @ w_out^T, 5 GFLOP, and the cotangent
+// layer 2 sends layer 1, dpre2x @ w_ih2^T, 20 GFLOP at T*B = 12,800 rows)
+// has gemm_tn's tile, ring and register block; its A slab is 128 rows of
+// 16 contiguous k, so it lands row-major (rows padded to 20 floats) and a
+// thread reads its 8 rows 4 k at a time as float4s. No split of K: M = T*B
+// has 100-400 row tiles.
 #include <stdint.h>
 
 #include "gru_tile.cuh"
@@ -155,53 +160,123 @@ __global__ void __launch_bounds__(256)
   c[l * c_ls + i] = s;
 }
 
-constexpr int kGT = 64;   // gemm_nn output tile (rows and columns)
-constexpr int kGK = 16;   // gemm_nn k-slab depth
+constexpr int kAPad = kBK + 4;   // floats a row of gemm_nn's A slab
+constexpr size_t kGemmNNSmem =
+    (size_t)kStages * (kBM * kAPad + kBK * kBN) * sizeof(float);
 
-// C (M, N) = A (M, K) @ B (K, N), a 64 x 64 tile a block, 4 x 4 outputs a
-// thread.
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// C (M, N) = A (M, K) @ B (K, N), and + add[m, :] on rows m < add_rows; all
+// row-major and contiguous. VEC: 16-byte copies and stores (K, N and the
+// base addresses are multiples of 4 floats), else 4-byte ones.
+template <bool VEC>
+__global__ void __launch_bounds__(256, 2)
     gemm_nn_kernel(int M, int N, int K, const float* __restrict__ a,
-                   const float* __restrict__ b, float* __restrict__ c) {
-  __shared__ __align__(16) float As[kGK][kGT];
-  __shared__ __align__(16) float Bs[kGK][kGT];
-  const int m0 = blockIdx.y * kGT, n0 = blockIdx.x * kGT;
+                   const float* __restrict__ b, float* __restrict__ c,
+                   const float* __restrict__ add, int add_rows) {
+  extern __shared__ float4 smem4[];
+  float* As = reinterpret_cast<float*>(smem4);     // [stage][kBM][kAPad]
+  float* Bs = As + kStages * kBM * kAPad;          // [stage][kBK][kBN]
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kGK) {
+  const int nslab = (K + kBK - 1) / kBK;
+
+  constexpr int W = VEC ? 4 : 1;              // floats a copy
+  constexpr int kACopies = kBM * kBK / W / 256;
+  constexpr int kBCopies = kBK * kBN / W / 256;
+  auto fill_slab = [&](int sl) {
+    float* as = As + (sl % kStages) * kBM * kAPad;
+    float* bs = Bs + (sl % kStages) * kBK * kBN;
+    const int k0 = sl * kBK;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kACopies; ++i) {
       const int idx = tid + i * 256;
-      const int mm = idx / kGK, ka = idx % kGK;
-      As[ka][mm] = (k0 + ka < K && m0 + mm < M)
-                       ? a[(long long)(m0 + mm) * K + k0 + ka] : 0.f;
-      const int kk = idx / kGT, nn = idx % kGT;
-      const int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < N) ? b[(long long)k * N + n] : 0.f;
+      const int row = idx / (kBK / W), kc = (idx % (kBK / W)) * W;
+      const bool ok = m0 + row < M && k0 + kc < K;
+      cp_async<4 * W>(as + row * kAPad + kc,
+                      ok ? a + (long long)(m0 + row) * K + k0 + kc : a,
+                      ok ? 4 * W : 0);
     }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kGK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    for (int i = 0; i < kBCopies; ++i) {
+      const int idx = tid + i * 256;
+      const int kk = idx / (kBN / W), col = (idx % (kBN / W)) * W;
+      const bool ok = k0 + kk < K && n0 + col < N;
+      cp_async<4 * W>(bs + kk * kBN + col,
+                      ok ? b + (long long)(k0 + kk) * N + n0 + col : b,
+                      ok ? 4 * W : 0);
     }
-    __syncthreads();
+  };
+
+  float acc[8][8] = {};
+#pragma unroll
+  for (int sl = 0; sl < kStages - 1; ++sl) {
+    if (sl < nslab) fill_slab(sl);
+    cp_async_commit();
   }
+  // thread (ty, tx) holds rows m0 + {0, 64} + ty*4 + 0..3 and columns
+  // n0 + {0, 64} + tx*4 + 0..3
+  for (int sl = 0; sl < nslab; ++sl) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (sl + kStages - 1 < nslab) fill_slab(sl + kStages - 1);
+    cp_async_commit();
+    const float* as = As + (sl % kStages) * kBM * kAPad + ty * 4 * kAPad;
+    const float* bs = Bs + (sl % kStages) * kBK * kBN + tx * 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
+    for (int k4 = 0; k4 < kBK; k4 += 4) {
+      float4 av[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        av[i] = *reinterpret_cast<const float4*>(
+            as + ((i / 4) * 64 + (i % 4)) * kAPad + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b_lo =
+            *reinterpret_cast<const float4*>(bs + (k4 + kk) * kBN);
+        const float4 b_hi =
+            *reinterpret_cast<const float4*>(bs + (k4 + kk) * kBN + 64);
+        const float br[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w,
+                             b_hi.x, b_hi.y, b_hi.z, b_hi.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float ai = lane_of(av[i], kk);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai, br[j], acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i / 4) * 64 + ty * 4 + (i % 4);
     if (m >= M) continue;
+    const bool plus = m < add_rows;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) c[(long long)m * N + n] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * 64 + tx * 4;
+      const long long at = (long long)m * N + n;
+      if constexpr (VEC) {
+        if (n >= N) continue;
+        float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                               acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        if (plus) {
+          const float4 e = *reinterpret_cast<const float4*>(add + at);
+          v = make_float4(v.x + e.x, v.y + e.y, v.z + e.z, v.w + e.w);
+        }
+        *reinterpret_cast<float4*>(c + at) = v;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < N)
+            c[at + j] = plus ? acc[i][4 * h + j] + add[at + j]
+                             : acc[i][4 * h + j];
+      }
     }
   }
 }
@@ -402,9 +477,17 @@ cudaError_t gemm_tn(int L, int M, int N, int K, SplitRows a, const float* b,
 }
 
 cudaError_t gemm_nn(int M, int N, int K, const float* a, const float* b,
-                    float* c, cudaStream_t s) {
-  const dim3 grid((N + kGT - 1) / kGT, (M + kGT - 1) / kGT, 1);
-  gemm_nn_kernel<<<grid, 256, 0, s>>>(M, N, K, a, b, c);
+                    float* c, const float* add, int add_rows,
+                    cudaStream_t s) {
+  const bool vec = K % 4 == 0 && N % 4 == 0 && aligned16(a) &&
+                   aligned16(b) && aligned16(c) &&
+                   (add == nullptr || aligned16(add));
+  auto kernel = vec ? gemm_nn_kernel<true> : gemm_nn_kernel<false>;
+  cudaError_t err = allow_smem(kernel, kGemmNNSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1);
+  kernel<<<grid, 256, kGemmNNSmem, s>>>(M, N, K, a, b, c, add,
+                                        add == nullptr ? 0 : add_rows);
   return cudaGetLastError();
 }
 

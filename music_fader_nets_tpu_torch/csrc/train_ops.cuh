@@ -36,18 +36,6 @@ cudaError_t launch_embed_train_step(int L, int T, int B, int H, int V, int t,
                                     long long h_in_ls, float* h_seq,
                                     float* stash, cudaStream_t s);
 
-// One reversed step of the GRU backward chain for L directions: with
-// dh = dh_in[l] + g (g at g + l*g_ls, may be null), the gate backward from
-// the stash at step t and h_prev (at h_prev + l*hp_ls), writes
-// dpx[l, t] / dph[l, t] (the input / hidden projection cotangents) and
-// dh_out[l] = dh * z + dph[l, t] @ w_hh[l]^T, with w_hhT (L, 3H, H).
-cudaError_t launch_gru_bwd_step(int L, int T, int B, int H, int t,
-                                const float* g, long long g_ls,
-                                const float* stash, const float* h_prev,
-                                long long hp_ls, const float* w_hhT,
-                                const float* dh_in, float* dh_out,
-                                float* dpx, float* dph, cudaStream_t s);
-
 // The whole reversed GRU backward chain of L directions in one persistent,
 // cooperatively launched kernel: for t = T-1 .. 0, dh += g_t (g at g +
 // l*g_ls + t*g_ts on every step when g_every_step, else g + l*g_ls on step
@@ -119,9 +107,12 @@ cudaError_t gemm_tn(int L, int M, int N, int K, SplitRows a, const float* b,
                     long long b_ls, float* c, long long c_ls, float* scratch,
                     cudaStream_t s);
 
-// C (M, N) = A (M, K) @ B (K, N), all row-major and contiguous.
+// C (M, N) = A (M, K) @ B (K, N), all row-major and contiguous, and
+// C[m, :] += add[m, :] for m < add_rows when `add` is not null (the same
+// row-major (add_rows, N) layout). No atomics, no split of K.
 cudaError_t gemm_nn(int M, int N, int K, const float* a, const float* b,
-                    float* c, cudaStream_t s);
+                    float* c, const float* add, int add_rows,
+                    cudaStream_t s);
 
 // out[l, v, :] = sum over rows r with ids[l, r] == v of x[l, r, :], for
 // v < V, rows in increasing r (deterministic; no atomics). x rows are N

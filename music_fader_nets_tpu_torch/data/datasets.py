@@ -38,6 +38,9 @@ class YamahaDataset:
     def __len__(self):
         return len(self.data)
 
+    def __getitem__(self, idx) -> Dict[str, np.ndarray]:
+        return {k: v[idx] for k, v in self.arrays().items()}
+
     def arrays(self) -> Dict[str, np.ndarray]:
         return {
             "x": self.data, "r": self.rhythm, "n": self.note, "c": self.chroma,
@@ -114,6 +117,9 @@ class VGMIDIDataset:
 
     def __len__(self):
         return len(self.data)
+
+    def __getitem__(self, idx) -> Dict[str, np.ndarray]:
+        return {k: v[idx] for k, v in self.arrays().items()}
 
     def arrays(self) -> Dict[str, np.ndarray]:
         return {

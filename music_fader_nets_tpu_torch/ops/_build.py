@@ -113,15 +113,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_embed_gru_bwd.restype = I
     lib.fader_decoder_ce.argtypes = [I] * 4 + [P] * 19
     lib.fader_decoder_ce.restype = I
-    lib.fader_decoder_ce_bwd.argtypes = [I] * 4 + [P] * 34 + tail
+    lib.fader_decoder_ce_bwd.argtypes = [I] * 4 + [P] * 31 + tail
     lib.fader_decoder_ce_bwd.restype = I
     lib.fader_decoder_masses.argtypes = [I] * 5 + [P] * 19
     lib.fader_decoder_masses.restype = I
-    lib.fader_decoder_masses_bwd.argtypes = [I] * 6 + [P] * 35 + tail
+    lib.fader_decoder_masses_bwd.argtypes = [I] * 6 + [P] * 32 + tail
     lib.fader_decoder_masses_bwd.restype = I
     lib.fader_decoder_teacher.argtypes = [I] * 4 + [P] * 15
     lib.fader_decoder_teacher.restype = I
-    lib.fader_decoder_teacher_bwd.argtypes = [I] * 4 + [P] * 26 + tail
+    lib.fader_decoder_teacher_bwd.argtypes = [I] * 4 + [P] * 23 + tail
     lib.fader_decoder_teacher_bwd.restype = I
     lib.fader_stacked_gru.argtypes = [I] * 4 + [P] * 7
     lib.fader_stacked_gru.restype = I
@@ -154,9 +154,9 @@ def load_library() -> ctypes.CDLL:
 def bwd_scratch(size_fn, dims, dev):
     """The scratch of a backward entry: (tensor, its floats), sized by the
     library's own `size_fn(*dims)` for the current device (the barrier
-    counters and k-major rows of the persistent chain, the split-K partial
-    tiles of the weight-gradient GEMM, the column sums' partials). Call it
-    with `dev` current."""
+    counters and k-major rows of the persistent chain, the decoder's
+    cross-layer cotangent, the split-K partial tiles of the weight-gradient
+    GEMM, the column sums' partials). Call it with `dev` current."""
     n = int(size_fn(*dims))
     return torch.empty((max(n, 1),), dtype=torch.float32, device=dev), n
 

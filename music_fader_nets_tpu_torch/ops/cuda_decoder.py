@@ -38,8 +38,8 @@ from music_fader_nets_tpu_torch.ops import _build, cuda_gru
 from music_fader_nets_tpu_torch.ops.gru import _gates, vocab_pad
 
 # wrapper calls that launched each kernel (forward: 2T + 1 device
-# launches, 2T without a head; backward: 3T + 12, the masses head's with
-# n_rep > 1: 3T + 13, 3T + 8 without a head)
+# launches, 2T without a head; backward: a fixed number whatever T is, two
+# of them the persistent chains)
 LAUNCHES = {"decoder_teacher": 0, "decoder_teacher_bwd": 0, "decoder_ce": 0,
             "decoder_ce_bwd": 0, "decoder_masses": 0,
             "decoder_masses_bwd": 0}
@@ -233,16 +233,14 @@ def _launch_masses_fwd(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
 
 def _bwd_buffers(T, B, H, Vp, dev, head: bool = True):
     """(transpose of a weight, scratch list, outputs list) of a backward:
-    scratch dlogits, dh2_head (both only with a head), dh2_buf, dh1_carry,
-    dh1_mid, s1x, s1h, s2x, s2h; outputs dw_tok, dpre_z, dwhh1, dbhh1,
-    dwih2, dbih2, dwhh2, dbhh2, dh1_0 and, with a head, dw_out, db_out."""
+    scratch dlogits, dh2_head (both only with a head), s1x, s1h, s2x, s2h;
+    outputs dw_tok, dpre_z, dwhh1, dbhh1, dwih2, dbih2, dwhh2, dbhh2, dh1_0
+    and, with a head, dw_out, db_out."""
     G = 3 * H
     f32 = dict(dtype=torch.float32, device=dev)
     scratch = ([torch.empty((T, B, Vp), **f32),
                 torch.empty((T, B, H), **f32)] if head else []) + [
-        torch.empty((2, B, H), **f32), torch.empty((B, H), **f32),
-        torch.empty((B, H), **f32)] + [
-            torch.empty((T, B, G), **f32) for _ in range(4)]
+        torch.empty((T, B, G), **f32) for _ in range(4)]
     outs = [torch.empty(s, **f32) for s in (
         (Vp, G), (B, G), (H, G), (G,), (H, G), (G,), (H, G), (G,), (B, H))
         + (((H, Vp), (Vp,)) if head else ())]

@@ -1,16 +1,25 @@
-"""Where the device time of the two GRU backward kernels goes, on one GPU.
+"""Where the device time of the GRU and decoder backward kernels goes, on
+one GPU.
 
     python -m music_fader_nets_tpu_torch.train.bwd_split [--reps 5]
 
-Runs the backward of the encoder (`stacked_gru_embed_finals`, L=4) and of
-the generic stacked GRU (`stacked_gru`, L=2) at the config's full width
-(T=seq_len, B=batch_size, H=hidden_dims; random weights and inputs from a
-seed) under `torch.profiler` and prints, for each, one JSON line: the
-device ms of one backward call split by what its kernels do (`chain`: the
-dh recurrence; `dw_gemm`: dW_hh = h_prev^T dpre_h with its split-K sum;
-`scatter`: the token scatter of dW_in; `sums`: the bias and per-sequence
-sums; `other`: memsets, the weight transpose, autograd's own copies), and
-the call's time by CUDA events. Runs on CUDA only; device times from CUPTI.
+Runs, at the config's full width (T=seq_len, B=batch_size, H=hidden_dims;
+random weights and inputs from a seed), the backward of the encoder
+(`stacked_gru_embed_finals`, L=4), of the generic stacked GRU
+(`stacked_gru`, L=2) and of the teacher-forced decoder with the CE head
+(`decoder_teacher_nll`, row 10), with the masses head (`decoder_teacher_
+masses`, GLSR's n_rep=4 copies of B rows and `GLSR_MASK_RANGES`, row
+10-masses) and without a head (`decoder_teacher`, row 8), under
+`torch.profiler`, and prints one JSON line each: the device ms of one
+backward call split by what its kernels do (`chain`: the dh recurrences;
+`head`: the CE or masses head's dlogits; `nn_gemm`: the products off the
+recurrence, dh2_head = dlogits w_out^T and the decoder's cross-layer
+cotangent; `dw_gemm`: dW = h_prev^T dpre with its split-K sum; `scatter`:
+the token scatter of dW_in; `sums`: the bias and per-sequence sums;
+`other`: memsets, the weight transposes, autograd's own copies), the
+call's device launches (kernels and memsets; for the decoder rows also at
+T/2, to show that no launch is made per step) and the call's time by CUDA
+events. Runs on CUDA only; device times from CUPTI.
 """
 from __future__ import annotations
 
@@ -23,21 +32,25 @@ import torch
 
 from music_fader_nets_tpu_torch import resolve_device
 from music_fader_nets_tpu_torch.config import load_config
-from music_fader_nets_tpu_torch.ops import cuda_gru, cuda_stacked
+from music_fader_nets_tpu_torch.losses.regularizers import GLSR_MASK_RANGES
+from music_fader_nets_tpu_torch.ops import cuda_decoder, cuda_gru, cuda_stacked
 from music_fader_nets_tpu_torch.ops.gru import vocab_pad
 
 # part of a backward call -> substrings of its kernels' names
 PARTS = {
-    "chain": ("gru_bwd_chain", "gru_bwd_step", "rows_gemm_add"),
-    "dw_gemm": ("gemm_tn_kernel", "gemm_kernel", "splitk_sum"),
+    "chain": ("gru_bwd_chain",),
+    "head": ("ce_head", "mass_head"),
+    "nn_gemm": ("gemm_nn",),
+    "dw_gemm": ("gemm_tn", "splitk_sum"),
     "scatter": ("segment_rows",),
     "sums": ("colsum", "sum_over_t"),
 }
 
 
 def kernel_split(fn, reps: int = 3):
-    """Device ms of one call of `fn` by part (`PARTS`, and `other`), the
-    mean over `reps` profiled calls after one warm-up call."""
+    """(device ms of one call of `fn` by part (`PARTS`, and `other`),
+    device launches of one call: kernels and memsets), over `reps`
+    profiled calls after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -47,13 +60,15 @@ def kernel_split(fn, reps: int = 3):
             fn()
         torch.cuda.synchronize()
     split = {part: 0.0 for part in (*PARTS, "other")}
+    n = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        n += 1
         part = next((p for p, keys in PARTS.items()
                      if any(k in e.name for k in keys)), "other")
         split[part] += (e.time_range.end - e.time_range.start) / 1e3 / reps
-    return split
+    return split, n / reps
 
 
 def event_ms(fn, reps: int) -> float:
@@ -79,6 +94,47 @@ def backward_of(fn, floats, cot):
     ts = [t.detach().clone().requires_grad_(True) for t in floats]
     out = fn(*ts)
     return lambda: torch.autograd.grad(out, ts, cot, retain_graph=True)
+
+
+def decoder_rows(T, B, H, V, rand, dev):
+    """{row: (shape, backward callable)} of the three decoder backward
+    entries at T steps, B token rows (the masses head: n_rep = 4 copies of
+    them) and width H."""
+    G, Vp = 3 * H, vocab_pad(V)
+    gen = torch.Generator().manual_seed(T)
+    tgt = torch.randint(0, V, (T, B), generator=gen,
+                        dtype=torch.int32).to(dev)
+    tok = torch.cat([torch.full((1, B), V - 1, dtype=torch.int32,
+                                device=dev), tgt[:-1]])
+    w_out = torch.nn.functional.pad(rand((H, V), 0.04), (0, Vp - V))
+    b_out = torch.nn.functional.pad(rand((V,), 0.05), (0, Vp - V),
+                                    value=cuda_decoder.PAD_LOGIT)
+
+    def rec(rows):
+        """w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0."""
+        return [rand((Vp, G), 0.04), rand((rows, G), 0.5), rand((H, G), 0.04),
+                rand((G,), 0.05), rand((H, G), 0.04), rand((G,), 0.05),
+                rand((H, G), 0.04), rand((G,), 0.05), rand((rows, H), 0.5)]
+
+    n_rep, K = 4, len(GLSR_MASK_RANGES)
+    return {
+        "decoder_ce_bwd": (
+            {"T": T, "B": B, "H": H, "Vp": Vp},
+            backward_of(lambda *fl: cuda_decoder.decoder_teacher_nll(
+                tok, tgt, *fl), rec(B) + [w_out, b_out],
+                torch.full((T, B), 1.0 / (T * B), device=dev))),
+        "decoder_masses_bwd": (
+            {"T": T, "B0": B, "n_rep": n_rep, "rows": n_rep * B, "H": H,
+             "Vp": Vp, "K": K},
+            backward_of(lambda *fl: cuda_decoder.decoder_teacher_masses(
+                tok, *fl, GLSR_MASK_RANGES, n_rep),
+                rec(n_rep * B) + [w_out, b_out],
+                rand((T, K, n_rep * B), 1.0 / (T * B)))),
+        "decoder_teacher_bwd": (
+            {"T": T, "B": B, "H": H, "Vp": Vp},
+            backward_of(lambda *fl: cuda_decoder.decoder_teacher(tok, *fl),
+                        rec(B), rand((T, B, H), 0.01))),
+    }
 
 
 def main(argv=None) -> None:
@@ -113,14 +169,19 @@ def main(argv=None) -> None:
                     [rand((L, T, B, G), 0.5), rand((L, H, G), 0.04),
                      rand((L, G), 0.05), rand((L, B, H), 0.1)],
                     rand((L, T, B, H), 1.0)))
+    rows.update(decoder_rows(T, B, H, V, rand, dev))
+    half = decoder_rows(T // 2, B, H, V, rand, dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     for name, (shape, bwd) in rows.items():
-        print(json.dumps({"kernel": name, "shape": shape,
-                          "bwd_ms": event_ms(bwd, args.reps),
-                          "split_ms": kernel_split(bwd, args.reps),
-                          "device": torch.cuda.get_device_name(),
+        split, launches = kernel_split(bwd, args.reps)
+        line = {"kernel": name, "shape": shape,
+                "bwd_ms": event_ms(bwd, args.reps), "split_ms": split,
+                "launches": launches}
+        if name in half:
+            line["launches_at_half_T"] = kernel_split(half[name][1], 1)[1]
+        print(json.dumps({**line, "device": torch.cuda.get_device_name(),
                           "nvidia_smi": smi}), flush=True)
 
 

@@ -579,6 +579,10 @@ def _backward_launch(case):
 
 BACKWARD_CASES = ["embed_finals", "embed_seq", "stacked", "decoder_ce",
                   "decoder_masses", "decoder_teacher"]
+# pointer arguments of each entry before its scratch: the C signatures
+# (the decoder entries' dh2 / dh1 carry buffers live in the scratch)
+POINTERS = {"embed_finals": 14, "embed_seq": 14, "stacked": 10,
+            "decoder_ce": 31, "decoder_masses": 32, "decoder_teacher": 23}
 
 
 @pytest.mark.parametrize("case", BACKWARD_CASES)
@@ -598,6 +602,7 @@ def test_backward_launcher_passes_the_scratch(monkeypatch, case):
     assert scratch.dtype == torch.float32
     args, argtypes = lib.calls[entry], getattr(lib, entry).argtypes
     assert len(args) == len(argtypes)
+    assert argtypes[:-3].count(ctypes.c_void_p) == POINTERS[case]
     assert argtypes[-3:] == [ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_void_p]
     assert args[-3:] == (scratch.data_ptr(), n, 0)

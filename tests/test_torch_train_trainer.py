@@ -112,6 +112,32 @@ def test_datasets_and_batch_order_match_jax():
             np.testing.assert_array_equal(a_[k], b_[k], err_msg=k)
 
 
+@pytest.mark.parametrize("idx", [0, 3, -1, slice(2, 7), slice(None, None, 3)])
+@pytest.mark.parametrize("kind", ["yamaha", "vgmidi", "vgmidi_ragged"])
+def test_dataset_items_match_jax(kind, idx):
+    """`ds[idx]` holds the JAX dataset's keys, with the same types and
+    values, for an int, a negative int and a slice."""
+    if kind == "yamaha":
+        args, cls, j_cls = (corpus(40, 0), datasets.YamahaDataset,
+                            j_datasets.YamahaDataset)
+    else:
+        if kind == "vgmidi":
+            args = corpus(40, 1, supervised=True)
+        else:
+            from music_fader_nets_tpu.data.synthetic import (
+                synth_vgmidi_ragged,
+            )
+            d, r, n, a, v, c = synth_vgmidi_ragged(24, seed=5)
+            args = (d, r, n, c, a, v)
+        cls, j_cls = datasets.VGMIDIDataset, j_datasets.VGMIDIDataset
+    mine, theirs = cls(*args)[idx], j_cls(*args)[idx]
+    assert list(mine) == list(theirs)
+    for k in theirs:
+        assert type(mine[k]) is type(theirs[k]), k
+        assert mine[k].dtype == theirs[k].dtype, k
+        np.testing.assert_array_equal(mine[k], theirs[k], err_msg=k)
+
+
 def test_anneal_beta_and_config_match_jax():
     for step in (0, 999, 1000, 1500, 9999, 10000, 15000, 30000):
         for faithful in (True, False):
