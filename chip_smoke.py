@@ -28,13 +28,21 @@ float64 witness, and the evaluation path runs at full width on the
 synthetic corpus: the eval CLI, a reconstruction report (kernel path
 against plain path), the rhythm and note controllability evaluators (every
 decoded row against the plain decode) and one epoch of the CVAE's
-condition sweep. Each training-kernel phase also runs its backward twice
-and fails unless every gradient has the same bits; the encoder's, the
-generic stacked GRU's and the three decoder phases print their backward's
-device ms by part (chain, head, NN GEMM, dW GEMM, scatter, sums; CUPTI) and
-its device launches, and a `ragged_backward` phase holds the five backward
-entries against their plain versions at a shape that crosses the tiles of
-the persistent chain, the split-K seam and the NN GEMM's tiles. Every
+condition sweep. Each training-kernel phase also runs its forward and its
+backward twice and fails unless every output and gradient has the same
+bits; the encoder's, the generic stacked GRU's and the three decoder
+phases print their backward's device ms by part (chain, head, NN GEMM, dW
+GEMM, scatter, sums; CUPTI) and its device launches, the generic stacked
+GRU's and the three decoder phases also their forward's (step, chain,
+GEMM, head) with its kernel launches at T and at T/2 (equal, or the phase
+fails), and the stacked GRU's phase times kernel + einsum and cuDNN's
+bidirectional GRU in turns. A `ragged_backward` phase holds the five
+backward entries against their plain versions at a shape that crosses
+the tiles of the persistent chains, the split-K seam and the NN GEMM's
+tiles, a `ragged_forward` phase the four forward entries of the
+persistent forward chain at partial row tiles, one step and ragged
+widths, and a `long_geometry` phase the decoder CE forward + backward at
+T=250, B=128. Every
 token tensor a decode kernel returns (greedy_decode, sample_decode,
 serving, evaluation) is range-checked right after its launch. Every phase
 prints one JSON line; the kernels line follows, then the card's name and
@@ -240,6 +248,9 @@ def main() -> int:
         GLSR_MASK_RANGES,
     )
     from music_fader_nets_tpu_torch.train.bwd_split import kernel_split
+    from music_fader_nets_tpu_torch.train.fwd_split import (
+        PARTS as FWD_PARTS, SKIP as FWD_SKIP,
+    )
     from music_fader_nets_tpu_torch.train.cli import _forward_for
     from music_fader_nets_tpu_torch.train.objectives import gmm_loss
     from music_fader_nets_tpu_torch.train.profile import (
@@ -558,23 +569,34 @@ def main() -> int:
 
     def train_kernel_phase(phase, names, srcs, replaces, fn, plain, ids,
                            floats, cot, shape, flops, lib=None, extra=None,
-                           split=False, pad_rows=None):
+                           split=False, pad_rows=None, raw_fwd=None,
+                           half=None):
         """names/srcs/replaces: (forward, backward). flops: (forward,
         backward). lib: (forward callable, its leaves, its cotangent) or
         None. extra: more keys for the phase's line. split: also the
         backward's device ms by part (chain, dW GEMM, scatter, sums).
         pad_rows: (index of a float input, first pad row) whose gradient
-        rows from there on must be exactly 0."""
+        rows from there on must be exactly 0. raw_fwd: a call of the
+        forward entry that returns every tensor it writes (outputs and
+        gate stashes), held bit-equal over two calls. half: (fn, ids,
+        floats) of the forward at T/2; with it the forward's device ms by
+        part (step, chain, GEMM, head) and its kernel launches at T and
+        T/2 (memsets timed, not counted) join the line."""
         ts, out, grads = fwd_bwd(fn, ids, floats, cot)
         _, out_p, grads_p = fwd_bwd(plain, ids, floats, cot)
-        # the reductions use no atomics: a second backward call gives the
-        # same bits
+        # the chains and reductions use no atomics: a second forward and a
+        # second backward call give the same bits
         grads_2 = torch.autograd.grad(out, ts, cot, retain_graph=True)
+        fwd_again = [(out, fn(ids, *ts))]
+        if raw_fwd is not None:
+            fwd_again += list(zip(raw_fwd(), raw_fwd()))
         torch.cuda.synchronize()
         same_bits = all(torch.equal(a, b) for a, b in zip(grads, grads_2))
+        fwd_same_bits = all(a is None and b is None or torch.equal(a, b)
+                            for a, b in fwd_again)
         pads_zero = (pad_rows is None or float(
             grads[pad_rows[0]][:, pad_rows[1]:].abs().max()) == 0.0)
-        del grads_2
+        del grads_2, fwd_again
         out_err = float((out - out_p).detach().abs().max())
         g_abs, g_rel = grad_errors(grads, grads_p)
         k_f, k_b = time_fwd_bwd(fn, ids, ts, cot, 10)
@@ -595,6 +617,17 @@ def main() -> int:
                 out, ts, cot, retain_graph=True))
             bwd_split = {"bwd_split_ms": bwd_split[0],
                          "bwd_launches": bwd_split[1]}
+        fwd_split = None
+        if half is not None:
+            h_fn, h_ids, h_floats = half
+            h_ts = [t.detach().clone().requires_grad_(True)
+                    for t in h_floats]
+            parts, n_t = kernel_split(lambda: fn(ids, *ts), 3, FWD_PARTS,
+                                      FWD_SKIP)
+            fwd_split = {"fwd_split_ms": parts, "fwd_launches": n_t,
+                         "fwd_launches_half_T": kernel_split(
+                             lambda: h_fn(h_ids, *h_ts), 3, FWD_PARTS,
+                             FWD_SKIP)[1]}
         in_bytes = nbytes(ids, *floats)
         f_bound, f_by = bound(flops[0], in_bytes + nbytes(out))
         b_bound, b_by = bound(flops[1], in_bytes + nbytes(cot, *grads))
@@ -605,15 +638,24 @@ def main() -> int:
               "plain_fwd_ms": p_f, "plain_bwd_ms": p_b,
               "library_fwd_ms": l_f, "library_bwd_ms": l_b,
               "library_max_abs_err": lib_err, "bound_fwd_ms": f_bound,
-              "bound_bwd_ms": b_bound, "determinism": same_bits,
+              "bound_bwd_ms": b_bound,
+              "determinism": same_bits and fwd_same_bits,
+              "determinism_fwd": fwd_same_bits, "determinism_bwd": same_bits,
               **({} if pad_rows is None else {"pad_rows_zero": pads_zero}),
-              **(bwd_split or {}),
+              **(bwd_split or {}), **(fwd_split or {}),
               **(extra or {})})
         if not (out_err <= TOL_TRAIN_OUT and g_rel <= TOL_TRAIN_GRAD_REL):
             return fail(f"{phase}: kernel vs plain output {out_err}, "
                         f"gradients {g_rel} (relative)")
         if not same_bits:
             return fail(f"{phase}: two backward calls differ in a bit")
+        if not fwd_same_bits:
+            return fail(f"{phase}: two forward calls differ in a bit")
+        if fwd_split is not None and (
+                fwd_split["fwd_launches"] != fwd_split["fwd_launches_half_T"]
+                or fwd_split["fwd_split_ms"]["step"] > 0.0):
+            return fail(f"{phase}: the forward launches a kernel a step: "
+                        f"{fwd_split}")
         if not pads_zero:
             return fail(f"{phase}: a pad row's gradient is not exactly 0")
         for i, (nm, src, rep, err, ms_, pms, lms, bd, by) in enumerate((
@@ -742,16 +784,24 @@ def main() -> int:
         return lambda ids, *fl: f(ids, d_tgt, *fl)
 
     dec_f = 2.0 * T * TB * (3 * H * G + H * Vp)
+    d_rec = [d_wtok, d_prez, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
+             g2["w_hh"], g2["b_hh"], d_h10]
+    d_head = [d_wout, d_bout]
+    Th = T // 2
     rc = train_kernel_phase(
         "train_decoder_ce_kernels", ("decoder_ce", "decoder_ce_bwd"),
         (csrc + "decoder_ce.cu", csrc + "decoder_ce_bwd.cu"),
         (pg + "1482", pg + "1627"),
         with_tgt(cuda_decoder.decoder_teacher_nll),
         with_tgt(cuda_decoder.decoder_teacher_nll_plain), d_tok,
-        [d_wtok, d_prez, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
-         g2["w_hh"], g2["b_hh"], d_h10, d_wout, d_bout], d_cot,
+        d_rec + d_head, d_cot,
         {"T": T, "B": TB, "H": H, "Vp": Vp},
-        (dec_f, 2.0 * T * TB * (6 * H * G + 3 * H * Vp)), split=True)
+        (dec_f, 2.0 * T * TB * (6 * H * G + 3 * H * Vp)), split=True,
+        raw_fwd=lambda: cuda_decoder._launch_fwd(
+            d_tok, d_tgt, *d_rec, *d_head, stash=True),
+        half=(lambda ids, *fl: cuda_decoder.decoder_teacher_nll(
+            ids, d_tgt[:Th].contiguous(), *fl), d_tok[:Th].contiguous(),
+            d_rec + d_head))
     if rc:
         return rc
 
@@ -766,10 +816,11 @@ def main() -> int:
         ("decoder_teacher", "decoder_teacher_bwd"),
         (csrc + "decoder_ce.cu", csrc + "decoder_ce_bwd.cu"),
         (pg + "1110", pg + "1304"), cuda_decoder.decoder_teacher,
-        cuda_decoder.decoder_teacher_plain, d_tok,
-        [d_wtok, d_prez, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
-         g2["w_hh"], g2["b_hh"], d_h10], t_cot,
-        {"T": T, "B": TB, "H": H, "Vp": Vp}, (tea_f, 2 * tea_f), split=True)
+        cuda_decoder.decoder_teacher_plain, d_tok, d_rec, t_cot,
+        {"T": T, "B": TB, "H": H, "Vp": Vp}, (tea_f, 2 * tea_f), split=True,
+        raw_fwd=lambda: cuda_decoder._launch_teacher_fwd(d_tok, *d_rec,
+                                                         stash=True),
+        half=(cuda_decoder.decoder_teacher, d_tok[:Th].contiguous(), d_rec))
     if rc:
         return rc
     del t_cot
@@ -819,19 +870,35 @@ def main() -> int:
     def skip_ids(f):
         return lambda ids, *fl: f(*fl)
 
+    # row 1 against its library call in one call, in turns: the kernel's
+    # training forward over the einsum's projections, and cuDNN's
+    # bidirectional nn.GRU over x_in (its own projection included)
+    e_rest = [t.detach().clone().requires_grad_(True)
+              for t in (e_whh, e_bhh, e_h0)]
+    turns = {"kernel_plus_einsum_ms": [], "cudnn_ms": []}
+    for _ in range(2):
+        turns["kernel_plus_einsum_ms"].append(time_ms(
+            lambda: cuda_stacked.stacked_gru(project(), *e_rest), 5))
+        turns["cudnn_ms"].append(time_ms(cudnn_stacked, 5))
+    del e_rest
     st_f = 2.0 * 2 * T * TB * H * G
     rc = train_kernel_phase(
         "train_stacked_gru_kernels", ("stacked_gru", "stacked_gru_bwd"),
-        (csrc + "stacked_gru.cu", csrc + "stacked_gru.cu"),
+        (csrc + "gru_fwd_chain.cu", csrc + "stacked_gru.cu"),
         (pg + "147", pg + "238"), skip_ids(cuda_stacked.stacked_gru),
         skip_ids(cuda_stacked.stacked_gru_plain), no_ids,
         [e_pre, e_whh, e_bhh, e_h0], e_cot,
         {"L": 2, "T": T, "B": TB, "H": H, "I": I},
         (st_f, 2 * st_f), lib=(cudnn_stacked, e_leaves, e_cot), split=True,
-        extra={"einsum_ms": einsum_ms,
+        raw_fwd=lambda: cuda_stacked._launch_fwd(e_pre, e_whh, e_bhh, e_h0,
+                                                 True),
+        half=(skip_ids(cuda_stacked.stacked_gru), no_ids,
+              [e_pre[:, :Th].contiguous(), e_whh, e_bhh, e_h0]),
+        extra={"einsum_ms": einsum_ms, "same_call_turns": turns,
                "library_note": "cuDNN bidirectional nn.GRU over x_in "
                                "includes the input projection: compare "
-                               "it with einsum_ms + ms"})
+                               "it with einsum_ms + ms (same_call_turns: "
+                               "both timed in turns, 5 calls each)"})
     if rc:
         return rc
     del e_gru, e_leaves, x_in, e_pre, e_cot
@@ -849,6 +916,8 @@ def main() -> int:
     def with_ranges(f):
         return lambda ids, *fl: f(ids, *fl, GLSR_MASK_RANGES, n_rep)
 
+    m_floats = [d_wtok, m_prez, g1["w_hh"], g1["b_hh"], g2["w_ih"],
+                g2["b_ih"], g2["w_hh"], g2["b_hh"], m_h10, d_wout, d_bout]
     rc = train_kernel_phase(
         "train_decoder_masses_kernels",
         ("decoder_masses", "decoder_masses_bwd"),
@@ -856,15 +925,18 @@ def main() -> int:
         (pg + "1482", pg + "1627"),
         with_ranges(cuda_decoder.decoder_teacher_masses),
         with_ranges(cuda_decoder.decoder_teacher_masses_plain), d_tok,
-        [d_wtok, m_prez, g1["w_hh"], g1["b_hh"], g2["w_ih"], g2["b_ih"],
-         g2["w_hh"], g2["b_hh"], m_h10, d_wout, d_bout], m_cot,
+        m_floats, m_cot,
         {"T": T, "B0": TB, "n_rep": n_rep, "rows": MB, "H": H, "Vp": Vp,
          "K": len(GLSR_MASK_RANGES)},
         (2.0 * T * MB * (3 * H * G + H * Vp),
-         2.0 * T * MB * (6 * H * G + 3 * H * Vp)), split=True)
+         2.0 * T * MB * (6 * H * G + 3 * H * Vp)), split=True,
+        raw_fwd=lambda: cuda_decoder._launch_masses_fwd(
+            d_tok, *m_floats, GLSR_MASK_RANGES, n_rep, stash=True),
+        half=(with_ranges(cuda_decoder.decoder_teacher_masses),
+              d_tok[:Th].contiguous(), m_floats))
     if rc:
         return rc
-    del m_prez, m_h10, m_cot
+    del m_prez, m_h10, m_cot, m_floats
 
     # the persistent backward chain, the split-K weight-gradient GEMM and
     # the decoder's NN GEMM at a ragged shape: B = 37 (a partial row tile,
@@ -945,6 +1017,96 @@ def main() -> int:
                 and e["grad_max_rel_err"] <= TOL_TRAIN_GRAD_REL):
             return fail(f"ragged_backward, {name}: {e}")
     del r_wih, r_pre, r_grads, r_grads_p, r_head
+
+    # the four forward entries (the persistent forward chain, its partial
+    # 16-row tiles, one step, an 8-unit column tile, a ragged k) without a
+    # gradient against their plain versions, and bit-equal on a repeat
+    fr_gen = torch.Generator().manual_seed(SEED + 8)
+    ragged_fwd = []
+    for fB, fT, fH in ((37, 1, 136), (130, 3, 136), (37, 9, 30),
+                       (130, 5, 80)):
+        def f_rand(shape, scale):
+            return (torch.randn(shape, generator=fr_gen) * scale).to(dev)
+
+        fG = 3 * fH
+        f_rec = [f_rand((Vp, fG), 0.05), f_rand((fB, fG), 0.5)] + [
+            f_rand(s_, 0.05) for s_ in ((fH, fG), (fG,), (fH, fG), (fG,),
+                                        (fH, fG), (fG,))] + [
+            f_rand((fB, fH), 0.5)]
+        f_head = [torch.nn.functional.pad(f_rand((fH, V), 0.05),
+                                          (0, Vp - V)),
+                  torch.nn.functional.pad(f_rand((V,), 0.05), (0, Vp - V),
+                                          value=cuda_decoder.PAD_LOGIT)]
+        f_tgt = torch.randint(0, V, (fT, fB), generator=fr_gen,
+                              dtype=torch.int32).to(dev)
+        f_pre = f_rand((2, fT, fB, fG), 0.5)
+        f_st = [f_rand((2, fH, fG), 0.05), f_rand((2, fG), 0.05),
+                f_rand((2, fB, fH), 0.5)]
+        row = {"B": fB, "T": fT, "H": fH}
+        with torch.no_grad():
+            for name, fn, plain in (
+                    ("decoder_ce",
+                     lambda: cuda_decoder.decoder_teacher_nll(
+                         f_tgt, f_tgt, *f_rec, *f_head),
+                     lambda: cuda_decoder.decoder_teacher_nll_plain(
+                         f_tgt, f_tgt, *f_rec, *f_head)),
+                    ("decoder_masses",
+                     lambda: cuda_decoder.decoder_teacher_masses(
+                         f_tgt, *f_rec, *f_head, GLSR_MASK_RANGES, 1),
+                     lambda: cuda_decoder.decoder_teacher_masses_plain(
+                         f_tgt, *f_rec, *f_head, GLSR_MASK_RANGES, 1)),
+                    ("decoder_teacher",
+                     lambda: cuda_decoder.decoder_teacher(f_tgt, *f_rec),
+                     lambda: cuda_decoder.decoder_teacher_plain(f_tgt,
+                                                                *f_rec)),
+                    ("stacked_gru",
+                     lambda: cuda_stacked.stacked_gru(f_pre, *f_st),
+                     lambda: cuda_stacked.stacked_gru_plain(f_pre, *f_st))):
+                got, again = fn(), fn()
+                row[name] = {"max_abs_err": float((got - plain()).abs()
+                                                  .max()),
+                             "repeat_equal": bool(torch.equal(got, again))}
+        ragged_fwd.append(row)
+    emit({"phase": "ragged_forward", "tol_out": TOL_TRAIN_OUT,
+          "cases": ragged_fwd})
+    for row in ragged_fwd:
+        for name, e in row.items():
+            if isinstance(e, dict) and not (
+                    e["max_abs_err"] <= TOL_TRAIN_OUT and e["repeat_equal"]):
+                return fail(f"ragged_forward, {name} at {row}")
+
+    # the decoder CE forward + backward at the long geometry (T=250,
+    # B=128): the cooperative launches and the scratch sizes hold there
+    LT = 250
+    l_tgt = torch.from_numpy(
+        rng.integers(0, V, size=(LT, TB)).astype(np.int32)).to(dev)
+    l_tok = torch.cat([torch.full((1, TB), V - 1, dtype=torch.int32,
+                                  device=dev), l_tgt[:-1]])
+    l_cot = torch.full((LT, TB), 1.0 / (LT * TB), device=dev)
+    l_fn = (lambda ids, *fl: cuda_decoder.decoder_teacher_nll(ids, l_tgt,
+                                                              *fl))
+    l_ts, l_out, l_grads = fwd_bwd(l_fn, l_tok, d_rec + d_head, l_cot)
+    _, l_out_p, l_grads_p = fwd_bwd(
+        lambda ids, *fl: cuda_decoder.decoder_teacher_nll_plain(
+            ids, l_tgt, *fl), l_tok, d_rec + d_head, l_cot)
+    l_again = torch.autograd.grad(l_out, l_ts, l_cot, retain_graph=True)
+    torch.cuda.synchronize()
+    l_same = (torch.equal(l_out, l_fn(l_tok, *l_ts))
+              and all(torch.equal(a, b) for a, b in zip(l_grads, l_again)))
+    l_err = float((l_out - l_out_p).detach().abs().max())
+    l_abs, l_rel = grad_errors(l_grads, l_grads_p)
+    l_f, l_b = time_fwd_bwd(l_fn, l_tok, l_ts, l_cot, 5)
+    emit({"phase": "long_geometry", "kernel": "decoder_ce",
+          "shape": {"T": LT, "B": TB, "H": H, "Vp": Vp},
+          "out_max_abs_err": l_err, "grad_max_abs_err": l_abs,
+          "grad_max_rel_err": l_rel, "tol_out": TOL_TRAIN_OUT,
+          "tol_grad_rel": TOL_TRAIN_GRAD_REL, "determinism": l_same,
+          "fwd_ms": l_f, "bwd_ms": l_b})
+    if not (l_err <= TOL_TRAIN_OUT and l_rel <= TOL_TRAIN_GRAD_REL
+            and l_same):
+        return fail(f"long_geometry: output {l_err}, gradients {l_rel}, "
+                    f"repeat equal {l_same}")
+    del l_ts, l_out, l_grads, l_out_p, l_grads_p, l_again
 
     # ------------------------------------------------------- train step
     # The port's Trainer at ModelConfig() widths on random in-schema

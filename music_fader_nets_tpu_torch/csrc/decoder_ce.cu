@@ -30,80 +30,29 @@
 // 0.97 ms at 67 TFLOP/s; masses at B = 4 x 128 = 512 rows: 262 GFLOP,
 // 3.9 ms; without a head the three products a step, 60.4 GFLOP, 0.90 ms.
 //
-// Design: two launches a step (layer 1 is the embedded-id training step of
-// embed_gru.cu with pre_z as the per-sequence add; layer 2 multiplies its
-// two 8-row A tiles, h1' and h2p, by its 32 columns of w_ih2 and w_hh2),
-// 2T launches from one host call. Teacher forcing makes every step's h2'
-// known once the recurrence ends, so the head is not in the loop: one
-// launch over all T*B rows, 16 rows a block, computes each row's Vp logits
-// (split-K tile, 32 lanes at a time) into shared memory and reduces them to
-// the row's NLL or K masses there; only those reach device memory. The
-// ranges are runtime values, at most kMaxRanges of them, passed by value.
+// Design: a fixed number of launches, whatever T is. The reference
+// advances both layers in one step loop, but teacher forcing fixes every
+// layer-1 input in advance, so layer 1's recurrence never reads layer 2;
+// layer 2's input product h1'[t] @ w_ih2 is off its recurrence once h1_seq
+// exists; and the step-0 rule means only that layer 2's recurrence starts
+// from h1_seq[0]. So the decode is four parts (launch_decoder_recurrence):
+// (1) layer 1's chain, the persistent cooperative kernel of
+// gru_fwd_chain.cu with its input rows gathered from w_tok by token plus
+// pre_z; (2) pre2x = h1_seq @ w_ih2 over all T*B rows, one product
+// (grad_reduce.cu's gemm_nn); (3) layer 2's chain over pre2x + b_ih2 from
+// h1_seq[0]; (4) the head, one launch over all T*B rows, 16 rows a block,
+// which computes each row's Vp logits (split-K tile, 32 lanes at a time)
+// into shared memory and reduces them to the row's NLL or K masses there;
+// only those reach device memory. The ranges are runtime values, at most
+// kMaxRanges of them, passed by value. Each chain holds its layer's w_hh
+// columns resident in shared memory for all T steps: two layers' weights
+// would not fit one block.
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
 namespace fader {
 
-constexpr int kDecCeTB = 8;
 constexpr int kHeadTB = 16;
-
-template <int TB>
-__global__ void __launch_bounds__(kThreads)
-    dec_ce_layer2(int B, int H, const float* __restrict__ h1,
-                  const float* __restrict__ h2_prev,
-                  const float* __restrict__ w_ih2,
-                  const float* __restrict__ b_ih2,
-                  const float* __restrict__ w_hh2,
-                  const float* __restrict__ b_hh2, float* __restrict__ h_out,
-                  float* __restrict__ stash) {
-  extern __shared__ float4 smem4[];
-  float* sX = reinterpret_cast<float*>(smem4);
-  float* sH = sX + (size_t)H * (TB + 4);
-  float* red = sH + (size_t)H * (TB + 4);
-  const int G = 3 * H;
-  const int warp = threadIdx.x >> 5;
-  const int j = blockIdx.x * kTileN + (threadIdx.x & 31);
-  const int b0 = blockIdx.y * TB;
-
-  load_a_tile<TB>(sX, h1, H, B, b0, H);
-  load_a_tile<TB>(sH, h2_prev, H, B, b0, H);
-  __syncthreads();
-  float px[TB / kWarps][3], ph[TB / kWarps][3];
-  {
-    float acc[TB][3] = {};
-    splitk_gemm<TB, 3>(acc, sX, H, w_ih2, G, H, j < H, j);
-    splitk_reduce<TB, 3>(acc, px, red);
-  }
-  {
-    float acc[TB][3] = {};
-    splitk_gemm<TB, 3>(acc, sH, H, w_hh2, G, H, j < H, j);
-    splitk_reduce<TB, 3>(acc, ph, red);
-  }
-
-  if (j >= H) return;
-#pragma unroll
-  for (int i = 0; i < TB / kWarps; ++i) {
-    const int r = warp + kWarps * i;
-    const int b = b0 + r;
-    if (b >= B) continue;
-    const float xr = __fadd_rn(px[i][0], b_ih2[j]);
-    const float xz = __fadd_rn(px[i][1], b_ih2[H + j]);
-    const float xn = __fadd_rn(px[i][2], b_ih2[2 * H + j]);
-    const float hr = __fadd_rn(ph[i][0], b_hh2[j]);
-    const float hz = __fadd_rn(ph[i][1], b_hh2[H + j]);
-    const float hn = __fadd_rn(ph[i][2], b_hh2[2 * H + j]);
-    float rg, zg, ng;
-    h_out[(size_t)b * H + j] =
-        gru_gates(xr, xz, xn, hr, hz, hn, sH[j * (TB + 4) + r], rg, zg, ng);
-    if (stash != nullptr) {
-      float* st = stash + (size_t)b * 4 * H;
-      st[j] = rg;
-      st[H + j] = zg;
-      st[2 * H + j] = ng;
-      st[3 * H + j] = hn;
-    }
-  }
-}
 
 // The CE head over R rows of h2 (16 a block). Forward (g null): nll[row] =
 // lse - logit[tgt]. Backward (g given): dlogits[row, :] = (softmax - onehot
@@ -288,30 +237,41 @@ cudaError_t launch_mass_head(int R, int B, int H, int Vp, MassRanges rg,
   return cudaGetLastError();
 }
 
+namespace {
+
+// The scratch of a forward call, in floats: the chains' barrier counters
+// and k-major rows (used by both chains in turn), then pre2x (T, B, 3H),
+// 16-byte aligned.
+long long pre2x_at(int B, int H) {
+  return (fwd_chain_scratch_floats(1, B, H) + 3) / 4 * 4;
+}
+
+}  // namespace
+
+long long decoder_fwd_scratch_floats(int T, int B, int H) {
+  return pre2x_at(B, H) + 3LL * T * B * H;
+}
+
 cudaError_t launch_decoder_recurrence(
     int T, int B, int H, int Vp, const int* tok, const float* w_tok,
     const float* pre_z, const float* w_hh1, const float* b_hh1,
     const float* w_ih2, const float* b_ih2, const float* w_hh2,
     const float* b_hh2, const float* h1_0, float* h1_seq, float* h2_seq,
-    float* g41, float* g42, cudaStream_t s) {
-  const long long BH = (long long)B * H, G = 3LL * H;
-  const size_t smem2 = smem_bytes<kDecCeTB>(2, H);
-  cudaError_t err = allow_smem(dec_ce_layer2<kDecCeTB>, smem2);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((H + kTileN - 1) / kTileN, (B + kDecCeTB - 1) / kDecCeTB);
-  for (int t = 0; t < T; ++t) {
-    const float* h1_prev = t == 0 ? h1_0 : h1_seq + (t - 1) * BH;
-    err = launch_embed_train_step(1, T, B, H, Vp, t, tok, w_tok, pre_z,
-                                  B * G, (int)G, w_hh1, b_hh1, h1_prev, 0,
-                                  h1_seq, g41, s);
-    if (err != cudaSuccess) return err;
-    const float* h1_new = h1_seq + t * BH;
-    dec_ce_layer2<kDecCeTB><<<grid, kThreads, smem2, s>>>(
-        B, H, h1_new, t == 0 ? h1_new : h2_seq + (t - 1) * BH, w_ih2, b_ih2,
-        w_hh2, b_hh2, h2_seq + t * BH, g42 ? g42 + t * BH * 4 : nullptr);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+    float* g41, float* g42, float* scratch, cudaStream_t s) {
+  const int G = 3 * H;
+  float* pre2x = scratch + pre2x_at(B, H);
+  cudaError_t err;
+  // (1) layer 1: xpre = w_tok[tok] + pre_z, from h1_0
+  if ((err = launch_gru_fwd_chain(1, T, B, H, tok, w_tok, Vp, pre_z,
+                                  (long long)B * G, G, w_hh1, b_hh1, h1_0,
+                                  h1_seq, g41, scratch, s)) != cudaSuccess ||
+      // (2) layer 2's input product over all steps
+      (err = gemm_nn(T * B, G, H, h1_seq, w_ih2, pre2x, nullptr, 0, s)) !=
+          cudaSuccess)
+    return err;
+  // (3) layer 2: xpre = pre2x + b_ih2, from h1_seq[0] (the step-0 rule)
+  return launch_gru_fwd_chain(1, T, B, H, nullptr, pre2x, 0, b_ih2, 0, 0,
+                              w_hh2, b_hh2, h1_seq, h2_seq, g42, scratch, s);
 }
 
 bool make_ranges(int K, const int* ranges, MassRanges* rg) {
@@ -326,11 +286,20 @@ bool make_ranges(int K, const int* ranges, MassRanges* rg) {
 
 }  // namespace fader
 
+// Floats of scratch the three forward entries need at these sizes: the
+// chains' barrier counters and k-major rows, then layer 2's input
+// projection (T, B, 3H).
+extern "C" long long fader_decoder_fwd_scratch_floats(int T, int B, int H) {
+  return fader::decoder_fwd_scratch_floats(T, B, H);
+}
+
 // tok, tgt (T,B) int32 (tok[0] = the start id V-1); w_tok (Vp,3H); pre_z
 // (B,3H) = z @ w_z + b_ih; w_hh1, w_ih2, w_hh2 (H,3H); b_hh1, b_ih2, b_hh2
 // (3H); h1_0 (B,H); w_out (H,Vp); b_out (Vp), pad lanes -1e30. Outputs:
 // h1_seq, h2_seq (T,B,H); g41, g42 (T,B,4H) or both null (no gradient);
-// nll (T,B). 2T + 1 launches. T >= 1.
+// nll (T,B). Scratch: scratch_floats >= fader_decoder_fwd_scratch_floats(
+// T,B,H) floats. Two cooperative launches, a GEMM and the head, whatever
+// T is; a cooperative launch the device refuses returns its error. T >= 1.
 extern "C" int fader_decoder_ce(int T, int B, int H, int Vp, const int* tok,
                                 const int* tgt, const float* w_tok,
                                 const float* pre_z, const float* w_hh1,
@@ -339,12 +308,15 @@ extern "C" int fader_decoder_ce(int T, int B, int H, int Vp, const int* tok,
                                 const float* b_hh2, const float* h1_0,
                                 const float* w_out, const float* b_out,
                                 float* h1_seq, float* h2_seq, float* g41,
-                                float* g42, float* nll, void* stream) {
+                                float* g42, float* nll, float* scratch,
+                                long long scratch_floats, void* stream) {
   using namespace fader;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch_floats < decoder_fwd_scratch_floats(T, B, H))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = launch_decoder_recurrence(
       T, B, H, Vp, tok, w_tok, pre_z, w_hh1, b_hh1, w_ih2, b_ih2, w_hh2,
-      b_hh2, h1_0, h1_seq, h2_seq, g41, g42, s);
+      b_hh2, h1_0, h1_seq, h2_seq, g41, g42, scratch, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_ce_head(T * B, H, Vp, h2_seq, w_out, b_out, tgt,
                              nullptr, nll, nullptr, s);
@@ -359,14 +331,17 @@ extern "C" int fader_decoder_masses(
     const float* b_hh1, const float* w_ih2, const float* b_ih2,
     const float* w_hh2, const float* b_hh2, const float* h1_0,
     const float* w_out, const float* b_out, float* h1_seq, float* h2_seq,
-    float* g41, float* g42, float* masses, void* stream) {
+    float* g41, float* g42, float* masses, float* scratch,
+    long long scratch_floats, void* stream) {
   using namespace fader;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MassRanges rg;
-  if (!make_ranges(K, ranges, &rg)) return (int)cudaErrorInvalidValue;
+  if (!make_ranges(K, ranges, &rg) ||
+      scratch_floats < decoder_fwd_scratch_floats(T, B, H))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = launch_decoder_recurrence(
       T, B, H, Vp, tok, w_tok, pre_z, w_hh1, b_hh1, w_ih2, b_ih2, w_hh2,
-      b_hh2, h1_0, h1_seq, h2_seq, g41, g42, s);
+      b_hh2, h1_0, h1_seq, h2_seq, g41, g42, scratch, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_mass_head(T * B, B, H, Vp, rg, h2_seq, w_out, b_out,
                                nullptr, masses, nullptr, s);
@@ -374,15 +349,19 @@ extern "C" int fader_decoder_masses(
 
 // The recurrence alone (kernel 7): as fader_decoder_ce without w_out,
 // b_out, tgt and nll. Outputs h1_seq, h2_seq (T,B,H); g41, g42 (T,B,4H) or
-// both null (no gradient). 2T launches. T >= 1.
+// both null (no gradient). T >= 1.
 extern "C" int fader_decoder_teacher(
     int T, int B, int H, int Vp, const int* tok, const float* w_tok,
     const float* pre_z, const float* w_hh1, const float* b_hh1,
     const float* w_ih2, const float* b_ih2, const float* w_hh2,
     const float* b_hh2, const float* h1_0, float* h1_seq, float* h2_seq,
-    float* g41, float* g42, void* stream) {
-  return (int)fader::launch_decoder_recurrence(
+    float* g41, float* g42, float* scratch, long long scratch_floats,
+    void* stream) {
+  using namespace fader;
+  if (scratch_floats < decoder_fwd_scratch_floats(T, B, H))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_decoder_recurrence(
       T, B, H, Vp, tok, w_tok, pre_z, w_hh1, b_hh1, w_ih2, b_ih2, w_hh2,
-      b_hh2, h1_0, h1_seq, h2_seq, g41, g42,
+      b_hh2, h1_0, h1_seq, h2_seq, g41, g42, scratch,
       static_cast<cudaStream_t>(stream));
 }

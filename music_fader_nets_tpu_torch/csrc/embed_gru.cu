@@ -156,6 +156,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// One launch of embed_gru_train_step for step t: h_prev is read at h_in +
+// l*h_in_ls (h0 at t = 0, else h_seq[l, t-1]).
 cudaError_t launch_embed_train_step(int L, int T, int B, int H, int V, int t,
                                     const int* ids, const float* w_in,
                                     const float* add, long long add_ls,

@@ -62,8 +62,6 @@ constexpr int kChainStages = 4;   // slabs in a warp's ring
 constexpr int kWarpK = 8;         // k rows of a slab that one warp multiplies
 constexpr int kWarpRows = 32;     // most rows of the tile one warp multiplies
 constexpr int kChainGPad = 64;    // the weights' k is zero-padded to this
-constexpr int kCtrStride = 32;    // ints between two barriers' counters
-constexpr int kChainBPad = 64;    // scratch rows are padded to this
 // ring | transpose buffer | partial tiles share these floats of a block
 constexpr int kChainBuf = kWarps * kChainStages * kWarpK * kWarpRows;
 
@@ -86,15 +84,6 @@ struct ChainParams {
 inline size_t chain_smem_bytes(int H) {
   const size_t Gp = (size_t)(3 * H + kChainGPad - 1) / kChainGPad * kChainGPad;
   return (Gp * kChainCols + kChainBuf) * sizeof(float);
-}
-
-// Row i of the RB/8 rows a thread of warp `warp` owns in the gate phase and
-// the epilogue: quads of 4 consecutive rows, quad index warp (+ 8); with
-// RB = 16, rows 2*warp and 2*warp + 1, half of quad warp/2.
-template <int RB>
-__device__ __forceinline__ int chain_row(int warp, int i) {
-  if constexpr (RB == 16) return 2 * warp + i;
-  return (i / 4) * 32 + 4 * warp + (i % 4);
 }
 
 template <int RB>
@@ -329,36 +318,12 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
 
 namespace {
 
-int chain_bp(int B) { return (B + kChainBPad - 1) / kChainBPad * kChainBPad; }
-
-// counters first (one per 16-row tile at most), then dphT
-long long chain_counter_floats(int L, int B) {
-  return (long long)L * ((B + 15) / 16) * kCtrStride;
-}
-
 template <int RB>
 cudaError_t try_chain(const ChainParams& p, bool* fits, cudaStream_t s) {
-  const size_t smem = chain_smem_bytes(p.H);
-  *fits = false;
-  cudaError_t err = allow_smem(gru_bwd_chain<RB>, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, gru_bwd_chain<RB>, kThreads, smem)) != cudaSuccess)
-    return err;
   const dim3 grid((p.H + kChainCols - 1) / kChainCols, (p.B + RB - 1) / RB,
                   p.L);
-  if ((long long)grid.x * grid.y * grid.z > (long long)per_sm * sms)
-    return cudaSuccess;
-  *fits = true;
-  ChainParams args = p;
-  void* kargs[] = {&args};
-  return cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(gru_bwd_chain<RB>), grid, dim3(kThreads), kargs,
-      smem, s);
+  return try_cooperative(gru_bwd_chain<RB>, grid, chain_smem_bytes(p.H), p,
+                         fits, s);
 }
 
 }  // namespace

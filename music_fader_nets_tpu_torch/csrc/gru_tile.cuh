@@ -129,6 +129,60 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// ---- the persistent chains (gru_fwd_chain.cu, embed_gru_bwd.cu)
+//
+// A block owns 32 hidden units of a row tile of 16, 32 or 64 rows for all
+// T steps; the blocks of one row tile meet at a counter barrier a step, the
+// counters kCtrStride ints apart, one per 16 rows at most, zeroed before
+// each launch. Rows are exchanged k-major, padded to a multiple of
+// kChainBPad rows.
+constexpr int kCtrStride = 32;    // ints between two barriers' counters
+constexpr int kChainBPad = 64;    // k-major scratch rows are padded to this
+
+inline int chain_bp(int B) {
+  return (B + kChainBPad - 1) / kChainBPad * kChainBPad;
+}
+
+inline long long chain_counter_floats(int L, int B) {
+  return (long long)L * ((B + 15) / 16) * kCtrStride;
+}
+
+// Row i of the RB/8 rows a thread of warp `warp` owns in a chain's gate
+// phase and epilogue: quads of 4 consecutive rows, quad index warp (+ 8);
+// with RB = 16, rows 2*warp and 2*warp + 1, half of quad warp/2.
+template <int RB>
+__device__ __forceinline__ int chain_row(int warp, int i) {
+  if constexpr (RB == 16) return 2 * warp + i;
+  return (i / 4) * 32 + 4 * warp + (i % 4);
+}
+
+// Launch `kernel(p)` cooperatively on `grid` x kThreads with `smem` bytes
+// of dynamic shared memory when the whole grid can be resident at once on
+// the current device (*fits then true); else launch nothing and return
+// cudaSuccess with *fits false. Shared memory over what a block may use
+// returns an error.
+template <typename Params>
+inline cudaError_t try_cooperative(void (*kernel)(Params), dim3 grid,
+                                   size_t smem, Params p, bool* fits,
+                                   cudaStream_t s) {
+  *fits = false;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return err;
+  if ((long long)grid.x * grid.y * grid.z > (long long)per_sm * sms)
+    return cudaSuccess;
+  *fits = true;
+  void* kargs[] = {&p};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
+                                     dim3(kThreads), kargs, smem, s);
+}
+
 // Asynchronous copies from device memory into shared memory (cp.async):
 // `BYTES` (16 or 4) are written, the first `src_bytes` of them read from
 // `gmem` and the rest zero-filled, so src_bytes = 0 masks a ragged edge

@@ -22,97 +22,37 @@
 // h @ w_hh recompute).
 // pre and dpre (157 MB each there) are read and written once.
 //
-// Design: the embedded-id kernels' (embed_gru.cu, embed_gru_bwd.cu) with
-// the input row read from pre in place of a gather. The forward is one
-// launch per step from a C host loop (h_{t+1} needs all of h_t); a block
-// owns (direction, 32 hidden units with their r/z/n columns, 16 batch
-// rows), the split-K tile of gru_tile.cuh. The backward chain is
+// Design: the forward is gru_fwd_chain.cu's persistent kernel with its
+// input rows read from pre in place of a gather: one cooperative launch
+// for all T steps, a block owning (direction, 32 hidden units, a row tile)
+// with its units' r/z/n columns of w_hh resident in shared memory, a
+// barrier a step among the blocks of a row tile. The backward chain is
 // embed_gru_bwd.cu's persistent kernel (one cooperative launch for all T
-// steps, the block's w_hh^T columns resident in shared memory, a barrier a
-// step among the blocks of a row tile), taking the cotangent g_seq[l, t] on
-// every step; its input-projection cotangent is the output dpre. dW_hh and
-// db_hh are grad_reduce.cu's split-K GEMM and chunked column sums
-// (deterministic, no float atomics).
+// steps, the block's w_hh^T columns resident in shared memory), taking the
+// cotangent g_seq[l, t] on every step; its input-projection cotangent is
+// the output dpre. dW_hh and db_hh are grad_reduce.cu's split-K GEMM and
+// chunked column sums (deterministic, no float atomics).
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
-namespace fader {
-
-constexpr int kStackTB = 16;
-
-template <int TB>
-__global__ void __launch_bounds__(kThreads, 2)
-    stacked_gru_step(int T, int B, int H, int t, const float* __restrict__ pre,
-                     const float* __restrict__ w_hh,
-                     const float* __restrict__ b_hh,
-                     const float* __restrict__ h_in, long long h_in_ls,
-                     float* __restrict__ h_seq, float* __restrict__ stash) {
-  extern __shared__ float4 smem4[];
-  float* sA = reinterpret_cast<float*>(smem4);
-  float* red = sA + (size_t)H * (TB + 4);
-  const int l = blockIdx.z;
-  const int G = 3 * H;
-  const int warp = threadIdx.x >> 5;
-  const int j = blockIdx.x * kTileN + (threadIdx.x & 31);
-  const int b0 = blockIdx.y * TB;
-
-  load_a_tile<TB>(sA, h_in + l * h_in_ls, H, B, b0, H);
-  __syncthreads();
-  float acc[TB][3] = {};
-  splitk_gemm<TB, 3>(acc, sA, H, w_hh + (size_t)l * H * G, G, H, j < H, j);
-  float ph[TB / kWarps][3];
-  splitk_reduce<TB, 3>(acc, ph, red);
-
-  if (j >= H) return;
-  const float* bh = b_hh + (size_t)l * G;
-#pragma unroll
-  for (int i = 0; i < TB / kWarps; ++i) {
-    const int r = warp + kWarps * i;
-    const int b = b0 + r;
-    if (b >= B) continue;
-    const size_t lt = ((size_t)l * T + t) * B + b;
-    const float* px = pre + lt * G;
-    const float hr = __fadd_rn(ph[i][0], bh[j]);
-    const float hz = __fadd_rn(ph[i][1], bh[H + j]);
-    const float hn = __fadd_rn(ph[i][2], bh[2 * H + j]);
-    float rg, zg, ng;
-    h_seq[lt * H + j] = gru_gates(px[j], px[H + j], px[2 * H + j], hr, hz,
-                                  hn, sA[j * (TB + 4) + r], rg, zg, ng);
-    if (stash != nullptr) {
-      float* st = stash + lt * 4 * H;
-      st[j] = rg;
-      st[H + j] = zg;
-      st[2 * H + j] = ng;
-      st[3 * H + j] = hn;
-    }
-  }
-}
-
-}  // namespace fader
+extern "C" long long fader_gru_fwd_scratch_floats(int L, int B, int H);
 
 // pre (L,T,B,3H) the input projections (b_ih included, reversed directions
 // already time-flipped); w_hh (L,H,3H); b_hh (L,3H); h0 (L,B,H). Outputs:
-// h_seq (L,T,B,H); stash (L,T,B,4H) or null (no gradient wanted). All
-// contiguous float32 on one device. T launches on `stream`. T >= 1.
+// h_seq (L,T,B,H); stash (L,T,B,4H) or null (no gradient wanted). Scratch:
+// scratch_floats >= fader_gru_fwd_scratch_floats(L,B,H) floats. All
+// contiguous float32 on one device. One cooperative launch whatever T is;
+// a launch the device refuses returns its error. T >= 1.
 extern "C" int fader_stacked_gru(int L, int T, int B, int H, const float* pre,
                                  const float* w_hh, const float* b_hh,
                                  const float* h0, float* h_seq, float* stash,
+                                 float* scratch, long long scratch_floats,
                                  void* stream) {
-  using namespace fader;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes<kStackTB>(1, H);
-  cudaError_t err = allow_smem(stacked_gru_step<kStackTB>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + kTileN - 1) / kTileN, (B + kStackTB - 1) / kStackTB, L);
-  const long long BH = (long long)B * H;
-  for (int t = 0; t < T; ++t) {
-    const float* h_in = t == 0 ? h0 : h_seq + (t - 1) * BH;
-    const long long h_in_ls = t == 0 ? BH : T * BH;
-    stacked_gru_step<kStackTB><<<grid, kThreads, smem, s>>>(
-        T, B, H, t, pre, w_hh, b_hh, h_in, h_in_ls, h_seq, stash);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  if (scratch_floats < fader_gru_fwd_scratch_floats(L, B, H))
+    return (int)cudaErrorInvalidValue;
+  return (int)fader::launch_gru_fwd_chain(
+      L, T, B, H, nullptr, pre, 0, nullptr, 0, 0, w_hh, b_hh, h0, h_seq,
+      stash, scratch, static_cast<cudaStream_t>(stream));
 }
 
 // g (L,T,B,H) the h_seq cotangent; stash (L,T,B,4H), h_seq (L,T,B,H) and h0

@@ -1,6 +1,6 @@
 // Host launchers shared by the training kernels (embed_gru.cu,
-// embed_gru_bwd.cu, stacked_gru.cu, decoder_ce.cu, decoder_ce_bwd.cu,
-// grad_reduce.cu).
+// embed_gru_bwd.cu, gru_fwd_chain.cu, stacked_gru.cu, decoder_ce.cu,
+// decoder_ce_bwd.cu, grad_reduce.cu).
 // Each enqueues its launches on `s`, allocates nothing, and returns the
 // first launch error (cudaSuccess = 0).
 #pragma once
@@ -23,19 +23,6 @@ struct SplitRows {
   int lda;
 };
 
-// One training-forward step of L stacked GRU directions whose input
-// projection is a row gather: pre_x = w_in[l, id[l, t, b]] + add[l, b]
-// (add_bs = 0 broadcasts add[l] over b). Reads h_prev at h_in + l*h_in_ls
-// (B, H); writes h_seq[l, t] and, when stash is not null, the gate stash
-// [r, z, n, hn] at stash[l, t]. Ids outside [0, V) select no row.
-cudaError_t launch_embed_train_step(int L, int T, int B, int H, int V, int t,
-                                    const int* ids, const float* w_in,
-                                    const float* add, long long add_ls,
-                                    int add_bs, const float* w_hh,
-                                    const float* b_hh, const float* h_in,
-                                    long long h_in_ls, float* h_seq,
-                                    float* stash, cudaStream_t s);
-
 // The whole reversed GRU backward chain of L directions in one persistent,
 // cooperatively launched kernel: for t = T-1 .. 0, dh += g_t (g at g +
 // l*g_ls + t*g_ts on every step when g_every_step, else g + l*g_ls on step
@@ -52,6 +39,24 @@ cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
                                  const float* h_seq, const float* h0,
                                  const float* w_hhT, float* dpx, float* dph,
                                  float* dh0, float* scratch, cudaStream_t s);
+
+// The whole GRU forward recurrence of L chains in one persistent,
+// cooperatively launched kernel (gru_fwd_chain.cu): for t = 0 .. T-1, from
+// h = h0[l] (B, H rows at h0 + l*B*H),
+//   xpre = x[l, t, b] (x (L, T, B, 3H), ids null)
+//        | x[l, ids[l, t, b]] (x (L, V, 3H) a table; no row outside [0, V))
+//          (+ add[l, b] at add + l*add_ls + b*add_bs, when add is not null)
+//   h    = gates(xpre, h @ w_hh[l] + b_hh[l], h)   (w_hh (L, H, 3H))
+// writing h_seq (L, T, B, H) and, unless null, the gate stash [r, z, n,
+// hn_h] (L, T, B, 4H). `scratch` holds fwd_chain_scratch_floats(L, B, H)
+// floats. Fails as launch_gru_bwd_chain does.
+long long fwd_chain_scratch_floats(int L, int B, int H);
+cudaError_t launch_gru_fwd_chain(int L, int T, int B, int H, const int* ids,
+                                 const float* x, int V, const float* add,
+                                 long long add_ls, int add_bs,
+                                 const float* w_hh, const float* b_hh,
+                                 const float* h0, float* h_seq, float* stash,
+                                 float* scratch, cudaStream_t s);
 
 // The cross-entropy head over R rows of h2 (R, H): logits = h2 @ w_out +
 // b_out over Vp lanes. With g null it writes nll[r] = logsumexp(logits[r])
@@ -83,16 +88,18 @@ cudaError_t launch_mass_head(int R, int B, int H, int Vp, MassRanges rg,
 // when K is not in [1, kMaxRanges].
 bool make_ranges(int K, const int* ranges, MassRanges* rg);
 
-// The teacher decode's two GRUCell layers over T steps (2T launches): tok
-// (T,B) input ids, w_tok (Vp,3H), pre_z (B,3H), the layers' weights, h1_0
-// (B,H); writes h1_seq, h2_seq (T,B,H) and, unless null, the gate stashes
-// g41, g42 (T,B,4H).
+// The teacher decode's two GRUCell layers over T steps, a fixed number of
+// launches: tok (T,B) input ids, w_tok (Vp,3H), pre_z (B,3H), the layers'
+// weights, h1_0 (B,H); writes h1_seq, h2_seq (T,B,H) and, unless null, the
+// gate stashes g41, g42 (T,B,4H). `scratch` holds
+// decoder_fwd_scratch_floats(T, B, H) floats.
+long long decoder_fwd_scratch_floats(int T, int B, int H);
 cudaError_t launch_decoder_recurrence(
     int T, int B, int H, int Vp, const int* tok, const float* w_tok,
     const float* pre_z, const float* w_hh1, const float* b_hh1,
     const float* w_ih2, const float* b_ih2, const float* w_hh2,
     const float* b_hh2, const float* h1_0, float* h1_seq, float* h2_seq,
-    float* g41, float* g42, cudaStream_t s);
+    float* g41, float* g42, float* scratch, cudaStream_t s);
 
 // Floats of scratch that gemm_tn(L, M, N, K) and colsum(L, K, N) need (the
 // larger of the two: they run one after the other on a stream and share

@@ -99,7 +99,7 @@ def _build(out_dir: Path) -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # a backward entry ends in (scratch, its size in floats, stream)
+    # a training entry ends in (scratch, its size in floats, stream)
     tail = [P, LL, P]
     lib.fader_embed_gru_finals.argtypes = [I, I, I, I, I] + [P] * 9
     lib.fader_embed_gru_finals.restype = I
@@ -111,25 +111,29 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_embed_gru_train.restype = I
     lib.fader_embed_gru_bwd.argtypes = [I] * 6 + [P] * 14 + tail
     lib.fader_embed_gru_bwd.restype = I
-    lib.fader_decoder_ce.argtypes = [I] * 4 + [P] * 19
+    lib.fader_decoder_ce.argtypes = [I] * 4 + [P] * 18 + tail
     lib.fader_decoder_ce.restype = I
     lib.fader_decoder_ce_bwd.argtypes = [I] * 4 + [P] * 31 + tail
     lib.fader_decoder_ce_bwd.restype = I
-    lib.fader_decoder_masses.argtypes = [I] * 5 + [P] * 19
+    lib.fader_decoder_masses.argtypes = [I] * 5 + [P] * 18 + tail
     lib.fader_decoder_masses.restype = I
     lib.fader_decoder_masses_bwd.argtypes = [I] * 6 + [P] * 32 + tail
     lib.fader_decoder_masses_bwd.restype = I
-    lib.fader_decoder_teacher.argtypes = [I] * 4 + [P] * 15
+    lib.fader_decoder_teacher.argtypes = [I] * 4 + [P] * 14 + tail
     lib.fader_decoder_teacher.restype = I
     lib.fader_decoder_teacher_bwd.argtypes = [I] * 4 + [P] * 23 + tail
     lib.fader_decoder_teacher_bwd.restype = I
-    lib.fader_stacked_gru.argtypes = [I] * 4 + [P] * 7
+    lib.fader_stacked_gru.argtypes = [I] * 4 + [P] * 6 + tail
     lib.fader_stacked_gru.restype = I
     lib.fader_stacked_gru_bwd.argtypes = [I] * 4 + [P] * 10 + tail
     lib.fader_stacked_gru_bwd.restype = I
     for fn in (lib.fader_gru_bwd_scratch_floats,
                lib.fader_decoder_bwd_scratch_floats):
         fn.argtypes = [I] * 4
+        fn.restype = LL
+    for fn in (lib.fader_gru_fwd_scratch_floats,
+               lib.fader_decoder_fwd_scratch_floats):
+        fn.argtypes = [I] * 3
         fn.restype = LL
     lib.fader_error_string.argtypes = [I]
     lib.fader_error_string.restype = ctypes.c_char_p
@@ -151,12 +155,13 @@ def load_library() -> ctypes.CDLL:
         return _lib
 
 
-def bwd_scratch(size_fn, dims, dev):
-    """The scratch of a backward entry: (tensor, its floats), sized by the
+def entry_scratch(size_fn, dims, dev):
+    """The scratch of a training entry: (tensor, its floats), sized by the
     library's own `size_fn(*dims)` for the current device (the barrier
-    counters and k-major rows of the persistent chain, the decoder's
-    cross-layer cotangent, the split-K partial tiles of the weight-gradient
-    GEMM, the column sums' partials). Call it with `dev` current."""
+    counters and k-major rows of the persistent chains, the decoder's
+    layer-2 input projection and cross-layer cotangent, the split-K partial
+    tiles of the weight-gradient GEMM, the column sums' partials). Call it
+    with `dev` current."""
     n = int(size_fn(*dims))
     return torch.empty((max(n, 1),), dtype=torch.float32, device=dev), n
 

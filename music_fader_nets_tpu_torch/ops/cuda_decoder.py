@@ -37,9 +37,9 @@ import torch.nn.functional as F
 from music_fader_nets_tpu_torch.ops import _build, cuda_gru
 from music_fader_nets_tpu_torch.ops.gru import _gates, vocab_pad
 
-# wrapper calls that launched each kernel (forward: 2T + 1 device
-# launches, 2T without a head; backward: a fixed number whatever T is, two
-# of them the persistent chains)
+# wrapper calls that launched each kernel (forward and backward: a fixed
+# number of device launches whatever T is, two of them the persistent
+# chains)
 LAUNCHES = {"decoder_teacher": 0, "decoder_teacher_bwd": 0, "decoder_ce": 0,
             "decoder_ce_bwd": 0, "decoder_masses": 0,
             "decoder_masses_bwd": 0}
@@ -172,20 +172,31 @@ def _fwd_buffers(T, B, H, dev, stash: bool):
             g4(), g4())
 
 
+def _fwd_call(entry: str, lead, ptrs, T: int, B: int, H: int, dev) -> None:
+    """Call the forward entry `entry` with its leading ints `lead`, its
+    pointer arguments `ptrs` and a scratch sized by
+    `fader_decoder_fwd_scratch_floats` (the chains' barrier counters and
+    k-major rows, layer 2's input projection); raise on a CUDA error."""
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        scratch, n = _build.entry_scratch(
+            lib.fader_decoder_fwd_scratch_floats, (T, B, H), dev)
+        err = getattr(lib, entry)(*lead, *(_ptr(t) for t in ptrs),
+                                  scratch.data_ptr(), n,
+                                  cuda_gru._stream(dev))
+    _build.check(err, entry)
+
+
 def _launch_teacher_fwd(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
                         bhh2, h1_0, stash: bool):
     """fader_decoder_teacher: (h1_seq, h2_seq, g41, g42); the stashes are
     None without `stash`."""
     T, B = tok_t.shape
-    dev = h1_0.device
-    bufs = _fwd_buffers(T, B, h1_0.shape[-1], dev, stash)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        err = lib.fader_decoder_teacher(
-            T, B, h1_0.shape[-1], w_tok.shape[0], *(_ptr(t) for t in (
-                tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2,
-                h1_0, *bufs)), cuda_gru._stream(dev))
-    _build.check(err, "fader_decoder_teacher")
+    H = h1_0.shape[-1]
+    bufs = _fwd_buffers(T, B, H, h1_0.device, stash)
+    _fwd_call("fader_decoder_teacher", (T, B, H, w_tok.shape[0]),
+              (tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2,
+               h1_0, *bufs), T, B, H, h1_0.device)
     return bufs
 
 
@@ -194,17 +205,13 @@ def _launch_fwd(tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
     """fader_decoder_ce: (nll (T, B), h1_seq, h2_seq, g41, g42); the
     stashes are None without `stash`."""
     T, B = tok_t.shape
+    H = h1_0.shape[-1]
     dev = h1_0.device
-    bufs = _fwd_buffers(T, B, h1_0.shape[-1], dev, stash)
+    bufs = _fwd_buffers(T, B, H, dev, stash)
     nll = torch.empty((T, B), dtype=torch.float32, device=dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        err = lib.fader_decoder_ce(
-            T, B, h1_0.shape[-1], w_tok.shape[0], *(_ptr(t) for t in (
-                tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
-                bhh2, h1_0, w_out, b_out, *bufs, nll)),
-            cuda_gru._stream(dev))
-    _build.check(err, "fader_decoder_ce")
+    _fwd_call("fader_decoder_ce", (T, B, H, w_tok.shape[0]),
+              (tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
+               bhh2, h1_0, w_out, b_out, *bufs, nll), T, B, H, dev)
     return (nll, *bufs)
 
 
@@ -220,14 +227,10 @@ def _launch_masses_fwd(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
     masses = torch.empty((T, len(ranges), B), dtype=torch.float32,
                          device=dev)
     tok = tok_t.repeat(1, n_rep).contiguous()
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        err = lib.fader_decoder_masses(
-            T, B, H, w_tok.shape[0], len(ranges), _ranges_arg(ranges),
-            *(_ptr(t) for t in (tok, w_tok, pre_z, whh1, bhh1, wih2, bih2,
-                                whh2, bhh2, h1_0, w_out, b_out, *bufs,
-                                masses)), cuda_gru._stream(dev))
-    _build.check(err, "fader_decoder_masses")
+    _fwd_call("fader_decoder_masses",
+              (T, B, H, w_tok.shape[0], len(ranges), _ranges_arg(ranges)),
+              (tok, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0,
+               w_out, b_out, *bufs, masses), T, B, H, dev)
     return (masses, *bufs)
 
 
@@ -257,7 +260,7 @@ def _launch_teacher_bwd(g2, tok_t, h1_seq, h2_seq, g41, g42, whh1, wih2,
     tr, scratch, outs = _bwd_buffers(T, B, H, Vp, dev, head=False)
     lib = _build.load_library()
     with torch.cuda.device(dev):
-        red, n_red = _build.bwd_scratch(
+        red, n_red = _build.entry_scratch(
             lib.fader_decoder_bwd_scratch_floats, (T, B, H, Vp), dev)
         err = lib.fader_decoder_teacher_bwd(
             T, B, H, Vp, *(t.data_ptr() for t in (
@@ -279,7 +282,7 @@ def _launch_bwd(g, tok_t, tgt_t, h1_seq, h2_seq, g41, g42, whh1, wih2, whh2,
     tr, scratch, outs = _bwd_buffers(T, B, H, Vp, dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
-        red, n_red = _build.bwd_scratch(
+        red, n_red = _build.entry_scratch(
             lib.fader_decoder_bwd_scratch_floats, (T, B, H, Vp), dev)
         err = lib.fader_decoder_ce_bwd(
             T, B, H, Vp, *(t.data_ptr() for t in (
@@ -303,7 +306,7 @@ def _launch_masses_bwd(g, tok_t, h1_seq, h2_seq, g41, g42, whh1, wih2,
                         device=dev) if n_rep > 1 else None)
     lib = _build.load_library()
     with torch.cuda.device(dev):
-        red, n_red = _build.bwd_scratch(
+        red, n_red = _build.entry_scratch(
             lib.fader_decoder_bwd_scratch_floats, (T, B, H, Vp), dev)
         err = lib.fader_decoder_masses_bwd(
             T, B, H, Vp, n_rep, len(ranges), _ranges_arg(ranges),

@@ -156,7 +156,7 @@ def _launch_bwd(ids, g, seq_grad: bool, stash, h_seq, h0, w_hh, V: int,
     dh0 = torch.empty((L, B, H), **f32)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
-        scratch, n_scratch = _build.bwd_scratch(
+        scratch, n_scratch = _build.entry_scratch(
             lib.fader_gru_bwd_scratch_floats, (L, T, B, H), dev)
         err = lib.fader_embed_gru_bwd(
             L, T, B, H, V, int(seq_grad), ids.data_ptr(), g.data_ptr(),

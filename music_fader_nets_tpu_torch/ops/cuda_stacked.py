@@ -25,9 +25,9 @@ import torch
 from music_fader_nets_tpu_torch.ops import _build, cuda_gru
 from music_fader_nets_tpu_torch.ops.gru import _gates
 
-# wrapper calls that launched each kernel (forward: T device launches;
-# backward: one cooperative launch of the whole chain, then the split-K
-# GEMM with its sum and the column sums with theirs)
+# wrapper calls that launched each kernel (forward: one cooperative launch
+# of the whole recurrence; backward: one of the whole chain, then the
+# split-K GEMM with its sum and the column sums with theirs)
 LAUNCHES = {"stacked_gru": 0, "stacked_gru_bwd": 0}
 # which path served the last call: "kernel" or "plain-cpu"
 LAST_TRAIN_PATH = None
@@ -73,10 +73,13 @@ def _launch_fwd(pre, w_hh, b_hh, h0, stash: bool):
     st = (torch.empty((L, T, B, 4 * H), dtype=torch.float32, device=dev)
           if stash else None)
     with torch.cuda.device(dev):
+        scratch, n_scratch = _build.entry_scratch(
+            lib.fader_gru_fwd_scratch_floats, (L, B, H), dev)
         err = lib.fader_stacked_gru(
             L, T, B, H, pre.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             h0.data_ptr(), h_seq.data_ptr(),
-            None if st is None else st.data_ptr(), cuda_gru._stream(dev))
+            None if st is None else st.data_ptr(), scratch.data_ptr(),
+            n_scratch, cuda_gru._stream(dev))
     _build.check(err, "fader_stacked_gru")
     return h_seq, st
 
@@ -95,7 +98,7 @@ def _launch_bwd(g, stash, h_seq, h0, w_hh):
     db_hh = torch.empty((L, G), **f32)
     dh0 = torch.empty((L, B, H), **f32)
     with torch.cuda.device(dev):
-        scratch, n_scratch = _build.bwd_scratch(
+        scratch, n_scratch = _build.entry_scratch(
             lib.fader_gru_bwd_scratch_floats, (L, T, B, H), dev)
         err = lib.fader_stacked_gru_bwd(
             L, T, B, H, *(t.data_ptr() for t in (

@@ -47,10 +47,12 @@ PARTS = {
 }
 
 
-def kernel_split(fn, reps: int = 3):
-    """(device ms of one call of `fn` by part (`PARTS`, and `other`),
-    device launches of one call: kernels and memsets), over `reps`
-    profiled calls after one warm-up call."""
+def kernel_split(fn, reps: int = 3, parts=PARTS, skip=()):
+    """(device ms of one call of `fn` by part (`parts`: name -> substrings
+    of its kernels' names, and `other`), device launches of one call:
+    kernels and memsets, less the events whose names start with a prefix
+    in `skip`, which are timed but not counted), over `reps` profiled
+    calls after one warm-up call."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -59,13 +61,13 @@ def kernel_split(fn, reps: int = 3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = {part: 0.0 for part in (*PARTS, "other")}
+    split = {part: 0.0 for part in (*parts, "other")}
     n = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        n += 1
-        part = next((p for p, keys in PARTS.items()
+        n += not e.name.startswith(tuple(skip))
+        part = next((p for p, keys in parts.items()
                      if any(k in e.name for k in keys)), "other")
         split[part] += (e.time_range.end - e.time_range.start) / 1e3 / reps
     return split, n / reps
@@ -96,10 +98,11 @@ def backward_of(fn, floats, cot):
     return lambda: torch.autograd.grad(out, ts, cot, retain_graph=True)
 
 
-def decoder_rows(T, B, H, V, rand, dev):
-    """{row: (shape, backward callable)} of the three decoder backward
-    entries at T steps, B token rows (the masses head: n_rep = 4 copies of
-    them) and width H."""
+def decoder_cases(T, B, H, V, rand, dev):
+    """{entry: (shape, fn, float inputs, output cotangent)} of the three
+    teacher-forced decoder entries at T steps, B token rows (the masses
+    head: n_rep = 4 copies of them) and width H: `fn(*floats)` runs the
+    entry's wrapper."""
     G, Vp = 3 * H, vocab_pad(V)
     gen = torch.Generator().manual_seed(T)
     tgt = torch.randint(0, V, (T, B), generator=gen,
@@ -118,23 +121,31 @@ def decoder_rows(T, B, H, V, rand, dev):
 
     n_rep, K = 4, len(GLSR_MASK_RANGES)
     return {
-        "decoder_ce_bwd": (
+        "decoder_ce": (
             {"T": T, "B": B, "H": H, "Vp": Vp},
-            backward_of(lambda *fl: cuda_decoder.decoder_teacher_nll(
-                tok, tgt, *fl), rec(B) + [w_out, b_out],
-                torch.full((T, B), 1.0 / (T * B), device=dev))),
-        "decoder_masses_bwd": (
+            lambda *fl: cuda_decoder.decoder_teacher_nll(tok, tgt, *fl),
+            rec(B) + [w_out, b_out],
+            torch.full((T, B), 1.0 / (T * B), device=dev)),
+        "decoder_masses": (
             {"T": T, "B0": B, "n_rep": n_rep, "rows": n_rep * B, "H": H,
              "Vp": Vp, "K": K},
-            backward_of(lambda *fl: cuda_decoder.decoder_teacher_masses(
+            lambda *fl: cuda_decoder.decoder_teacher_masses(
                 tok, *fl, GLSR_MASK_RANGES, n_rep),
-                rec(n_rep * B) + [w_out, b_out],
-                rand((T, K, n_rep * B), 1.0 / (T * B)))),
-        "decoder_teacher_bwd": (
+            rec(n_rep * B) + [w_out, b_out],
+            rand((T, K, n_rep * B), 1.0 / (T * B))),
+        "decoder_teacher": (
             {"T": T, "B": B, "H": H, "Vp": Vp},
-            backward_of(lambda *fl: cuda_decoder.decoder_teacher(tok, *fl),
-                        rec(B), rand((T, B, H), 0.01))),
+            lambda *fl: cuda_decoder.decoder_teacher(tok, *fl), rec(B),
+            rand((T, B, H), 0.01)),
     }
+
+
+def decoder_rows(T, B, H, V, rand, dev):
+    """{row: (shape, backward callable)} of the three decoder backward
+    entries (`decoder_cases`)."""
+    return {name + "_bwd": (shape, backward_of(fn, floats, cot))
+            for name, (shape, fn, floats, cot) in decoder_cases(
+                T, B, H, V, rand, dev).items()}
 
 
 def main(argv=None) -> None:

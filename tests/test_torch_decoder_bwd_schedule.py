@@ -91,12 +91,14 @@ def _chain(g, stash, h_prev, w_hh):
     return torch.stack(dpx), torch.stack(dph), dh
 
 
-def _schedule(tok_t, weights, dh2_head):
+def _schedule(tok_t, weights, dh2_head, fwd=None):
     """The kernel's three-part schedule: the gradients of (w_tok, pre_z,
     whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0) from dh2_head (T, B, H), the
-    cotangent of h2_seq."""
+    cotangent of h2_seq; `fwd` = (h1_seq, h2_seq, g41, g42) of a forward,
+    by default `_forward_stash`'s."""
     (w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0) = weights
-    h1_seq, h2_seq, g41, g42 = _forward_stash(tok_t, *weights)
+    h1_seq, h2_seq, g41, g42 = (fwd if fwd is not None
+                                else _forward_stash(tok_t, *weights))
     # 1. layer 2 (h2_prev(0) = h1_seq[0])
     h2p = torch.cat([h1_seq[:1], h2_seq[:-1]])
     s2x, s2h, dh2_0 = _chain(dh2_head, g42, h2p, whh2)

@@ -109,7 +109,8 @@ def test_kernel_build_is_lazy_and_loud(monkeypatch, tmp_path):
     srcs, hdrs = _build._sources()
     assert {p.name for p in srcs} == {
         "embed_gru.cu", "decode.cu", "embed_gru_bwd.cu", "decoder_ce.cu",
-        "decoder_ce_bwd.cu", "grad_reduce.cu", "stacked_gru.cu"}
+        "decoder_ce_bwd.cu", "grad_reduce.cu", "stacked_gru.cu",
+        "gru_fwd_chain.cu"}
     assert {p.name for p in hdrs} == {"gru_tile.cuh", "train_ops.cuh"}
     assert len(_build._digest()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS

@@ -13,7 +13,10 @@ and with both its heads) against autograd of their plain versions: values to
 T*B products in another order than cuBLAS does). Their reductions use no
 atomics, so two runs give bitwise the same gradients. The embedded and the
 generic stacked GRU run at shapes that cross the tiles of the persistent
-backward chain and of the split-K weight-gradient GEMM (`RAGGED`)."""
+backward chain and of the split-K weight-gradient GEMM (`RAGGED`); the
+three decoder entries at shapes that cross the persistent forward chain's
+row and column tiles (`FWD_RAGGED`), their forward outputs bitwise equal
+on a repeat."""
 import pytest
 import torch
 
@@ -310,6 +313,70 @@ def test_decoder_teacher_kernels_match_plain(dev, B, T):
             atol=1e-5)
     assert cuda_decoder.LAUNCHES["decoder_teacher_bwd"] == before[
         "decoder_teacher_bwd"] + 2
+
+
+def _decoder_floats(gen, B, H, rows, head):
+    """Decoder inputs at width H over `rows` decoded rows (B token rows):
+    w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0 and, with a
+    head, the padded w_out, b_out."""
+    V, Z = 342, 40
+    Vp, G = vocab_pad(V), 3 * H
+    p = global_decoder_init(gen, Z, V, H)
+    w_tok = torch.zeros((Vp, G))
+    w_tok[:V] = p["grucell_g"]["w_ih"][:V]
+    g1, g2 = p["grucell_g"], p["grucell_g_2"]
+    fl = [w_tok, torch.randn((rows, G), generator=gen) * 0.3, g1["w_hh"],
+          g1["b_hh"], g2["w_ih"], g2["b_ih"], g2["w_hh"], g2["b_hh"],
+          torch.randn((rows, H), generator=gen) * 0.5]
+    if head != "none":
+        w_out = torch.zeros((H, Vp))
+        w_out[:, :V] = p["linear_out_g"]["w"] * 4.0
+        b_out = torch.full((Vp,), cuda_decoder.PAD_LOGIT)
+        b_out[:V] = p["linear_out_g"]["b"]
+        fl += [w_out, b_out]
+    return fl
+
+
+# (B, T, H): the forward chain's partial 16-row tiles (B = 37, 130), one
+# step, an 8-unit column tile (H = 136) and a ragged k (H = 30)
+FWD_RAGGED = [(37, 1, 136), (130, 3, 136), (37, 9, 30), (130, 6, 80),
+              (1, 5, 30)]
+
+
+@pytest.mark.parametrize("head", ["ce", "masses", "none"])
+@pytest.mark.parametrize("B,T,H", FWD_RAGGED)
+def test_decoder_forward_chain_matches_plain(dev, B, T, H, head):
+    """The three decoder forward entries (two `gru_fwd_chain` launches
+    around the layer-2 input GEMM): values with and without the gate stash
+    against the plain version, bit-equal on a repeat, and every gradient
+    from the stash against autograd of the plain version; the masses head
+    over n_rep = 2 copies."""
+    gen = torch.Generator().manual_seed(B * 10 + T + H)
+    V, n_rep = 342, (2 if head == "masses" else 1)
+    floats = _decoder_floats(gen, B, H, n_rep * B, head)
+    tgt = torch.randint(0, V, (T, B), generator=gen, dtype=torch.int32)
+    tok = torch.cat([torch.full((1, B), V - 1, dtype=torch.int32),
+                     tgt[:-1]]).to(dev)
+    tgt = tgt.to(dev)
+    fn, plain = {
+        "ce": (lambda ids, *fl: cuda_decoder.decoder_teacher_nll(
+                   ids, tgt, *fl),
+               lambda ids, *fl: cuda_decoder.decoder_teacher_nll_plain(
+                   ids, tgt, *fl)),
+        "masses": (lambda ids, *fl: cuda_decoder.decoder_teacher_masses(
+                       ids, *fl, ((2, 90), (180, 278)), n_rep),
+                   lambda ids, *fl: cuda_decoder.decoder_teacher_masses_plain(
+                       ids, *fl, ((2, 90), (180, 278)), n_rep)),
+        "none": (cuda_decoder.decoder_teacher,
+                 cuda_decoder.decoder_teacher_plain)}[head]
+    with torch.no_grad():
+        args = [t.to(dev) for t in floats]
+        got, again = fn(tok, *args), fn(tok, *args)
+        torch.testing.assert_close(got, plain(tok, *args), rtol=0,
+                                   atol=1e-5)
+        assert torch.equal(got, again)
+    _grad_check(fn, plain, tok, floats, dev, B + T + H)
+    assert cuda_decoder.LAST_TRAIN_PATH == "kernel"
 
 
 def test_teacher_decode_with_tokens_runs_the_fused_decoder(dev):

@@ -15,9 +15,10 @@ The last tests hold the wrappers' rule for CUDA tensors on the CPU, with
 the device check and the launches faked: a call whose inputs want a
 gradient goes through the autograd Function, whose backward returns each
 gradient to the input it belongs to, and nothing else; and, with the
-kernel library faked too, that every backward launcher sizes its scratch
-by the library's own function, passes it where `_build._declare` says,
-and raises on a non-zero return code."""
+kernel library faked too, that every backward launcher and every forward
+launcher of the persistent chains sizes its scratch by the library's own
+function, passes it where `_build._declare` says, and raises on a
+non-zero return code."""
 import functools
 
 import jax
@@ -522,14 +523,14 @@ def _fake_library(monkeypatch, rc, scratch_floats=1234):
     lib = _FakeLib(rc, scratch_floats)
     _build._declare(lib)
     made = []
-    real = _build.bwd_scratch
+    real = _build.entry_scratch
 
-    def bwd_scratch(size_fn, dims, dev):
+    def entry_scratch(size_fn, dims, dev):
         made.append(real(size_fn, dims, dev))
         return made[-1]
 
     monkeypatch.setattr(_build, "load_library", lambda: lib)
-    monkeypatch.setattr(_build, "bwd_scratch", bwd_scratch)
+    monkeypatch.setattr(_build, "entry_scratch", entry_scratch)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(cuda_gru, "_stream", lambda dev: 0)
@@ -619,5 +620,85 @@ def test_backward_launcher_raises_on_a_cuda_error(monkeypatch, case):
     too little scratch) raises; no other path is taken."""
     lib, _ = _fake_library(monkeypatch, rc=720)
     entry, _, _, launch = _backward_launch(case)
+    with pytest.raises(RuntimeError, match=f"{entry}: CUDA error 720"):
+        launch()
+
+
+# ------------------------------------------------- the forward launchers
+
+def _forward_launch(case):
+    """(entry name, size function's name, its dims, a call of the case's
+    forward launcher on small CPU tensors, with the gate stash)."""
+    from music_fader_nets_tpu_torch.ops import cuda_stacked
+    L, T, B0, H, Vp = 2, 3, 5, 8, 384
+    G = 3 * H
+    z = torch.zeros
+    if case == "stacked":
+        return ("fader_stacked_gru", "fader_gru_fwd_scratch_floats",
+                (L, B0, H), lambda: cuda_stacked._launch_fwd(
+                    z((L, T, B0, G)), z((L, H, G)), z((L, G)),
+                    z((L, B0, H)), True))
+    n_rep = 2 if case == "decoder_masses" else 1
+    B = n_rep * B0
+    tok = z((T, B0), dtype=torch.int32)
+    rec = (z((Vp, G)), z((B, G)), z((H, G)), z((G,)), z((H, G)), z((G,)),
+           z((H, G)), z((G,)), z((B, H)))
+    head = (z((H, Vp)), z((Vp,)))
+    dims = (T, B, H)
+    size_fn = "fader_decoder_fwd_scratch_floats"
+    if case == "decoder_ce":
+        return ("fader_decoder_ce", size_fn, dims,
+                lambda: cuda_decoder._launch_fwd(tok, tok, *rec, *head,
+                                                 stash=True))
+    if case == "decoder_masses":
+        return ("fader_decoder_masses", size_fn, dims,
+                lambda: cuda_decoder._launch_masses_fwd(
+                    tok, *rec, *head, ((2, 90), (180, 278)), n_rep,
+                    stash=True))
+    return ("fader_decoder_teacher", size_fn, dims,
+            lambda: cuda_decoder._launch_teacher_fwd(tok, *rec, stash=True))
+
+
+FORWARD_CASES = ["stacked", "decoder_ce", "decoder_masses", "decoder_teacher"]
+# pointer arguments of each forward entry before its scratch: the C
+# signatures (the masses entry's first is its ranges array)
+FWD_POINTERS = {"stacked": 6, "decoder_ce": 18, "decoder_masses": 18,
+                "decoder_teacher": 14}
+
+
+@pytest.mark.parametrize("case", FORWARD_CASES)
+def test_forward_launcher_passes_the_scratch(monkeypatch, case):
+    """Each forward launcher (the persistent chains' entries) asks the
+    library how much scratch its entry needs at the call's sizes, allocates
+    exactly that, and passes the buffer, its size and the stream as the
+    entry's last three arguments, with as many arguments as
+    `_build._declare` declared, an int for every int and a pointer for
+    every pointer: the stash buffers are passed, not None."""
+    import ctypes
+    lib, made = _fake_library(monkeypatch, rc=0)
+    entry, size_fn, dims, launch = _forward_launch(case)
+    launch()
+    assert lib.calls[size_fn] == dims
+    (scratch, n), = made
+    assert n == lib.scratch_floats == scratch.numel()
+    args, argtypes = lib.calls[entry], getattr(lib, entry).argtypes
+    assert len(args) == len(argtypes)
+    assert argtypes[:-3].count(ctypes.c_void_p) == FWD_POINTERS[case]
+    assert argtypes[-3:] == [ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_void_p]
+    assert args[-3:] == (scratch.data_ptr(), n, 0)
+    for a, ty in zip(args, argtypes):
+        if ty is ctypes.c_void_p:
+            assert isinstance(a, (int, ctypes.Array))
+        else:
+            assert isinstance(a, int)
+
+
+@pytest.mark.parametrize("case", FORWARD_CASES)
+def test_forward_launcher_raises_on_a_cuda_error(monkeypatch, case):
+    """A refused cooperative launch of a forward chain raises; the
+    wrapper takes no other path."""
+    _fake_library(monkeypatch, rc=720)
+    entry, _, _, launch = _forward_launch(case)
     with pytest.raises(RuntimeError, match=f"{entry}: CUDA error 720"):
         launch()
