@@ -41,14 +41,25 @@ backward entries against their plain versions at a shape that crosses
 the tiles of the persistent chains, the split-K seam and the NN GEMM's
 tiles, a `ragged_forward` phase the four forward entries of the
 persistent forward chain at partial row tiles, one step and ragged
-widths, and a `long_geometry` phase the decoder CE forward + backward at
-T=250, B=128. Every
-token tensor a decode kernel returns (greedy_decode, sample_decode,
-serving, evaluation) is range-checked right after its launch. Every phase
-prints one JSON line; the kernels line follows, then the card's name and
-power limit as nvidia-smi reports them, then the final status line. Any
-failed check exits non-zero without the status line. Needs one CUDA
-device; imports nothing of JAX.
+widths (and the encoder's two entries, and the decode at B = 1, 37, 64,
+1-17 steps, H = 136 and 512, greedy and sampling, under the near-tie
+rule), and a `long_geometry` phase the decoder CE and the encoder forward
++ backward at T=250, B=128. No kernel may launch a step at a time: the
+encoder, greedy_decode and sample_decode phases print their device
+launches at T (steps) and T/2 (must be one kernel each, memsets apart),
+train_step, train_family, single_gmvae and long_geometry replay every
+encoder and sub-decoder forward their steps called at T and T/2, the
+profiled warm-up steps and a profiled serving burst list any per-step
+kernel of the earlier port (`PER_STEP_KERNELS`, must be none), serving
+prints its launches per 64-row batch, and a `determinism` phase holds two
+calls of each persistent kernel (decode greedy and sampling, encoder
+finals and training forward) bit-equal. Every token tensor a decode
+kernel returns (greedy_decode, sample_decode, ragged_forward, serving,
+evaluation) is range-checked right after its launch. Every phase prints
+one JSON line; the kernels line follows, then the card's name and power
+limit as nvidia-smi reports them, then the final status line. Any failed
+check exits non-zero without the status line. Needs one CUDA device;
+imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -207,6 +218,136 @@ class TokenGuard:
             self.paused = False
 
 
+# the per-step kernels the port launched before its persistent kernels
+# (one launch a step from a host loop): none of them may run on any phase
+PER_STEP_KERNELS = ("embed_gru_step", "embed_gru_train_step", "dec_layer1",
+                    "dec_layer2", "dec_logits", "dec_finish",
+                    "stacked_gru_step", "dec_ce_layer2")
+
+
+class DeviceWatch:
+    """Profiles the device work of the block it wraps (torch.profiler,
+    CUPTI): `kernels` and `memsets` launched, and the names among
+    PER_STEP_KERNELS seen (`per_step_kernels`, must stay empty)."""
+
+    def __enter__(self):
+        import torch
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.synchronize()
+        self.prof.__exit__(*exc)
+        self.kernels = self.memsets = 0
+        seen = set()
+        for e in self.prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if e.name.startswith("Memset"):
+                self.memsets += 1
+            else:
+                self.kernels += 1
+            seen.update(k for k in PER_STEP_KERNELS if k in e.name)
+        self.per_step_kernels = sorted(seen)
+        return False
+
+
+def device_launches(fn, profiles=3):
+    """(kernel launches, memsets, per-step kernels seen) of one call of
+    `fn` after a warm-up call: the most of `profiles` profiles of one call
+    each. The profiler has been seen to drop a call's events (a count of
+    0, or 0.5 over two calls), never to add any."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best, seen = (0, 0), set()
+    for _ in range(profiles):
+        with DeviceWatch() as w:
+            fn()
+        best = max(best, (w.kernels, w.memsets))
+        seen.update(w.per_step_kernels)
+    return best[0], best[1], sorted(seen)
+
+
+class EmbedCalls:
+    """While the block runs, records the shape of every call of the
+    encoder's and the sub-decoders' forward launchers (`cuda_gru.
+    _launch_finals`, `_launch_train_fwd`); `replay` then launches each
+    recorded entry on random inputs of its shape at T and at T // 2 and
+    returns their device launches, which must be one kernel each (plus the
+    memset of the chain's counters) at both lengths."""
+
+    def __init__(self, cuda_gru):
+        self.m, self.shapes = cuda_gru, {}
+
+    def __enter__(self):
+        self.saved = (self.m._launch_finals, self.m._launch_train_fwd)
+        fin, train = self.saved
+
+        def finals(tok_lt, w_ih, *rest):
+            self._note("embed_gru", tok_lt, w_ih, rest[0], None)
+            return fin(tok_lt, w_ih, *rest)
+
+        def train_fwd(ids, w_in, add, w_hh, b_hh, h0, stash):
+            name = "embed_seq" if add.dim() == 3 else "embed_gru_train"
+            self._note(name, ids, w_in, add, stash)
+            return train(ids, w_in, add, w_hh, b_hh, h0, stash)
+
+        self.m._launch_finals, self.m._launch_train_fwd = finals, train_fwd
+        return self
+
+    def __exit__(self, *exc):
+        self.m._launch_finals, self.m._launch_train_fwd = self.saved
+        return False
+
+    def _note(self, name, ids, w_in, add, stash):
+        L, T, B = ids.shape
+        key = f"{name} L={L} T={T} B={B}"
+        self.shapes[key] = (name, L, T, B, w_in.shape[1],
+                            add.shape[-1] // 3, add.dim() == 3, stash)
+
+    def replay(self, dev):
+        import torch
+        gen = torch.Generator().manual_seed(SEED + 11)
+        out = {}
+        for key, (name, L, T, B, V, H, per_row, stash) in sorted(
+                self.shapes.items()):
+            def inputs(t):
+                def r(*shape):
+                    return (torch.randn(shape, generator=gen) * 0.05).to(dev)
+                ids = torch.randint(0, V, (L, t, B), generator=gen,
+                                    dtype=torch.int32).to(dev)
+                add = r(L, B, 3 * H) if per_row else r(L, 3 * H)
+                return (ids, r(L, V, 3 * H), add, r(L, H, 3 * H),
+                        r(L, 3 * H), r(L, B, H))
+
+            full, half = inputs(T), inputs(max(T // 2, 1))
+            if name == "embed_gru":
+                fn = self.m._launch_finals
+            else:
+                fn = functools.partial(self.m._launch_train_fwd,
+                                       stash=stash)
+            with torch.no_grad():
+                k_t, m_t, old_t = device_launches(lambda: fn(*full))
+                k_h, _, old_h = device_launches(lambda: fn(*half))
+            out[key] = {"launches": k_t, "launches_half_T": k_h,
+                        "memsets": m_t,
+                        "per_step_kernels": sorted(set(old_t + old_h))}
+        return out
+
+
+def embed_launch_faults(launches):
+    """The recorded entries that launched other than one kernel at T and
+    at T // 2, or a per-step kernel."""
+    return {k: v for k, v in launches.items()
+            if v["launches"] != 1 or v["launches_half_T"] != 1
+            or v["per_step_kernels"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -351,18 +492,29 @@ def main() -> int:
 
         lib_err = float((cudnn() - got).abs().max())
         lib_ms = time_ms(cudnn, 20)
+        # device launches of one call at T and at T/2: one cooperative
+        # kernel (and the memset of its counters) whatever T is
+        half_args = (tok_lt[:, :T // 2].contiguous(),) + enc_args[1:]
+        enc_l = device_launches(
+            lambda: cuda_gru.stacked_gru_embed_finals(*enc_args))
+        enc_lh = device_launches(
+            lambda: cuda_gru.stacked_gru_embed_finals(*half_args))
     G = 3 * H
     b_ms, b_by = bound(2.0 * L * T * B * H * G, nbytes(*enc_args) + nbytes(got))
     emit({"phase": "encoder", "shape": {"L": L, "T": T, "B": B, "H": H,
                                         "Vp": Vp},
           "max_abs_err": enc_err, "tol": TOL_ENCODER, "ms": ms,
           "plain_ms": plain_ms, "library_ms": lib_ms,
-          "library_max_abs_err": lib_err, "bound_ms": b_ms})
+          "library_max_abs_err": lib_err, "bound_ms": b_ms,
+          "launches": enc_l[0], "launches_half_T": enc_lh[0],
+          "memsets": enc_l[1], "per_step_kernels": enc_l[2] + enc_lh[2]})
     if not enc_err <= TOL_ENCODER:
         return fail(f"encoder kernel vs plain: {enc_err} > {TOL_ENCODER}")
+    if enc_l[0] != 1 or enc_lh[0] != 1 or enc_l[2] or enc_lh[2]:
+        return fail(f"encoder launches at T, T/2: {enc_l}, {enc_lh}")
     kernels["embed_gru"] = {
         "name": "embed_gru", "route": "cuda",
-        "source": "music_fader_nets_tpu_torch/csrc/embed_gru.cu",
+        "source": "music_fader_nets_tpu_torch/csrc/gru_fwd_chain.cu",
         "replaces": "music_fader_nets_tpu/ops/pallas_gru.py:428",
         "max_abs_err": enc_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
@@ -387,13 +539,24 @@ def main() -> int:
             with guard.pause():
                 kms = time_ms(lambda: cuda_decode.cuda_greedy_decode(
                     gview, z, steps), 10)
+                # the decode entry's device launches at steps and steps/2
+                d_l = device_launches(lambda: cuda_decode._launch(
+                    args, V, Vp, steps))
+                d_lh = device_launches(lambda: cuda_decode._launch(
+                    args, V, Vp, steps // 2))
             pms = (time_ms(lambda: cuda_decode.plain_decode_tokens(
                 gview, z, steps), 3, warm=1) if nb == 64 else None)
             res[nb] = (z, got, kms, pms, args, gap)
             emit({"phase": "greedy_decode", "B": nb, "steps": steps,
                   "identical": bool(parted == 0), "near_tie_rows": parted,
                   "largest_gap": gap, "tol": TOL_NEAR_TIE, "ms": kms,
-                  "plain_ms": pms, "token_checks": guard.checked})
+                  "plain_ms": pms, "launches": d_l[0],
+                  "launches_half_steps": d_lh[0], "memsets": d_l[1],
+                  "per_step_kernels": d_l[2] + d_lh[2],
+                  "token_checks": guard.checked})
+            if d_l[0] != 1 or d_lh[0] != 1 or d_l[2] or d_lh[2]:
+                return fail(f"greedy decode B={nb} launches at steps, "
+                            f"steps/2: {d_l}, {d_lh}")
         z64, greedy64, g_ms, g_plain_ms, args64, _ = res[64]
         # for token outputs the error is the largest near-tie gap at which
         # kernel and plain tokens parted (0.0: identical)
@@ -405,9 +568,9 @@ def main() -> int:
         b1_bound, _ = bound(dec_flops / 64,
                             w_bytes + nbytes(*res[1][4][9:]) + steps * 4)
         emit({"phase": "greedy_decode_bounds", "bound_ms_b64": g_bound,
-              "bound_ms_b1": b1_bound, "ms_b1": res[1][2],
-              "note": "B=1 is bound by step latency and L2 reads of the "
-                      "~13 MB of weights each step, not by FLOPs"})
+              "bound_ms_b1": b1_bound, "ms_b64": g_ms, "ms_b1": res[1][2],
+              "note": "B=1 is bound by step latency (three grid barriers "
+                      "and three dependent phases a step), not by FLOPs"})
         kernels["greedy_decode"] = {
             "name": "greedy_decode", "route": "cuda",
             "source": "music_fader_nets_tpu_torch/csrc/decode.cu",
@@ -438,16 +601,28 @@ def main() -> int:
         with guard.pause():
             s_ms = time_ms(lambda: cuda_decode.cuda_sample_decode(
                 gview, z64, noise, inv_t, steps), 10)
+            s_l = device_launches(lambda: cuda_decode._launch(
+                args64, V, Vp, steps, noise, inv_t))
+            s_lh = device_launches(lambda: cuda_decode._launch(
+                args64, V, Vp, steps // 2, noise[:steps // 2], inv_t))
+            s_ms_b1 = time_ms(lambda: cuda_decode.cuda_sample_decode(
+                gview, z64[:1], noise[:, :1], inv_t[:1], steps), 10)
         s_plain_ms = time_ms(lambda: cuda_decode.plain_sample_tokens(
             gview, z64, noise, inv_t, steps), 3, warm=1)
     emit({"phase": "sample_decode", "B": 64, "steps": steps,
           "identical": bool(parted == 0), "near_tie_rows": parted,
           "largest_gap": gap, "inv_t1_zero_noise_equals_greedy": bit_exact,
           "greedy_rows_in_mixed_batch_equal_greedy": greedy_rows_same,
-          "ms": s_ms, "plain_ms": s_plain_ms, "token_checks": guard.checked})
+          "ms": s_ms, "ms_b1": s_ms_b1, "plain_ms": s_plain_ms,
+          "launches": s_l[0], "launches_half_steps": s_lh[0],
+          "memsets": s_l[1], "per_step_kernels": s_l[2] + s_lh[2],
+          "token_checks": guard.checked})
     if not (bit_exact and greedy_rows_same):
         return fail("sampling kernel with inv_t=1 and zero noise differs "
                     "from the greedy kernel")
+    if s_l[0] != 1 or s_lh[0] != 1 or s_l[2] or s_lh[2]:
+        return fail(f"sample decode launches at steps, steps/2: {s_l}, "
+                    f"{s_lh}")
     s_bound, s_by = bound(dec_flops, w_bytes + nbytes(*args64[9:])
                           + nbytes(noise, inv_t) + steps * 64 * 4)
     kernels["sample_decode"] = {
@@ -456,6 +631,28 @@ def main() -> int:
         "replaces": "music_fader_nets_tpu/ops/pallas_decode.py:116",
         "max_abs_err": gap, "ms": s_ms, "plain_ms": s_plain_ms,
         "bound_ms": s_bound, "bound_by": s_by, "library_ms": None}
+
+    # ------------------------------------------------------- determinism
+    # two calls of each persistent kernel on the same inputs give the same
+    # bits: the decode (greedy and sampling, B=64) and the encoder (serving
+    # finals, and the training forward's h_seq and gate stash)
+    with torch.inference_mode(), guard.pause():
+        det = {
+            "greedy_decode": [cuda_decode.cuda_greedy_decode(
+                gview, z64, steps) for _ in range(2)],
+            "sample_decode": [cuda_decode.cuda_sample_decode(
+                gview, z64, noise, inv_t, steps) for _ in range(2)],
+            "embed_gru": [cuda_gru.stacked_gru_embed_finals(*enc_args)
+                          for _ in range(2)],
+            "embed_gru_train": [cuda_gru._launch_train_fwd(*enc_args, True)
+                                for _ in range(2)]}
+        torch.cuda.synchronize()
+        det = {k: all(torch.equal(a, b) for a, b in zip(*(
+                   x if isinstance(x, tuple) else (x,) for x in v)))
+               for k, v in det.items()}
+    emit({"phase": "determinism", "bit_equal": det})
+    if not all(det.values()):
+        return fail(f"a persistent kernel's repeat differs in a bit: {det}")
 
     # ----------------------------------------------------------- serving
     params = init_reg_gmvae(torch.Generator().manual_seed(SEED), cfg)
@@ -486,6 +683,15 @@ def main() -> int:
         wall = time.monotonic() - t0
         launches = {**cuda_gru.LAUNCHES, **cuda_decode.LAUNCHES}
         stats = srv.stats()
+        # device launches per batch: a burst of 64 greedy requests,
+        # profiled
+        b0 = stats["batches"]
+        with DeviceWatch() as burst:
+            done = [f.result(timeout=600) for f in [srv.submit(
+                {"id": 1000 + i, "direction": "low_to_high",
+                 "tokens": rng.integers(2, V, size=cfg.seq_len).tolist()})
+                for i in range(64)]]
+        burst_batches = srv.stats()["batches"] - b0
     bad = [r for r in resps if "error" in r or len(r["tokens"]) != steps
            or min(r["tokens"]) < 0 or max(r["tokens"]) >= V]
     # reference: greedy rows recomputed by the plain path (one-hot scan
@@ -531,8 +737,16 @@ def main() -> int:
           "batches": stats["batches"],
           "mean_batch_rows": stats["mean_batch_rows"],
           "serving_path": stats["serving_path"], "launches": launches,
+          "launches_per_batch": {
+              "kernels": burst.kernels / max(burst_batches, 1),
+              "memsets": burst.memsets / max(burst_batches, 1),
+              "batches": burst_batches},
+          "per_step_kernels": burst.per_step_kernels,
           "plain_checked_rows": checked, "plain_near_tie_rows": ref_parted,
           "z_max_abs_err": z_err, "token_checks": guard.checked})
+    if burst.per_step_kernels or any("error" in r for r in done):
+        return fail(f"serving burst: per-step kernels "
+                    f"{burst.per_step_kernels}")
     if guard.bad:
         return fail(f"decode kernel tokens out of range: {guard.bad}")
     if bad:
@@ -622,12 +836,13 @@ def main() -> int:
             h_fn, h_ids, h_floats = half
             h_ts = [t.detach().clone().requires_grad_(True)
                     for t in h_floats]
-            parts, n_t = kernel_split(lambda: fn(ids, *ts), 3, FWD_PARTS,
-                                      FWD_SKIP)
-            fwd_split = {"fwd_split_ms": parts, "fwd_launches": n_t,
-                         "fwd_launches_half_T": kernel_split(
-                             lambda: h_fn(h_ids, *h_ts), 3, FWD_PARTS,
-                             FWD_SKIP)[1]}
+            parts, _ = kernel_split(lambda: fn(ids, *ts), 3, FWD_PARTS,
+                                    FWD_SKIP)
+            fwd_split = {"fwd_split_ms": parts,
+                         "fwd_launches": device_launches(
+                             lambda: fn(ids, *ts))[0],
+                         "fwd_launches_half_T": device_launches(
+                             lambda: h_fn(h_ids, *h_ts))[0]}
         in_bytes = nbytes(ids, *floats)
         f_bound, f_by = bound(flops[0], in_bytes + nbytes(out))
         b_bound, b_by = bound(flops[1], in_bytes + nbytes(cot, *grads))
@@ -653,6 +868,7 @@ def main() -> int:
             return fail(f"{phase}: two forward calls differ in a bit")
         if fwd_split is not None and (
                 fwd_split["fwd_launches"] != fwd_split["fwd_launches_half_T"]
+                or fwd_split["fwd_launches"] < 1
                 or fwd_split["fwd_split_ms"]["step"] > 0.0):
             return fail(f"{phase}: the forward launches a kernel a step: "
                         f"{fwd_split}")
@@ -704,13 +920,17 @@ def main() -> int:
     enc_f = 2.0 * L * T * TB * H * G
     rc = train_kernel_phase(
         "train_encoder_kernels", ("embed_gru_train", "embed_gru_bwd"),
-        (csrc + "embed_gru.cu", csrc + "embed_gru_bwd.cu"),
+        (csrc + "gru_fwd_chain.cu", csrc + "embed_gru_bwd.cu"),
         (pg + "428", pg + "536"), cuda_gru.stacked_gru_embed_finals,
         cuda_gru.stacked_gru_embed_finals_plain, tok_lt,
         [w_ih_p, b_ih, w_hh, b_hh, h0], cot,
         {"L": L, "T": T, "B": TB, "H": H, "Vp": Vp},
         (enc_f, 2 * enc_f), lib=(cudnn_enc, enc_leaves, cot), split=True,
-        pad_rows=(0, V))
+        pad_rows=(0, V),
+        raw_fwd=lambda: cuda_gru._launch_train_fwd(
+            tok_lt, w_ih_p, b_ih, w_hh, b_hh, h0, True),
+        half=(cuda_gru.stacked_gru_embed_finals,
+              tok_lt[:, :T // 2].contiguous(), [w_ih_p, b_ih, w_hh, b_hh, h0]))
     if rc:
         return rc
     del grus, x_oh, dirs
@@ -754,12 +974,16 @@ def main() -> int:
     sub_f = 2.0 * 2 * A * TB * H * G
     rc = train_kernel_phase(
         "train_subdecoder_kernels", ("embed_seq", "embed_seq_bwd"),
-        (csrc + "embed_gru.cu", csrc + "embed_gru_bwd.cu"),
+        (csrc + "gru_fwd_chain.cu", csrc + "embed_gru_bwd.cu"),
         (pg + "779", pg + "888"), cuda_gru.stacked_gru_embed_seq,
         cuda_gru.stacked_gru_embed_seq_plain, cls_lt,
         [w_emb, prez, s_whh, s_bhh, s_h0], s_cot,
         {"L": 2, "T": A, "B": TB, "H": H, "C": C},
-        (sub_f, 2 * sub_f), lib=(cudnn_sub, sub_leaves, s_cot))
+        (sub_f, 2 * sub_f), lib=(cudnn_sub, sub_leaves, s_cot),
+        raw_fwd=lambda: cuda_gru._launch_train_fwd(
+            cls_lt, w_emb, prez, s_whh, s_bhh, s_h0, True),
+        half=(cuda_gru.stacked_gru_embed_seq, cls_lt[:, :A // 2].contiguous(),
+              [w_emb, prez, s_whh, s_bhh, s_h0]))
     if rc:
         return rc
     del sub_lib, sub_x
@@ -1022,6 +1246,7 @@ def main() -> int:
     # 16-row tiles, one step, an 8-unit column tile, a ragged k) without a
     # gradient against their plain versions, and bit-equal on a repeat
     fr_gen = torch.Generator().manual_seed(SEED + 8)
+    guard.start("ragged_forward")
     ragged_fwd = []
     for fB, fT, fH in ((37, 1, 136), (130, 3, 136), (37, 9, 30),
                        (130, 5, 80)):
@@ -1066,14 +1291,79 @@ def main() -> int:
                 row[name] = {"max_abs_err": float((got - plain()).abs()
                                                   .max()),
                              "repeat_equal": bool(torch.equal(got, again))}
+        # the encoder's two entries at L=4 (serving finals; the training
+        # forward, its leaves wanting a gradient)
+        e_w = list(stack_directions([gru_init(fr_gen, V, fH)
+                                     for _ in range(4)]))
+        e_w = [t.to(dev) for t in e_w] + [f_rand((4, fB, fH), 0.5)]
+        e_tok = torch.randint(0, V, (4, fT, fB), generator=fr_gen,
+                              dtype=torch.int32).to(dev)
+        e_train = [e_w[0].clone().requires_grad_(True)] + e_w[1:]
+        for name, fn in (
+                ("embed_gru",
+                 lambda: cuda_gru.stacked_gru_embed_finals(e_tok, *e_w)),
+                ("embed_gru_train",
+                 lambda: cuda_gru.stacked_gru_embed_finals(e_tok,
+                                                           *e_train))):
+            got, again = fn(), fn()
+            with torch.no_grad():
+                want = cuda_gru.stacked_gru_embed_finals_plain(e_tok, *e_w)
+            err = float((got - want).detach().abs().max())
+            row[name] = {"max_abs_err": err,
+                         "repeat_equal": bool(torch.equal(got, again))}
         ragged_fwd.append(row)
+    # the decode at B = 1, 37, 64 (8-row and partial and full 64-row
+    # tiles), 1, 2 and 17 steps, H = 136 (34 blocks, a padded k) and 512,
+    # greedy and sampling, an unsharpened head: tokens against the plain
+    # decode under the near-tie rule, bit-equal on a repeat, in [0, V)
+    dr_gen = torch.Generator().manual_seed(SEED + 9)
+    ragged_dec = []
+    with torch.inference_mode():
+        for dH in (136, 512):
+            d_view = tree_to(global_decoder_init(dr_gen, Zt, V, dH), dev)
+            for dB in (1, 37, 64):
+                d_z = torch.randn((dB, Zt), generator=dr_gen).to(dev)
+                d_args, _, _ = cuda_decode._prep_decode_args(d_view, d_z)
+                for d_steps in (1, 2, 17):
+                    d_noise = -torch.log(-torch.log(torch.rand(
+                        (d_steps, dB, Vp), generator=dr_gen).clamp_min(
+                        1e-30))).to(dev)
+                    d_inv = torch.full((dB,), 1 / 0.9, device=dev)
+                    case = {"B": dB, "steps": d_steps, "H": dH}
+                    for mode, run, ref, extra in (
+                            ("greedy", lambda: cuda_decode.cuda_greedy_decode(
+                                d_view, d_z, d_steps),
+                             lambda: cuda_decode.plain_decode_tokens(
+                                 d_view, d_z, d_steps), ()),
+                            ("sample", lambda: cuda_decode.cuda_sample_decode(
+                                d_view, d_z, d_noise, d_inv, d_steps),
+                             lambda: cuda_decode.plain_sample_tokens(
+                                 d_view, d_z, d_noise, d_inv, d_steps),
+                             (d_noise, d_inv))):
+                        got, again = run(), run()
+                        try:
+                            parted, gap = cuda_decode.near_tie_partings(
+                                d_args, V, got, ref(), *extra,
+                                tol=TOL_NEAR_TIE)
+                        except AssertionError as e:
+                            return fail(f"ragged decode {mode} {case}: {e}")
+                        case[mode] = {"near_tie_rows": parted,
+                                      "largest_gap": gap,
+                                      "repeat_equal": bool(
+                                          torch.equal(got, again))}
+                    ragged_dec.append(case)
     emit({"phase": "ragged_forward", "tol_out": TOL_TRAIN_OUT,
-          "cases": ragged_fwd})
+          "cases": ragged_fwd, "decode_tol_near_tie": TOL_NEAR_TIE,
+          "decode_cases": ragged_dec, "token_checks": guard.checked})
     for row in ragged_fwd:
         for name, e in row.items():
             if isinstance(e, dict) and not (
                     e["max_abs_err"] <= TOL_TRAIN_OUT and e["repeat_equal"]):
                 return fail(f"ragged_forward, {name} at {row}")
+    for case in ragged_dec:
+        if not (case["greedy"]["repeat_equal"]
+                and case["sample"]["repeat_equal"]):
+            return fail(f"ragged_forward, decode repeat differs at {case}")
 
     # the decoder CE forward + backward at the long geometry (T=250,
     # B=128): the cooperative launches and the scratch sizes hold there
@@ -1096,17 +1386,48 @@ def main() -> int:
     l_err = float((l_out - l_out_p).detach().abs().max())
     l_abs, l_rel = grad_errors(l_grads, l_grads_p)
     l_f, l_b = time_fwd_bwd(l_fn, l_tok, l_ts, l_cot, 5)
+    del l_ts, l_out, l_grads, l_out_p, l_grads_p, l_again
+    # and the encoder (L=4) forward + backward at T=250, B=128: values,
+    # gradients, a bit-equal repeat, and its forward's launches at T=250
+    # and 125 (one kernel each)
+    le_tok = direction_tokens(torch.from_numpy(rng.integers(
+        0, V, size=(TB, LT)).astype(np.int32)).to(dev),
+        [False, True, False, True])
+    le_fl = [w_ih_p, b_ih, w_hh, b_hh, h0]
+    le_cot = torch.randn((L, TB, H), generator=gen).to(dev)
+    with EmbedCalls(cuda_gru) as le_calls:
+        le_ts, le_out, le_grads = fwd_bwd(cuda_gru.stacked_gru_embed_finals,
+                                          le_tok, le_fl, le_cot)
+    _, le_out_p, le_grads_p = fwd_bwd(cuda_gru.stacked_gru_embed_finals_plain,
+                                      le_tok, le_fl, le_cot)
+    le_again = torch.autograd.grad(le_out, le_ts, le_cot, retain_graph=True)
+    torch.cuda.synchronize()
+    le_same = (torch.equal(le_out, cuda_gru.stacked_gru_embed_finals(
+        le_tok, *le_ts)) and all(torch.equal(a, b)
+                                 for a, b in zip(le_grads, le_again)))
+    le_err = float((le_out - le_out_p).detach().abs().max())
+    le_abs, le_rel = grad_errors(le_grads, le_grads_p)
+    le_launches = le_calls.replay(dev)
+    del le_ts, le_out, le_grads, le_out_p, le_grads_p, le_again
     emit({"phase": "long_geometry", "kernel": "decoder_ce",
           "shape": {"T": LT, "B": TB, "H": H, "Vp": Vp},
           "out_max_abs_err": l_err, "grad_max_abs_err": l_abs,
           "grad_max_rel_err": l_rel, "tol_out": TOL_TRAIN_OUT,
           "tol_grad_rel": TOL_TRAIN_GRAD_REL, "determinism": l_same,
-          "fwd_ms": l_f, "bwd_ms": l_b})
+          "fwd_ms": l_f, "bwd_ms": l_b,
+          "encoder": {"L": L, "T": LT, "B": TB, "out_max_abs_err": le_err,
+                      "grad_max_abs_err": le_abs, "grad_max_rel_err": le_rel,
+                      "determinism": le_same,
+                      "forward_launches": le_launches}})
     if not (l_err <= TOL_TRAIN_OUT and l_rel <= TOL_TRAIN_GRAD_REL
             and l_same):
         return fail(f"long_geometry: output {l_err}, gradients {l_rel}, "
                     f"repeat equal {l_same}")
-    del l_ts, l_out, l_grads, l_out_p, l_grads_p, l_again
+    if not (le_err <= TOL_TRAIN_OUT and le_rel <= TOL_TRAIN_GRAD_REL
+            and le_same) or embed_launch_faults(le_launches):
+        return fail(f"long_geometry encoder: output {le_err}, gradients "
+                    f"{le_rel}, repeat equal {le_same}, launches "
+                    f"{le_launches}")
 
     # ------------------------------------------------------- train step
     # The port's Trainer at ModelConfig() widths on random in-schema
@@ -1149,10 +1470,16 @@ def main() -> int:
         for k in counts:
             counts[k] = 0
     runs = {}
+    # the warm-up steps run profiled: no per-step kernel may run, and the
+    # encoder's and sub-decoders' forward entries they call are replayed
+    # at T and T/2 (one kernel each)
+    step_calls, step_old = EmbedCalls(cuda_gru), set()
     for name, arrays, bs, variant in (("unsupervised", yam, TB, "default"),
                                       ("supervised", vg, SB, "supervised")):
-        warm = tr.run_epoch(take(arrays, 0, 2 * bs), variant,
-                            batch_size=bs, seed=1)
+        with step_calls, DeviceWatch() as w:
+            warm = tr.run_epoch(take(arrays, 0, 2 * bs), variant,
+                                batch_size=bs, seed=1)
+        step_old.update(w.per_step_kernels)
         n_timed = len(arrays["x"]) // bs - 2
         t0 = time.monotonic()
         timed = tr.run_epoch(take(arrays, 2 * bs, (2 + n_timed) * bs),
@@ -1166,6 +1493,7 @@ def main() -> int:
                          batch_size=TB)
     torch.cuda.synchronize()
     train_launches = {**cuda_gru.LAUNCHES, **cuda_decoder.LAUNCHES}
+    step_fwd = step_calls.replay(dev)
     finite = all(np.isfinite(v) for r in runs.values()
                  for m in (r["warm"], r["timed"]) for v in m.values()) and \
         all(np.isfinite(v) for v in evals.values())
@@ -1176,7 +1504,12 @@ def main() -> int:
               "kernel_paths": paths},
           "runs": runs, "eval": evals, "finite": finite,
           "train_path": tr.train_path, "launches": train_launches,
+          "embed_forward_launches": step_fwd,
+          "per_step_kernels": sorted(step_old),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if step_old or embed_launch_faults(step_fwd):
+        return fail(f"train_step: per-step kernels {sorted(step_old)}, "
+                    f"encoder / sub-decoder launches {step_fwd}")
     if paths != ("kernel", "kernel"):
         return fail(f"first step ran {paths}, not the kernels")
     if not (step_loss_err <= TOL_TRAIN_OUT * max(1.0, abs(float(loss_p)))
@@ -1266,8 +1599,9 @@ def main() -> int:
         for counts in all_counts:
             for k in counts:
                 counts[k] = 0
-        f_warm = ftr.run_epoch(take(fam_corpus, 0, 2 * TB), batch_size=TB,
-                               seed=1)
+        with EmbedCalls(cuda_gru) as f_calls, DeviceWatch() as f_watch:
+            f_warm = ftr.run_epoch(take(fam_corpus, 0, 2 * TB),
+                                   batch_size=TB, seed=1)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         f_timed = ftr.run_epoch(take(fam_corpus, 2 * TB, 5 * TB),
@@ -1277,6 +1611,7 @@ def main() -> int:
         f_launches = {k: v for counts in all_counts for k, v in
                       counts.items() if v}
         family_launches[fam] = f_launches
+        f_fwd = f_calls.replay(dev)
         f_finite = all(np.isfinite(v) for m in (f_warm, f_timed)
                        for v in m.values())
         emit({"phase": "train_family", "family": fam, "B": TB,
@@ -1291,7 +1626,13 @@ def main() -> int:
               "timed": f_timed, "ms_per_step": wall * 1e3 / 3,
               "seq_per_s": 3 * TB / wall, "finite": f_finite,
               "train_path": ftr.train_path, "launches": f_launches,
+              "embed_forward_launches": f_fwd,
+              "per_step_kernels": f_watch.per_step_kernels,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if f_watch.per_step_kernels or embed_launch_faults(f_fwd):
+            return fail(f"{fam}: per-step kernels "
+                        f"{f_watch.per_step_kernels}, encoder / sub-decoder "
+                        f"launches {f_fwd}")
         if f_paths != ["kernel"]:
             return fail(f"{fam}: first step ran {f_paths}, not the kernels")
         if not (f_loss_err <= TOL_TRAIN_OUT * max(1.0, abs(float(f_loss_p)))
@@ -1358,8 +1699,9 @@ def main() -> int:
         for key, loss, g in (("kernel", sg_loss_k, sg_grads_k),
                              ("plain", sg_loss_p, sg_grads_p))}
     del sg_grads_k, sg_grads_p, sg_grads_64, sg_64, copies
-    sg_loss_grads()                                        # warm
-    torch.cuda.synchronize()
+    with EmbedCalls(cuda_gru) as sg_calls, DeviceWatch() as sg_watch:
+        sg_loss_grads()                                    # warm
+    sg_fwd = sg_calls.replay(dev)
     for counts in all_counts:
         for k in counts:
             counts[k] = 0
@@ -1397,12 +1739,16 @@ def main() -> int:
           "grad_worst_leaf": sg_worst["worst_leaf"],
           "tol_grad_rel": TOL_TRAIN_GRAD_REL, "kernel_paths": sg_paths,
           "float64_witness": sg_witness, "fwd_bwd_ms": sg_ms,
-          "launches": sg_launches,
+          "launches": sg_launches, "embed_forward_launches": sg_fwd,
+          "per_step_kernels": sg_watch.per_step_kernels,
           "gmvae_tokens_no_nll": {"decoder_teacher_launches": gm_teacher,
                                   "out_max_abs_err": gm_out_err,
                                   "tol": TOL_TRAIN_OUT}})
     if sg_paths != ["kernel"]:
         return fail(f"single_gmvae ran {sg_paths}, not the kernels")
+    if sg_watch.per_step_kernels or embed_launch_faults(sg_fwd):
+        return fail(f"single_gmvae: per-step kernels "
+                    f"{sg_watch.per_step_kernels}, encoder launches {sg_fwd}")
     if not (sg_loss_err <= TOL_TRAIN_OUT * max(1.0, abs(float(sg_loss_p)))
             and sg_worst["grad_max_rel_err"] <= TOL_TRAIN_GRAD_REL):
         return fail(f"single_gmvae kernel vs plain: loss {sg_loss_err}, "

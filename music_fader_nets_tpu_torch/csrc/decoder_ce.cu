@@ -264,14 +264,16 @@ cudaError_t launch_decoder_recurrence(
   // (1) layer 1: xpre = w_tok[tok] + pre_z, from h1_0
   if ((err = launch_gru_fwd_chain(1, T, B, H, tok, w_tok, Vp, pre_z,
                                   (long long)B * G, G, w_hh1, b_hh1, h1_0,
-                                  h1_seq, g41, scratch, s)) != cudaSuccess ||
+                                  h1_seq, nullptr, g41, scratch, s)) !=
+          cudaSuccess ||
       // (2) layer 2's input product over all steps
       (err = gemm_nn(T * B, G, H, h1_seq, w_ih2, pre2x, nullptr, 0, s)) !=
           cudaSuccess)
     return err;
   // (3) layer 2: xpre = pre2x + b_ih2, from h1_seq[0] (the step-0 rule)
   return launch_gru_fwd_chain(1, T, B, H, nullptr, pre2x, 0, b_ih2, 0, 0,
-                              w_hh2, b_hh2, h1_seq, h2_seq, g42, scratch, s);
+                              w_hh2, b_hh2, h1_seq, h2_seq, nullptr, g42,
+                              scratch, s);
 }
 
 bool make_ranges(int K, const int* ranges, MassRanges* rg) {

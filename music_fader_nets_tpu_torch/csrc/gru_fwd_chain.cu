@@ -3,21 +3,27 @@
 //
 // Replaces the per-step recurrences of music_fader_nets_tpu/ops/
 // pallas_gru.py::_fwd_kernel :147 (kernel 1, the generic stacked GRU over
-// precomputed projections; stacked_gru.cu) and of ::_dec_fwd_kernel :1110
-// and ::_dec_fwd_ce_kernel :1482 (kernels 7 and 9, the teacher-forced
-// decoder's two GRUCell layers, one chain each; decoder_ce.cu).
+// precomputed projections; stacked_gru.cu), of ::_fwd_embed_kernel :428
+// and ::_fwd_embed_seq_kernel :779 (kernels 3 and 5, the encoder and the
+// sub-decoders over embedded ids; embed_gru.cu) and of ::_dec_fwd_kernel
+// :1110 and ::_dec_fwd_ce_kernel :1482 (kernels 7 and 9, the
+// teacher-forced decoder's two GRUCell layers, one chain each;
+// decoder_ce.cu).
 //
 // What it computes, for each chain l < L and step t < T, from h = h0[l]:
 //   xpre = x[l, t, b, :] (+ add)                          (rows in memory)
 //        | w_in[l, ids[l, t, b], :] + add[l, b, :]         (gathered; an id
 //          outside [0, V) selects no row, as its one-hot is all zeros)
 //   h'   = gates(xpre, h @ w_hh[l] + b_hh[l], h)   (r, z, n as ops/gru.py)
-// writing h_seq[l, t] (L, T, B, H) and, unless stash is null, the gate
-// stash [r, z, n, hn_h] (L, T, B, 4H) the backward chains read.
+// writing h_seq[l, t] (L, T, B, H) unless h_seq is null, h[T-1] to finals
+// (L, B, H) unless finals is null (the serving encoder wants only these),
+// and, unless stash is null, the gate stash [r, z, n, hn_h] (L, T, B, 4H)
+// the backward chains read.
 //
 // What bounds it on an H100: float32 FMA. The recurrence is 2 L T B H 3H:
 // 40.3 GFLOP for the CVAE encoder (L=2, T=100, B=128, H=512), 0.60 ms at
-// 67 TFLOP/s; a decoder layer 20.1 GFLOP at B=128, 80.5 at 512 rows.
+// 67 TFLOP/s; a decoder layer 20.1 GFLOP at B=128, 80.5 at 512 rows; the
+// encoder (L=4, T=100) 80.5 GFLOP at B=128, 40.3 at the serving B=64.
 //
 // Design (the forward twin of embed_gru_bwd.cu::gru_bwd_chain): ONE
 // cooperative launch for all T steps. A block owns (chain, 32 hidden units,
@@ -39,8 +45,9 @@
 // shared-memory transpose; an arrive on the counter barrier of the row
 // tile's H/32 blocks; the stores of h_seq[t] and the stash while the others
 // arrive; the wait. The row tile is the smallest of 16, 32 and 64 rows whose
-// grid is co-resident (128 blocks at H = 512: 16 rows at L=1, B=128; 32 at
-// L=2; 64 at L=1 with 512 rows). If none is, or the weights do not fit, the
+// grid is co-resident (128 blocks at H = 512: 16 rows at L=1, B=128 and at
+// L=4, B=32; 32 at L=2, B=128 and at L=4, B=64; 64 at L=1 with 512 rows
+// and at L=4, B=128). If none is, or the weights do not fit, the
 // launch fails and the error is returned: there is no other path.
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
@@ -66,7 +73,8 @@ struct FwdChainParams {
   const float* w_hh;     // (L, H, 3H)
   const float* b_hh;     // (L, 3H)
   const float* h0;       // (L, B, H)
-  float* h_seq;          // (L, T, B, H)
+  float* h_seq;          // (L, T, B, H) or null
+  float* finals;         // (L, B, H) h[T-1], or null
   float* stash;          // (L, T, B, 4H) or null
   float* hT;             // (2, L, H, Bp): h of step parity t & 1, k-major
   unsigned* counters;    // one per (chain, row tile), kCtrStride apart
@@ -341,7 +349,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int b = b0 + chain_row<RB>(warp, i);
       if (!(col_ok && b < B)) continue;
       const size_t lt = ((size_t)l * T + t) * B + b;
-      p.h_seq[lt * H + j] = h[i];
+      if (p.h_seq != nullptr) p.h_seq[lt * H + j] = h[i];
+      if (last && p.finals != nullptr)
+        p.finals[l * BH + (size_t)b * H + j] = h[i];
       if (p.stash != nullptr) {
         float* st = p.stash + lt * 4 * H;
         st[j] = rg[i];
@@ -383,14 +393,16 @@ cudaError_t launch_gru_fwd_chain(int L, int T, int B, int H, const int* ids,
                                  const float* x, int V, const float* add,
                                  long long add_ls, int add_bs,
                                  const float* w_hh, const float* b_hh,
-                                 const float* h0, float* h_seq, float* stash,
+                                 const float* h0, float* h_seq,
+                                 float* finals, float* stash,
                                  float* scratch, cudaStream_t s) {
   const long long nctr = chain_counter_floats(L, B);
   cudaError_t err = cudaMemsetAsync(scratch, 0, nctr * sizeof(float), s);
   if (err != cudaSuccess) return err;
-  const FwdChainParams p{L,    T,    B,     H,      chain_bp(B), V,
-                         ids,  x,    add,   add_ls, add_bs,      w_hh,
-                         b_hh, h0,   h_seq, stash,  scratch + nctr,
+  const FwdChainParams p{L,      T,      B,     H,     chain_bp(B),
+                         V,      ids,    x,     add,   add_ls,
+                         add_bs, w_hh,   b_hh,  h0,    h_seq,
+                         finals, stash,  scratch + nctr,
                          reinterpret_cast<unsigned*>(scratch)};
   // the smallest row tile whose whole grid is resident at once
   bool fits = false;

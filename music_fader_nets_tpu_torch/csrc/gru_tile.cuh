@@ -1,20 +1,19 @@
-// Shared device code of the port's GRU kernels (embed_gru.cu, decode.cu,
-// the training kernels).
+// Shared device code of the port's GRU kernels: the persistent chains'
+// barriers, row layout and cooperative launch (gru_fwd_chain.cu,
+// embed_gru_bwd.cu, decode.cu), the gate maths, cp.async, and the split-K
+// tile of the decoder's heads (decoder_ce.cu).
 //
-// A block computes a TB-row x 32-column tile of A (rows, K) @ W (K, ldw) for
-// NG column groups at W columns g*gs + j (g < NG). For a GRU, NG = 3 and
-// gs = H: the block owns 32 hidden units with all three of their gate
-// columns (r, z, n), so the gate maths needs nothing from other blocks.
-//
-// Split-K: the block's 8 warps each take every 8th k; lane l owns column
-// j0 + l. The A tile sits in shared memory transposed ([k][row], rows
-// padded to TB + 4 floats) so a warp reads 4 rows with one broadcast
-// float4; the weights go from L2 straight into registers, one coalesced
-// 128-byte row segment per warp, k and gate, several k-steps ahead. Every
-// weight read feeds TB FMAs. splitk_reduce then sums the 8 warps' partial tiles through shared
-// memory in warp order (deterministic), leaving warp w with rows w, w+8,
-// ... of its lane's column. Accumulation is plain float32 FMA on the CUDA
-// cores.
+// The split-K tile: a block computes a TB-row x 32-column tile of A (rows,
+// K) @ W (K, ldw) for NG column groups at W columns g*gs + j (g < NG; the
+// heads take NG = 1). The block's 8 warps each take every 8th k; lane l
+// owns column j0 + l. The A tile sits in shared memory transposed
+// ([k][row], rows padded to TB + 4 floats) so a warp reads 4 rows with one
+// broadcast float4; the weights go from L2 straight into registers, one
+// coalesced 128-byte row segment per warp, k and group, several k-steps
+// ahead. Every weight read feeds TB FMAs. splitk_reduce then sums the 8
+// warps' partial tiles through shared memory in warp order
+// (deterministic), leaving warp w with rows w, w+8, ... of its lane's
+// column. Accumulation is plain float32 FMA on the CUDA cores.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,8 +58,7 @@ __device__ __forceinline__ void splitk_gemm(float (&acc)[TB][NG],
                                             int ldw, int gs, bool col_ok,
                                             int j) {
   static_assert(TB % kWarps == 0, "TB must be a multiple of 8");
-  // 8-row tiles have registers to spare for deeper prefetch; 16-row tiles
-  // (the encoder, two blocks per SM) do not
+  // k-steps of weights in flight: fewer as the tile's rows take registers
   constexpr int U = (NG == 1 ? 32 : 16) / (TB / kWarps);
   const int warp = threadIdx.x >> 5;
   for (int k0 = warp; k0 < K; k0 += kWarps * U) {
@@ -129,7 +127,8 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// ---- the persistent chains (gru_fwd_chain.cu, embed_gru_bwd.cu)
+// ---- the persistent chains (gru_fwd_chain.cu, embed_gru_bwd.cu; decode.cu
+// takes try_cooperative)
 //
 // A block owns 32 hidden units of a row tile of 16, 32 or 64 rows for all
 // T steps; the blocks of one row tile meet at a counter barrier a step, the

@@ -52,7 +52,7 @@ extern "C" int fader_stacked_gru(int L, int T, int B, int H, const float* pre,
     return (int)cudaErrorInvalidValue;
   return (int)fader::launch_gru_fwd_chain(
       L, T, B, H, nullptr, pre, 0, nullptr, 0, 0, w_hh, b_hh, h0, h_seq,
-      stash, scratch, static_cast<cudaStream_t>(stream));
+      nullptr, stash, scratch, static_cast<cudaStream_t>(stream));
 }
 
 // g (L,T,B,H) the h_seq cotangent; stash (L,T,B,4H), h_seq (L,T,B,H) and h0

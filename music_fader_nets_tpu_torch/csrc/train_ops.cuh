@@ -1,4 +1,4 @@
-// Host launchers shared by the training kernels (embed_gru.cu,
+// Host launchers shared by the GRU kernels (embed_gru.cu,
 // embed_gru_bwd.cu, gru_fwd_chain.cu, stacked_gru.cu, decoder_ce.cu,
 // decoder_ce_bwd.cu, grad_reduce.cu).
 // Each enqueues its launches on `s`, allocates nothing, and returns the
@@ -47,15 +47,17 @@ cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
 //        | x[l, ids[l, t, b]] (x (L, V, 3H) a table; no row outside [0, V))
 //          (+ add[l, b] at add + l*add_ls + b*add_bs, when add is not null)
 //   h    = gates(xpre, h @ w_hh[l] + b_hh[l], h)   (w_hh (L, H, 3H))
-// writing h_seq (L, T, B, H) and, unless null, the gate stash [r, z, n,
-// hn_h] (L, T, B, 4H). `scratch` holds fwd_chain_scratch_floats(L, B, H)
-// floats. Fails as launch_gru_bwd_chain does.
+// writing, unless null, h_seq (L, T, B, H), the last step's h to finals
+// (L, B, H) and the gate stash [r, z, n, hn_h] (L, T, B, 4H). `scratch`
+// holds fwd_chain_scratch_floats(L, B, H) floats. T >= 1. Fails as
+// launch_gru_bwd_chain does.
 long long fwd_chain_scratch_floats(int L, int B, int H);
 cudaError_t launch_gru_fwd_chain(int L, int T, int B, int H, const int* ids,
                                  const float* x, int V, const float* add,
                                  long long add_ls, int add_bs,
                                  const float* w_hh, const float* b_hh,
-                                 const float* h0, float* h_seq, float* stash,
+                                 const float* h0, float* h_seq,
+                                 float* finals, float* stash,
                                  float* scratch, cudaStream_t s);
 
 // The cross-entropy head over R rows of h2 (R, H): logits = h2 @ w_out +

@@ -99,15 +99,15 @@ def _build(out_dir: Path) -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # a training entry ends in (scratch, its size in floats, stream)
+    # an entry with scratch ends in (scratch, its size in floats, stream)
     tail = [P, LL, P]
-    lib.fader_embed_gru_finals.argtypes = [I, I, I, I, I] + [P] * 9
+    lib.fader_embed_gru_finals.argtypes = [I] * 5 + [P] * 7 + tail
     lib.fader_embed_gru_finals.restype = I
-    lib.fader_greedy_decode.argtypes = [I, I, I, I, I] + [P] * 16
+    lib.fader_greedy_decode.argtypes = [I] * 5 + [P] * 12 + tail
     lib.fader_greedy_decode.restype = I
-    lib.fader_sample_decode.argtypes = [I, I, I, I, I] + [P] * 18
+    lib.fader_sample_decode.argtypes = [I] * 5 + [P] * 14 + tail
     lib.fader_sample_decode.restype = I
-    lib.fader_embed_gru_train.argtypes = [I] * 6 + [P] * 9
+    lib.fader_embed_gru_train.argtypes = [I] * 6 + [P] * 8 + tail
     lib.fader_embed_gru_train.restype = I
     lib.fader_embed_gru_bwd.argtypes = [I] * 6 + [P] * 14 + tail
     lib.fader_embed_gru_bwd.restype = I
@@ -127,6 +127,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_stacked_gru.restype = I
     lib.fader_stacked_gru_bwd.argtypes = [I] * 4 + [P] * 10 + tail
     lib.fader_stacked_gru_bwd.restype = I
+    lib.fader_launch_probe.argtypes = [I, I, P]
+    lib.fader_launch_probe.restype = I
+    lib.fader_decode_scratch_floats.argtypes = [I] * 2
+    lib.fader_decode_scratch_floats.restype = LL
     for fn in (lib.fader_gru_bwd_scratch_floats,
                lib.fader_decoder_bwd_scratch_floats):
         fn.argtypes = [I] * 4
@@ -156,12 +160,12 @@ def load_library() -> ctypes.CDLL:
 
 
 def entry_scratch(size_fn, dims, dev):
-    """The scratch of a training entry: (tensor, its floats), sized by the
+    """The scratch of an entry: (tensor, its floats), sized by the
     library's own `size_fn(*dims)` for the current device (the barrier
-    counters and k-major rows of the persistent chains, the decoder's
-    layer-2 input projection and cross-layer cotangent, the split-K partial
-    tiles of the weight-gradient GEMM, the column sums' partials). Call it
-    with `dev` current."""
+    counters and k-major rows of the persistent chains and of the decode,
+    the decode's argmax keys, the decoder's layer-2 input projection and
+    cross-layer cotangent, the split-K partial tiles of the weight-gradient
+    GEMM, the column sums' partials). Call it with `dev` current."""
     n = int(size_fn(*dims))
     return torch.empty((max(n, 1),), dtype=torch.float32, device=dev), n
 

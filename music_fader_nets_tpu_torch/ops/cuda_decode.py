@@ -10,8 +10,12 @@ come back.
 
 The wrappers run the plain version for tensors on the CPU and the CUDA
 kernel for tensors on a GPU; there is no fallback between the two. The
-products around the kernel (`pre_z`, `h1_0`, padding) stay torch ops, as
-the JAX package left them to XLA.
+kernel is one persistent cooperative launch for the whole decode; it runs
+each step as three phases (layer 1's gates; layer 2 together with the next
+step's h1 @ w_hh1, which does not depend on the token; the logits and
+their argmax), the schedule `decode_scores_schedule` writes out in plain
+PyTorch. The products around the kernel (`pre_z`, `h1_0`, padding) stay
+torch ops, as the JAX package left them to XLA.
 """
 from __future__ import annotations
 
@@ -20,20 +24,21 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from music_fader_nets_tpu_torch import resolve_device
-from music_fader_nets_tpu_torch.ops import _build
+from music_fader_nets_tpu_torch.ops import _build, cuda_gru
 from music_fader_nets_tpu_torch.ops.gru import _gates, pad_vocab, vocab_pad
 from music_fader_nets_tpu_torch.ops.sampling import gumbel_rows
 from music_fader_nets_tpu_torch.utils.checkpoint import tree_to
 
-# wrapper calls that launched each kernel (one call = 3 x steps + 1
-# device launches)
+# wrapper calls that launched each kernel (one call = one cooperative
+# launch for all steps, after the memset that zeroes its scratch)
 LAUNCHES = {"greedy_decode": 0, "sample_decode": 0}
 # which path served the last greedy/sample_decode_tokens call: "kernel",
 # "kernel-chunked" (more than _CHUNK rows, one kernel call per _CHUNK-row
 # chunk, the last one zero-padded) or "plain-cpu"
 LAST_DECODE_PATH = None
 
-# rows per kernel call; larger batches are chunked as the reference does
+# rows per kernel call (the most `csrc/decode.cu` takes); larger batches
+# are chunked as the reference does
 _CHUNK = 64
 
 # sampling temperature bounds: below 1e-6, 1/T overflows float32 headroom;
@@ -161,7 +166,8 @@ def plain_sample_tokens(gview: Dict, z: torch.Tensor, noise: torch.Tensor,
 
 def _launch(args: DecodeArgs, V: int, Vp: int, steps: int,
             noise=None, inv_t=None) -> torch.Tensor:
-    """One kernel call on CUDA tensors -> (B, steps) int32."""
+    """Kernel calls on CUDA tensors -> (B, steps) int32: one call for
+    every _CHUNK rows, the most the kernel takes."""
     dev = args[-1].device
     args = tuple(a.contiguous() for a in args)
     for a in args:
@@ -175,35 +181,50 @@ def _launch(args: DecodeArgs, V: int, Vp: int, steps: int,
     if [tuple(a.shape) for a in args] != want:
         raise ValueError(f"decode kernel argument shapes "
                          f"{[tuple(a.shape) for a in args]}, expected {want}")
-    tokens = torch.empty((steps, B), dtype=torch.int32, device=dev)
+    if noise is not None:
+        inv_t = inv_t.reshape(-1)
+        if (noise.shape != (steps, B, Vp) or inv_t.shape != (B,)
+                or noise.dtype != torch.float32
+                or inv_t.dtype != torch.float32
+                or noise.device != dev or inv_t.device != dev):
+            raise ValueError("noise must be (steps, B, Vp) and inv_t "
+                             f"(B,) float32 on {dev}")
     if B == 0 or steps == 0:
-        return tokens.t()
+        return torch.empty((steps, B), dtype=torch.int32, device=dev).t()
+    outs = []
+    for s in range(0, B, _CHUNK):
+        rows = slice(s, s + _CHUNK)
+        part = args[:9] + (args[9][rows], args[10][rows])
+        if noise is None:
+            outs.append(_launch_rows(part, V, Vp, steps))
+        else:
+            outs.append(_launch_rows(part, V, Vp, steps,
+                                     noise[:, rows].contiguous(),
+                                     inv_t[rows].contiguous()))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _launch_rows(args: DecodeArgs, V: int, Vp: int, steps: int,
+                 noise=None, inv_t=None) -> torch.Tensor:
+    """One kernel call on at most _CHUNK rows of checked, contiguous CUDA
+    tensors -> (B, steps) int32."""
+    dev = args[-1].device
+    B, H = args[-1].shape
+    tokens = torch.empty((steps, B), dtype=torch.int32, device=dev)
     lib = _build.load_library()
-    h1_buf = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-    h2_buf = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-    keys = torch.empty((B,), dtype=torch.int64, device=dev)
     ptrs = [a.data_ptr() for a in args]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch, n_scratch = _build.entry_scratch(
+            lib.fader_decode_scratch_floats, (B, H), dev)
+        tail = (tokens.data_ptr(), scratch.data_ptr(), n_scratch,
+                cuda_gru._stream(dev))
         if noise is None:
-            err = lib.fader_greedy_decode(
-                B, H, V, Vp, steps, *ptrs, h1_buf.data_ptr(),
-                h2_buf.data_ptr(), keys.data_ptr(), tokens.data_ptr(),
-                stream)
+            err = lib.fader_greedy_decode(B, H, V, Vp, steps, *ptrs, *tail)
             name = "greedy_decode"
         else:
-            noise = noise.contiguous()
-            inv_t = inv_t.reshape(-1).contiguous()
-            if (noise.shape != (steps, B, Vp) or inv_t.shape != (B,)
-                    or noise.dtype != torch.float32
-                    or inv_t.dtype != torch.float32
-                    or noise.device != dev or inv_t.device != dev):
-                raise ValueError("noise must be (steps, B, Vp) and inv_t "
-                                 f"(B,) float32 on {dev}")
             err = lib.fader_sample_decode(
                 B, H, V, Vp, steps, *ptrs, noise.data_ptr(),
-                inv_t.data_ptr(), h1_buf.data_ptr(), h2_buf.data_ptr(),
-                keys.data_ptr(), tokens.data_ptr(), stream)
+                inv_t.data_ptr(), *tail)
             name = "sample_decode"
     _build.check(err, f"fader_{name}")
     LAUNCHES[name] += 1

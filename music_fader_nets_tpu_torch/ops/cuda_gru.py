@@ -14,7 +14,10 @@ Each wrapper runs the plain version for tensors on the CPU and a kernel for
 tensors on a GPU; there is no fallback between the two. On a GPU, a call
 whose float inputs want a gradient goes through a `torch.autograd.Function`
 (training forward with the gate stash, backward kernel); without a gradient
-the encoder takes the serving kernel (finals only, no stash).
+the encoder takes the serving entry (finals only, no stash). Every forward
+entry is one cooperative launch of the persistent forward chain
+(`csrc/gru_fwd_chain.cu`) whatever T is; a grid the card cannot hold at
+once is an error, raised here.
 """
 from __future__ import annotations
 
@@ -23,9 +26,9 @@ import torch
 from music_fader_nets_tpu_torch.ops import _build
 from music_fader_nets_tpu_torch.ops.gru import _gates
 
-# wrapper calls that launched each kernel (a forward call = T device
-# launches of its recurrence; a backward call = one cooperative launch of
-# the whole chain, plus the reductions)
+# wrapper calls that launched each kernel (a forward call = one cooperative
+# launch of the whole chain; a backward call = one cooperative launch of
+# the backward chain, plus the reductions)
 LAUNCHES = {"embed_gru": 0, "embed_gru_train": 0, "embed_gru_bwd": 0,
             "embed_seq": 0, "embed_seq_bwd": 0}
 # which path served the last encoder call: "kernel" or "plain-cpu"
@@ -126,11 +129,14 @@ def _launch_train_fwd(ids, w_in, add, w_hh, b_hh, h0, stash: bool):
           if stash else None)
     add_bs = 3 * H if add.dim() == 3 else 0
     with torch.cuda.device(dev):
+        scratch, n_scratch = _build.entry_scratch(
+            lib.fader_gru_fwd_scratch_floats, (L, B, H), dev)
         err = lib.fader_embed_gru_train(
             L, T, B, H, w_in.shape[1], add_bs, ids.data_ptr(),
             w_in.data_ptr(), add.data_ptr(), w_hh.data_ptr(),
             b_hh.data_ptr(), h0.data_ptr(), h_seq.data_ptr(),
-            None if st is None else st.data_ptr(), _stream(dev))
+            None if st is None else st.data_ptr(), scratch.data_ptr(),
+            n_scratch, _stream(dev))
     _build.check(err, "fader_embed_gru_train")
     return h_seq, st
 
@@ -230,12 +236,14 @@ def _launch_finals(tok_lt, w_ih, b_ih, w_hh, b_hh, h0):
     dev = h0.device
     lib = _build.load_library()
     finals = torch.empty((L, B, H), dtype=torch.float32, device=dev)
-    h_buf = torch.empty((2, L, B, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        scratch, n_scratch = _build.entry_scratch(
+            lib.fader_gru_fwd_scratch_floats, (L, B, H), dev)
         err = lib.fader_embed_gru_finals(
             L, T, B, H, w_ih.shape[1], tok_lt.data_ptr(), w_ih.data_ptr(),
             b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-            h0.data_ptr(), h_buf.data_ptr(), finals.data_ptr(), _stream(dev))
+            h0.data_ptr(), finals.data_ptr(), scratch.data_ptr(), n_scratch,
+            _stream(dev))
     _build.check(err, "fader_embed_gru_finals")
     return finals
 

@@ -6,8 +6,9 @@ Builds a TransferServer at the config's full width with random weights
 (seeded), warms it, then serves `--requests` greedy 300-step transfers in
 full batches under `torch.profiler`, and prints JSON lines: device time
 per kernel name (sum, count, mean), the device's busy and idle share of
-the profiled window, and the card's name and power limit. Runs on CUDA
-only; the numbers are device times from CUPTI.
+the profiled window, the device launches per batch (kernels, memsets
+apart), and the card's name and power limit. Runs on CUDA only; the
+numbers are device times from CUPTI.
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ def main(argv=None) -> None:
     with TransferServer(params, cfg, max_batch=64, device=dev) as srv:
         srv.request(reqs[0])
         torch.cuda.synchronize()
+        batches0 = srv.stats()["batches"]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             resps = [f.result() for f in [srv.submit(r) for r in reqs]]
@@ -88,8 +90,12 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    batches = stats["batches"] - batches0
+    memsets = sum(e.name.startswith("Memset") for e in kernels)
     print(json.dumps({
-        "requests": len(reqs), "batches": stats["batches"],
+        "requests": len(reqs), "batches": batches,
+        "kernel_launches_per_batch": (len(kernels) - memsets) / batches,
+        "memsets_per_batch": memsets / batches,
         "temperature": args.temperature, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us if wall_us else None,

@@ -52,20 +52,25 @@ def kernel_split(fn, reps: int = 3, parts=PARTS, skip=()):
     of its kernels' names, and `other`), device launches of one call:
     kernels and memsets, less the events whose names start with a prefix
     in `skip`, which are timed but not counted), over `reps` profiled
-    calls after one warm-up call."""
+    calls after one warm-up call. A profile that caught no device event
+    at all (seen now and then right after another profile) is taken
+    again, up to twice."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     split = {part: 0.0 for part in (*parts, "other")}
     n = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in events:
         n += not e.name.startswith(tuple(skip))
         part = next((p for p, keys in parts.items()
                      if any(k in e.name for k in keys)), "other")

@@ -103,20 +103,25 @@ print(json.dumps({"glsr_first_step_rel": {
 """
 
 
-def make_variant(name: str) -> Path:
-    """A copy of the package with `name`'s edits; its directory."""
-    root = OUT / name
+def package_copy(root: Path, src: str, edits) -> Path:
+    """A copy of the package under `root` with `edits` ((old, new) text
+    pairs, each found exactly once) made to its file `src`; `root`."""
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(PKG, root / PKG.name,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    src = root / PKG.name / SRC
-    text = src.read_text()
-    for old, new in EDITS[name]:
+    path = root / PKG.name / src
+    text = path.read_text()
+    for old, new in edits:
         if text.count(old) != 1:
-            raise RuntimeError(f"{name}: edit not found once in {SRC}")
+            raise RuntimeError(f"{root.name}: edit not found once in {src}")
         text = text.replace(old, new)
-    src.write_text(text)
+    path.write_text(text)
     return root
+
+
+def make_variant(name: str) -> Path:
+    """A copy of the package with `name`'s edits; its directory."""
+    return package_copy(OUT / name, SRC, EDITS[name])
 
 
 def run(root: Path, args) -> str:

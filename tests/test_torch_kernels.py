@@ -16,7 +16,9 @@ generic stacked GRU run at shapes that cross the tiles of the persistent
 backward chain and of the split-K weight-gradient GEMM (`RAGGED`); the
 three decoder entries at shapes that cross the persistent forward chain's
 row and column tiles (`FWD_RAGGED`), their forward outputs bitwise equal
-on a repeat."""
+on a repeat, as are the encoder's and the sub-decoders' entries on the same
+chain. The persistent decode kernel holds to the plain decode under the
+near-tie rule at ragged rows, steps and widths (`DECODE_RAGGED`)."""
 import pytest
 import torch
 
@@ -377,6 +379,79 @@ def test_decoder_forward_chain_matches_plain(dev, B, T, H, head):
         assert torch.equal(got, again)
     _grad_check(fn, plain, tok, floats, dev, B + T + H)
     assert cuda_decoder.LAST_TRAIN_PATH == "kernel"
+
+
+@pytest.mark.parametrize("entry", ["finals", "train", "seq"])
+@pytest.mark.parametrize("B,T,H", FWD_RAGGED)
+def test_embed_forward_chain_matches_plain(dev, B, T, H, entry):
+    """The encoder's two entries (L=4: serving finals, and the training
+    forward with its gate stash through `EmbedFinals`) and the
+    sub-decoders' (L=2, a per-sequence add), each one cooperative launch
+    of `gru_fwd_chain`: values against the plain version, bit-equal on a
+    repeat, one wrapper launch a call."""
+    gen = torch.Generator().manual_seed(B * 7 + T + H)
+    L, V = (2, 16) if entry == "seq" else (4, 342)
+    w_in, b_ih, w_hh, b_hh = (t.to(dev) for t in stack_directions(
+        [gru_init(gen, V, H) for _ in range(L)]))
+    ids = torch.randint(0, V, (L, T, B), generator=gen,
+                        dtype=torch.int32).to(dev)
+    h0 = (torch.randn((L, B, H), generator=gen) * 0.5).to(dev)
+    if entry == "seq":
+        add = (torch.randn((L, B, 3 * H), generator=gen) * 0.5).to(dev)
+        fn, plain, count = (cuda_gru.stacked_gru_embed_seq,
+                            cuda_gru.stacked_gru_embed_seq_plain, "embed_seq")
+    else:
+        add = b_ih
+        fn, plain = (cuda_gru.stacked_gru_embed_finals,
+                     cuda_gru.stacked_gru_embed_finals_plain)
+        count = "embed_gru" if entry == "finals" else "embed_gru_train"
+    args = [ids, w_in, add, w_hh, b_hh, h0]
+    if entry == "train":
+        args[1] = w_in.clone().requires_grad_(True)
+    before = cuda_gru.LAUNCHES[count]
+    got, again = fn(*args), fn(*args)
+    assert cuda_gru.LAUNCHES[count] == before + 2
+    with torch.no_grad():
+        torch.testing.assert_close(got, plain(ids, w_in, add, w_hh, b_hh,
+                                              h0), rtol=0, atol=1e-5)
+    assert torch.equal(got, again)
+
+
+# (B, steps, H) of the persistent decode: one row (the 8-row tile), a
+# partial 64-row tile, a full one; one, two and 17 steps; a ragged width
+# (34 blocks, Kp padded) and the model's
+DECODE_RAGGED = [(1, 17, 136), (37, 2, 136), (64, 1, 136), (1, 1, 512),
+                 (37, 17, 512), (64, 2, 512)]
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sample"])
+@pytest.mark.parametrize("B,steps,H", DECODE_RAGGED)
+def test_decode_kernel_near_ties(dev, B, steps, H, sampled):
+    """The decode kernel with an unsharpened head against the plain decode
+    under chip_smoke.py's near-tie rule (a parting only where the plain
+    scores hold the kernel's token within 1e-4 of their maximum), bit-equal
+    on a repeat, tokens in [0, V)."""
+    gen = torch.Generator().manual_seed(B + steps + H)
+    V, Z = 342, 40
+    gview = tree_to(global_decoder_init(gen, Z, V, H), dev)
+    z = torch.randn((B, Z), generator=gen).to(dev)
+    args, _, Vp = cuda_decode._prep_decode_args(gview, z)
+    noise = inv_t = None
+    if sampled:
+        noise = -torch.log(-torch.log(torch.rand(
+            (steps, B, Vp), generator=gen).clamp_min(1e-30))).to(dev)
+        inv_t = torch.full((B,), 1 / 0.9, device=dev)
+        got = cuda_decode.cuda_sample_decode(gview, z, noise, inv_t, steps)
+        again = cuda_decode.cuda_sample_decode(gview, z, noise, inv_t, steps)
+        ref = cuda_decode.plain_sample_tokens(gview, z, noise, inv_t, steps)
+    else:
+        got = cuda_decode.cuda_greedy_decode(gview, z, steps)
+        again = cuda_decode.cuda_greedy_decode(gview, z, steps)
+        ref = cuda_decode.plain_decode_tokens(gview, z, steps)
+    assert got.shape == (B, steps)
+    assert torch.equal(got, again)
+    assert int(got.min()) >= 0 and int(got.max()) < V
+    cuda_decode.near_tie_partings(args, V, got, ref, noise, inv_t, 1e-4)
 
 
 def test_teacher_decode_with_tokens_runs_the_fused_decoder(dev):

@@ -638,6 +638,28 @@ def _forward_launch(case):
                 (L, B0, H), lambda: cuda_stacked._launch_fwd(
                     z((L, T, B0, G)), z((L, H, G)), z((L, G)),
                     z((L, B0, H)), True))
+    if case in ("embed_train", "embed_finals"):
+        ids = z((L, T, B0), dtype=torch.int32)
+        w = (z((L, Vp, G)), z((L, G)), z((L, H, G)), z((L, G)),
+             z((L, B0, H)))
+        if case == "embed_train":
+            return ("fader_embed_gru_train", "fader_gru_fwd_scratch_floats",
+                    (L, B0, H), lambda: cuda_gru._launch_train_fwd(
+                        ids, *w, True))
+        return ("fader_embed_gru_finals", "fader_gru_fwd_scratch_floats",
+                (L, B0, H), lambda: cuda_gru._launch_finals(ids, *w))
+    if case in ("greedy_decode", "sample_decode"):
+        from music_fader_nets_tpu_torch.ops import cuda_decode
+        args = (z((Vp, G)), z((H, G)), z((G,)), z((H, G)), z((G,)),
+                z((H, G)), z((G,)), z((H, Vp)), z((Vp,)), z((B0, G)),
+                z((B0, H)))
+        size = ("fader_decode_scratch_floats", (B0, H))
+        if case == "greedy_decode":
+            return ("fader_greedy_decode", *size,
+                    lambda: cuda_decode._launch(args, 342, Vp, T))
+        return ("fader_sample_decode", *size,
+                lambda: cuda_decode._launch(args, 342, Vp, T,
+                                            z((T, B0, Vp)), z((B0,))))
     n_rep = 2 if case == "decoder_masses" else 1
     B = n_rep * B0
     tok = z((T, B0), dtype=torch.int32)
@@ -659,21 +681,25 @@ def _forward_launch(case):
             lambda: cuda_decoder._launch_teacher_fwd(tok, *rec, stash=True))
 
 
-FORWARD_CASES = ["stacked", "decoder_ce", "decoder_masses", "decoder_teacher"]
+FORWARD_CASES = ["stacked", "embed_train", "embed_finals", "decoder_ce",
+                 "decoder_masses", "decoder_teacher", "greedy_decode",
+                 "sample_decode"]
 # pointer arguments of each forward entry before its scratch: the C
-# signatures (the masses entry's first is its ranges array)
-FWD_POINTERS = {"stacked": 6, "decoder_ce": 18, "decoder_masses": 18,
-                "decoder_teacher": 14}
+# signatures (the masses entry's first is its ranges array; the decode
+# entries' last is their token output)
+FWD_POINTERS = {"stacked": 6, "embed_train": 8, "embed_finals": 7,
+                "decoder_ce": 18, "decoder_masses": 18, "decoder_teacher": 14,
+                "greedy_decode": 12, "sample_decode": 14}
 
 
 @pytest.mark.parametrize("case", FORWARD_CASES)
 def test_forward_launcher_passes_the_scratch(monkeypatch, case):
-    """Each forward launcher (the persistent chains' entries) asks the
-    library how much scratch its entry needs at the call's sizes, allocates
-    exactly that, and passes the buffer, its size and the stream as the
-    entry's last three arguments, with as many arguments as
-    `_build._declare` declared, an int for every int and a pointer for
-    every pointer: the stash buffers are passed, not None."""
+    """Each forward launcher (the persistent chains' entries, and the
+    decode's) asks the library how much scratch its entry needs at the
+    call's sizes, allocates exactly that, and passes the buffer, its size
+    and the stream as the entry's last three arguments, with as many
+    arguments as `_build._declare` declared, an int for every int and a
+    pointer for every pointer: the stash buffers are passed, not None."""
     import ctypes
     lib, made = _fake_library(monkeypatch, rc=0)
     entry, size_fn, dims, launch = _forward_launch(case)
@@ -696,8 +722,8 @@ def test_forward_launcher_passes_the_scratch(monkeypatch, case):
 
 @pytest.mark.parametrize("case", FORWARD_CASES)
 def test_forward_launcher_raises_on_a_cuda_error(monkeypatch, case):
-    """A refused cooperative launch of a forward chain raises; the
-    wrapper takes no other path."""
+    """A refused cooperative launch of a forward chain or of the decode
+    raises; the wrapper takes no other path."""
     _fake_library(monkeypatch, rc=720)
     entry, _, _, launch = _forward_launch(case)
     with pytest.raises(RuntimeError, match=f"{entry}: CUDA error 720"):
