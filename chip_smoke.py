@@ -30,13 +30,16 @@ against plain path), the rhythm and note controllability evaluators (every
 decoded row against the plain decode) and one epoch of the CVAE's
 condition sweep. Each training-kernel phase also runs its forward and its
 backward twice and fails unless every output and gradient has the same
-bits; the encoder's, the generic stacked GRU's and the three decoder
-phases print their backward's device ms by part (chain, head, NN GEMM, dW
-GEMM, scatter, sums; CUPTI) and its device launches, the generic stacked
+bits; the encoder's, the sub-decoders', the generic stacked GRU's and the
+three decoder phases print their backward's device ms by part (chain,
+head, NN GEMM, dW GEMM, scatter, sums; CUPTI) and its device launches (the
+sub-decoders' also at T/2: equal, and at most 3 kernels and a memset, or
+the phase fails; the rhythm direction's unused class rows must get an
+exact 0), the generic stacked
 GRU's and the three decoder phases also their forward's (step, chain,
 GEMM, head) with its kernel launches at T and at T/2 (equal, or the phase
 fails), and the stacked GRU's phase times kernel + einsum and cuDNN's
-bidirectional GRU in turns. A `ragged_backward` phase holds the five
+bidirectional GRU in turns. A `ragged_backward` phase holds the six
 backward entries against their plain versions at a shape that crosses
 the tiles of the persistent chains, the split-K seam and the NN GEMM's
 tiles, a `ragged_forward` phase the four forward entries of the
@@ -784,18 +787,22 @@ def main() -> int:
     def train_kernel_phase(phase, names, srcs, replaces, fn, plain, ids,
                            floats, cot, shape, flops, lib=None, extra=None,
                            split=False, pad_rows=None, raw_fwd=None,
-                           half=None):
+                           half=None, bwd_half=None, max_bwd_launches=None):
         """names/srcs/replaces: (forward, backward). flops: (forward,
         backward). lib: (forward callable, its leaves, its cotangent) or
         None. extra: more keys for the phase's line. split: also the
         backward's device ms by part (chain, dW GEMM, scatter, sums).
-        pad_rows: (index of a float input, first pad row) whose gradient
-        rows from there on must be exactly 0. raw_fwd: a call of the
+        pad_rows: (index of a float input, first pad row[, direction])
+        whose gradient rows from there on (of that direction only, when
+        given) must be exactly 0. raw_fwd: a call of the
         forward entry that returns every tensor it writes (outputs and
         gate stashes), held bit-equal over two calls. half: (fn, ids,
         floats) of the forward at T/2; with it the forward's device ms by
         part (step, chain, GEMM, head) and its kernel launches at T and
-        T/2 (memsets timed, not counted) join the line."""
+        T/2 (memsets timed, not counted) join the line. bwd_half: (ids,
+        floats, cot) at T/2; with it and `split`, the backward's device
+        launches at T/2 join the line and must equal those at T, and be
+        at most `max_bwd_launches` (kernels and memsets) when given."""
         ts, out, grads = fwd_bwd(fn, ids, floats, cot)
         _, out_p, grads_p = fwd_bwd(plain, ids, floats, cot)
         # the chains and reductions use no atomics: a second forward and a
@@ -808,8 +815,12 @@ def main() -> int:
         same_bits = all(torch.equal(a, b) for a, b in zip(grads, grads_2))
         fwd_same_bits = all(a is None and b is None or torch.equal(a, b)
                             for a, b in fwd_again)
+        if pad_rows is not None:
+            pad_grad = grads[pad_rows[0]]
+            if len(pad_rows) > 2:
+                pad_grad = pad_grad[pad_rows[2]:pad_rows[2] + 1]
         pads_zero = (pad_rows is None or float(
-            grads[pad_rows[0]][:, pad_rows[1]:].abs().max()) == 0.0)
+            pad_grad[:, pad_rows[1]:].abs().max()) == 0.0)
         del grads_2, fwd_again
         out_err = float((out - out_p).detach().abs().max())
         g_abs, g_rel = grad_errors(grads, grads_p)
@@ -831,6 +842,13 @@ def main() -> int:
                 out, ts, cot, retain_graph=True))
             bwd_split = {"bwd_split_ms": bwd_split[0],
                          "bwd_launches": bwd_split[1]}
+            if bwd_half is not None:
+                bh_ids, bh_floats, bh_cot = bwd_half
+                bh_ts, bh_out, _ = fwd_bwd(fn, bh_ids, bh_floats, bh_cot)
+                bwd_split["bwd_launches_half_T"] = kernel_split(
+                    lambda: torch.autograd.grad(bh_out, bh_ts, bh_cot,
+                                                retain_graph=True))[1]
+                del bh_ts, bh_out
         fwd_split = None
         if half is not None:
             h_fn, h_ids, h_floats = half
@@ -874,6 +892,16 @@ def main() -> int:
                         f"{fwd_split}")
         if not pads_zero:
             return fail(f"{phase}: a pad row's gradient is not exactly 0")
+        if bwd_split is not None and bwd_half is not None and (
+                bwd_split["bwd_launches"]
+                != bwd_split["bwd_launches_half_T"]):
+            return fail(f"{phase}: the backward launches a kernel a step: "
+                        f"{bwd_split}")
+        if max_bwd_launches is not None and not (
+                0 < bwd_split["bwd_launches"] <= max_bwd_launches):
+            return fail(f"{phase}: the backward made "
+                        f"{bwd_split['bwd_launches']} device launches, more "
+                        f"than {max_bwd_launches}")
         for i, (nm, src, rep, err, ms_, pms, lms, bd, by) in enumerate((
                 (names[0], srcs[0], replaces[0], out_err, k_f, p_f, l_f,
                  f_bound, f_by),
@@ -972,6 +1000,10 @@ def main() -> int:
     sub_leaves = [p_ for g_ in sub_lib for p_ in g_.parameters()] + [
         s_h0_lib]
     sub_f = 2.0 * 2 * A * TB * H * G
+    # the backward: one memset, the chain (which also sums the classes,
+    # dprez and db_hh), the dW_hh GEMM and its split-K sum, at T and T/2;
+    # direction 0 (rhythm) has no ids past rhythm_dims: those rows of its
+    # dW_emb must be exactly 0
     rc = train_kernel_phase(
         "train_subdecoder_kernels", ("embed_seq", "embed_seq_bwd"),
         (csrc + "gru_fwd_chain.cu", csrc + "embed_gru_bwd.cu"),
@@ -979,13 +1011,20 @@ def main() -> int:
         cuda_gru.stacked_gru_embed_seq_plain, cls_lt,
         [w_emb, prez, s_whh, s_bhh, s_h0], s_cot,
         {"L": 2, "T": A, "B": TB, "H": H, "C": C},
-        (sub_f, 2 * sub_f), lib=(cudnn_sub, sub_leaves, s_cot),
+        (sub_f, 2 * sub_f), lib=(cudnn_sub, sub_leaves, s_cot), split=True,
+        pad_rows=(0, cfg.rhythm_dims, 0), max_bwd_launches=4,
         raw_fwd=lambda: cuda_gru._launch_train_fwd(
             cls_lt, w_emb, prez, s_whh, s_bhh, s_h0, True),
         half=(cuda_gru.stacked_gru_embed_seq, cls_lt[:, :A // 2].contiguous(),
-              [w_emb, prez, s_whh, s_bhh, s_h0]))
+              [w_emb, prez, s_whh, s_bhh, s_h0]),
+        bwd_half=(cls_lt[:, :A // 2].contiguous(),
+                  [w_emb, prez, s_whh, s_bhh, s_h0],
+                  s_cot[:, :A // 2].contiguous()))
     if rc:
         return rc
+    if cuda_gru.LAST_TRAIN_PATH != "kernel":
+        return fail("train_subdecoder_kernels: the sub-decoders' call took "
+                    f"the {cuda_gru.LAST_TRAIN_PATH} path")
     del sub_lib, sub_x
 
     # decoder + cross-entropy: T=100, B=128, Vp=384 (kernels 9, 10)
@@ -1166,8 +1205,9 @@ def main() -> int:
     # the decoder's NN GEMM at a ragged shape: B = 37 (a partial row tile,
     # the h0 | h_seq seam inside the GEMM's first k-slabs), T = 21 (T * B =
     # 777 rows: K splits, a partial last slab, a partial NN row tile), H =
-    # 136 (an 8-unit column tile, partial GEMM tiles), the two GRU backward
-    # entries and the three decoder backward entries (the CE head and no
+    # 136 (an 8-unit column tile, partial GEMM tiles), the three GRU
+    # backward entries (the sub-decoders' with ids outside its class table)
+    # and the three decoder backward entries (the CE head and no
     # head at B = 37, the masses head at n_rep = 4 copies of 9 token rows)
     # against autograd of their plain versions
     rL, rT, rB, rH = 2, 21, 37, 136
@@ -1201,11 +1241,22 @@ def main() -> int:
     rB0, r_rep = 9, 4
     r_ranges = (lambda f: lambda ids, *fl: f(ids, *fl, GLSR_MASK_RANGES,
                                              r_rep))
+    # the sub-decoders: a 16-row class table, direction 0's ids in [0, 3),
+    # direction 1's in [-2, 18) (ids outside the table add nothing)
+    r_cls = torch.stack([
+        torch.randint(0, 3, (rT, rB), generator=r_gen),
+        torch.randint(-2, 18, (rT, rB), generator=r_gen)]).to(
+            torch.int32).to(dev)
+    r_seq = [r_rand((rL, 16, 3 * rH), 0.2), r_rand((rL, rB, 3 * rH), 0.2),
+             r_whh, r_bhh, r_h0]
     ragged = {}
     for name, fn, plain, ids, floats, cot in (
             ("embed_gru_bwd", cuda_gru.stacked_gru_embed_finals,
              cuda_gru.stacked_gru_embed_finals_plain, r_tok,
              [r_wih, r_bih, r_whh, r_bhh, r_h0], r_rand((rL, rB, rH), 1.0)),
+            ("embed_seq_bwd", cuda_gru.stacked_gru_embed_seq,
+             cuda_gru.stacked_gru_embed_seq_plain, r_cls, r_seq,
+             r_rand((rL, rT, rB, rH), 1.0)),
             ("stacked_gru_bwd", skip_ids(cuda_stacked.stacked_gru),
              skip_ids(cuda_stacked.stacked_gru_plain), no_ids,
              [r_pre, r_whh, r_bhh, r_h0], r_rand((rL, rT, rB, rH), 1.0)),
@@ -1240,7 +1291,7 @@ def main() -> int:
         if not (e["out_max_abs_err"] <= TOL_TRAIN_OUT
                 and e["grad_max_rel_err"] <= TOL_TRAIN_GRAD_REL):
             return fail(f"ragged_backward, {name}: {e}")
-    del r_wih, r_pre, r_grads, r_grads_p, r_head
+    del r_wih, r_pre, r_grads, r_grads_p, r_head, r_seq
 
     # the four forward entries (the persistent forward chain, its partial
     # 16-row tiles, one step, an 8-unit column tile, a ragged k) without a

@@ -5,9 +5,11 @@
 // (backward of stacked_gru_embed_finals, the encoder: cotangent on the
 // final states only) and ::_bwd_embed_seq_kernel (backward of
 // stacked_gru_embed_seq, the sub-decoders: a cotangent on every step).
-// One entry, fader_embed_gru_bwd; `seq_grad` picks the cotangent form. The
-// chain also serves stacked_gru.cu's backward (kernel 2) and, once a layer,
-// the teacher-forced decoder's (decoder_ce_bwd.cu, kernels 8 and 10).
+// fader_embed_gru_bwd takes either cotangent form (`seq_grad`);
+// fader_embed_seq_bwd is the sub-decoders' own entry for class tables of at
+// most kSeqClasses (16) rows, the model's. The chain also serves
+// stacked_gru.cu's backward (kernel 2) and, once a layer, the
+// teacher-forced decoder's (decoder_ce_bwd.cu, kernels 8 and 10).
 //
 // What it computes, walking t from T-1 down to 0 with dh = 0:
 //   dh      += g_t                      (g_fin at t = T-1, or g_seq[t])
@@ -49,6 +51,25 @@
 // reads 12 words for 32 FMAs (8 for 16 in a 16-row tile), and the slabs
 // landing in shared memory take their share of the same port. The weight
 // gradients are grad_reduce.cu's deterministic GEMM, scatter and sums.
+//
+// The sub-decoders' mode (gru_bwd_chain<RB, true>, fader_embed_seq_bwd;
+// L=2, T=16, B=128, H=512, 16 class rows): at T=16 a call's fixed costs
+// weigh (the parent design's 7 kernels, a transpose and 100 MB of stash
+// round trips), so the cheap reductions move into the chain and dpre_x
+// never reaches device memory. The recurrence is the other mode's, sum for
+// sum. A block reads w_hh itself (no transposed copy), staged through a
+// cp.async ring; each thread keeps, over all steps, its rows' dprez (a
+// block owns those rows and units, so they are stored once at the end),
+// its unit's db_hh over its rows and its unit's dW_emb row of each class
+// (16 x 3 registers, a predicated add for each class: branches on the
+// warp-uniform class cost more, summing after the loop from the stash more
+// still). At the end the 8 warps' sums are added in warp order through
+// shared memory into a partial per row tile, and the last row tile of a
+// unit block to arrive (an atomic counter) adds the tiles' partials in
+// tile order: every sum has a fixed order, no float atomics. dW_hh stays
+// the split-K GEMM over the dph stash: 3 kernels and 1 memset a call.
+#include <type_traits>
+
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
@@ -81,13 +102,226 @@ struct ChainParams {
   unsigned* counters;   // one per (direction, row tile), kCtrStride apart
 };
 
+// ----------------------------------------------------------------------
+// The sub-decoders' mode of the chain (gru_bwd_chain<RB, true>): what it
+// adds to the chain's steps, kept apart so that the other mode compiles as
+// it did.
+
+constexpr int kSeqClasses = 16;   // most class rows it sums in registers
+// k columns of w_hh a block stages at a time, in a ring of kStageBufs
+// [32][kStageK + 1] tiles (a row stride of 1 modulo 32 banks)
+constexpr int kStageK = 64;
+constexpr int kStageBufs = 3;
+
+struct SeqChainParams : ChainParams {
+  const int* ids;       // (L, T, B) class ids; rows outside [0, V) add nothing
+  int V;                // class rows, at most kSeqClasses
+  const float* w_hh;    // (L, H, 3H), read in place of w_hhT
+  float* dprez;         // (L, B, 3H)
+  float* dw_emb;        // (L, V, 3H)
+  float* db_hh;         // (L, 3H)
+  float* part;          // (L, row tiles, V + 1, 3H): the tiles' class and
+                        // bias partials
+  unsigned* done;       // one per (direction, unit block), kCtrStride apart
+};
+
+template <bool kSeq>
+using ChainParamsOf =
+    typename std::conditional<kSeq, SeqChainParams, ChainParams>::type;
+
+// What a thread keeps over all steps: the classes of its rows at the step
+// to come, its rows' dprez, and its unit's db_hh and dW_emb rows over its
+// rows. The other mode keeps nothing (NoSums).
+template <int RT>
+struct SeqSums {
+  int id[RT];
+  float x[RT][3] = {};
+  float b[3] = {};
+  float c[kSeqClasses][3] = {};
+};
+struct NoSums {};
+
+// s[0..2] += (x, y, z) where `take`: predicated adds, so that the caller's
+// register arrays keep static indices
+__device__ __forceinline__ void add_if(bool take, float (&s)[3], float x,
+                                       float y, float z) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.ne.s32 p, %3, 0;\n\t"
+      "@p add.rn.f32 %0, %0, %4;\n\t"
+      "@p add.rn.f32 %1, %1, %5;\n\t"
+      "@p add.rn.f32 %2, %2, %6;\n\t}"
+      : "+f"(s[0]), "+f"(s[1]), "+f"(s[2])
+      : "r"((int)take), "f"(x), "f"(y), "f"(z));
+}
+
+// sW[k][c] = w_hh[l][c0 + c][k] (zero past G or H): w_hh's rows c0 ..
+// c0+31 transposed through a ring of staging tiles in `buf`, cp.async
+// copies of the rows, coalesced, two tiles ahead; both shared-memory passes
+// free of bank conflicts.
+__device__ __forceinline__ void seq_stage_w_hh(const SeqChainParams& p,
+                                               float* sW, float* buf, int l,
+                                               int c0, int Gp) {
+  constexpr int kRow = kStageK + 1;
+  constexpr int kPer = kChainCols * kStageK / kThreads;
+  static_assert(kStageBufs * kChainCols * kRow <= kChainBuf, "ring fits");
+  const int H = p.H, G = 3 * H, tid = threadIdx.x;
+  const float* wl = p.w_hh + (size_t)l * H * G;
+  const int nch = (Gp + kStageK - 1) / kStageK;
+  auto stage = [&](int ch) {
+    if (ch < nch) {
+      float* stg = buf + (ch % kStageBufs) * kChainCols * kRow;
+#pragma unroll
+      for (int n = 0; n < kPer; ++n) {
+        const int idx = tid + n * kThreads;
+        const int c = idx / kStageK, kk = idx % kStageK;
+        const int k = ch * kStageK + kk;
+        const bool ok = k < G && c0 + c < H;
+        cp_async<4>(stg + c * kRow + kk,
+                    ok ? wl + (size_t)(c0 + c) * G + k : wl, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int ch = 0; ch < kStageBufs - 1; ++ch) stage(ch);
+  for (int ch = 0; ch < nch; ++ch) {
+    // the tile refilled here was read at ch - 1, which every thread left
+    stage(ch + kStageBufs - 1);
+    cp_async_wait<kStageBufs - 1>();
+    __syncthreads();
+    const float* stg = buf + (ch % kStageBufs) * kChainCols * kRow;
+#pragma unroll
+    for (int n = 0; n < kPer; ++n) {
+      const int idx = tid + n * kThreads;
+      const int kk = idx / kChainCols, c = idx % kChainCols;
+      const int k = ch * kStageK + kk;
+      if (k < Gp) sW[(size_t)k * kChainCols + c] = stg[c * kRow + kk];
+    }
+    __syncthreads();
+  }
+}
+
+// s.id = the classes of the thread's rows at step t (-1 for a pad row or
+// an id outside [0, V)); a row's class is the same for every lane.
+template <int RB>
+__device__ __forceinline__ void seq_load_ids(const SeqChainParams& p,
+                                             SeqSums<RB / 8>& s, int l,
+                                             int t, int b0, int warp) {
+#pragma unroll
+  for (int i = 0; i < RB / 8; ++i) {
+    const int b = b0 + chain_row<RB>(warp, i);
+    int id = -1;
+    if (b < p.B) id = p.ids[((size_t)l * p.T + t) * p.B + b];
+    s.id[i] = (id >= 0 && id < p.V) ? id : -1;
+  }
+}
+
+// One step's dpre values of the thread's rows into its sums, in t order
+// T-1 .. 0 and, within a step, in row order (pad rows and columns hold
+// zeros and class -1); the class by a predicated add for each class.
+template <int RT>
+__device__ __forceinline__ void seq_add(SeqSums<RT>& s, const float (&dar)[RT],
+                                        const float (&daz)[RT],
+                                        const float (&dan)[RT],
+                                        const float (&dhn)[RT]) {
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    s.x[i][0] += dar[i];
+    s.x[i][1] += daz[i];
+    s.x[i][2] += dan[i];
+    s.b[0] += dar[i];
+    s.b[1] += daz[i];
+    s.b[2] += dhn[i];
+    const int id = s.id[i];
+#pragma unroll
+    for (int v = 0; v < kSeqClasses; ++v)
+      add_if(id == v, s.c[v], dar[i], daz[i], dan[i]);
+  }
+}
+
+// After the last step: the thread's dprez rows, stored once (the block
+// owns them); the tile's class and bias partials, the warps' sums added in
+// warp order through `buf` (free since the loop's last barrier), one gate
+// at a time, row V of a tile's partials being the bias; then the last of
+// the unit block's row tiles to arrive adds the tiles' partials in tile
+// order: the same bits whichever block is last.
+template <int RB>
+__device__ __forceinline__ void seq_finish(const SeqChainParams& p,
+                                           const SeqSums<RB / 8>& s,
+                                           float* buf, int l, int b0,
+                                           int c0) {
+  const int B = p.B, H = p.H, G = 3 * H, V = p.V, ntile = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int j = c0 + lane;
+#pragma unroll
+  for (int i = 0; i < RB / 8; ++i) {
+    const int b = b0 + chain_row<RB>(warp, i);
+    if (j < H && b < B) {
+      float* pz = p.dprez + ((size_t)l * B + b) * G;
+      pz[j] = s.x[i][0];
+      pz[H + j] = s.x[i][1];
+      pz[2 * H + j] = s.x[i][2];
+    }
+  }
+  constexpr int kRows = kSeqClasses + 1;
+  float* part = p.part + (size_t)l * ntile * (V + 1) * G;
+  // (selects by gate keep the register arrays' indices static)
+  auto pick = [](const float (&x)[3], int gate) {
+    return gate == 0 ? x[0] : gate == 1 ? x[1] : x[2];
+  };
+  for (int gate = 0; gate < 3; ++gate) {
+#pragma unroll
+    for (int v = 0; v < kSeqClasses; ++v)
+      buf[(warp * kRows + v) * kChainCols + lane] = pick(s.c[v], gate);
+    buf[(warp * kRows + kSeqClasses) * kChainCols + lane] = pick(s.b, gate);
+    __syncthreads();
+    for (int idx = tid; idx < (V + 1) * kChainCols; idx += kThreads) {
+      const int v = idx / kChainCols, c = idx % kChainCols;
+      const int row = v == V ? kSeqClasses : v;
+      float sum = buf[row * kChainCols + c];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w)
+        sum += buf[(w * kRows + row) * kChainCols + c];
+      if (c0 + c < H)
+        part[((size_t)blockIdx.y * (V + 1) + v) * G + gate * H + c0 + c] =
+            sum;
+    }
+    __syncthreads();
+  }
+  __threadfence();
+  __syncthreads();
+  int* last = reinterpret_cast<int*>(buf);
+  if (tid == 0) {
+    const unsigned n =
+        atomicAdd(p.done + (l * gridDim.x + blockIdx.x) * kCtrStride, 1u);
+    *last = n == (unsigned)ntile - 1;
+  }
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  for (int idx = tid; idx < (V + 1) * 3 * kChainCols; idx += kThreads) {
+    const int v = idx / (3 * kChainCols), gc = idx % (3 * kChainCols);
+    const int c = c0 + gc % kChainCols;
+    if (c >= H) continue;
+    const size_t col = (size_t)v * G + (gc / kChainCols) * H + c;
+    float sum = __ldcg(part + col);
+    for (int y = 1; y < ntile; ++y)
+      sum += __ldcg(part + (size_t)y * (V + 1) * G + col);
+    if (v < V)
+      p.dw_emb[(size_t)l * V * G + col] = sum;
+    else
+      p.db_hh[(size_t)l * G + (col - (size_t)V * G)] = sum;
+  }
+}
+
 inline size_t chain_smem_bytes(int H) {
   const size_t Gp = (size_t)(3 * H + kChainGPad - 1) / kChainGPad * kChainGPad;
   return (Gp * kChainCols + kChainBuf) * sizeof(float);
 }
 
-template <int RB>
-__global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
+template <int RB, bool kSeq>
+__global__ void __launch_bounds__(kThreads, 1)
+    gru_bwd_chain(ChainParamsOf<kSeq> p) {
   static_assert(RB == 16 || RB == 32 || RB == 64, "row tiles of 16-64");
   constexpr int RT = RB / 8;      // rows a thread owns (gate phase, epilogue)
   constexpr int NQ = RB / 4;      // row quads of the tile
@@ -111,9 +345,13 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
   const size_t BH = (size_t)B * H;
 
   const float* wl = p.w_hhT + (size_t)l * G * H;
-  for (int idx = tid; idx < Gp * kChainCols; idx += kThreads) {
-    const int k = idx / kChainCols, c = idx % kChainCols;
-    sW[idx] = (k < G && c0 + c < H) ? wl[(size_t)k * H + c0 + c] : 0.f;
+  if constexpr (kSeq) {
+    seq_stage_w_hh(p, sW, buf, l, c0, Gp);
+  } else {
+    for (int idx = tid; idx < Gp * kChainCols; idx += kThreads) {
+      const int k = idx / kChainCols, c = idx % kChainCols;
+      sW[idx] = (k < G && c0 + c < H) ? wl[(size_t)k * H + c0 + c] : 0.f;
+    }
   }
 
   // gate inputs of the step to come, loaded a step ahead
@@ -150,7 +388,9 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
   float* ring = buf + warp * (kChainStages * kWarpK * WR);
 
   float dh[RT] = {};
+  typename std::conditional<kSeq, SeqSums<RT>, NoSums>::type seq;
   prefetch(T - 1);
+  if constexpr (kSeq) seq_load_ids<RB>(p, seq, l, T - 1, b0, warp);
   __syncthreads();
   for (int t = T - 1, step = 1; t >= 0; --t, ++step) {
     // ---- gate backward of the block's own units
@@ -216,13 +456,19 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
         const size_t lt = ((size_t)l * T + t) * B + b;
         float* px = p.dpx + lt * G;
         float* pq = p.dph + lt * G;
-        px[j] = dar[i];
-        px[H + j] = daz[i];
-        px[2 * H + j] = dan[i];
+        if constexpr (!kSeq) {   // the sub-decoders' mode sums dpre_x
+          px[j] = dar[i];
+          px[H + j] = daz[i];
+          px[2 * H + j] = dan[i];
+        }
         pq[j] = dar[i];
         pq[H + j] = daz[i];
         pq[2 * H + j] = dhn[i];
       }
+    }
+    if constexpr (kSeq) {
+      seq_add(seq, dar, daz, dan, dhn);
+      if (t > 0) seq_load_ids<RB>(p, seq, l, t - 1, b0, warp);
     }
     if (t > 0) prefetch(t - 1);
     if (tid == 0) {
@@ -314,16 +560,44 @@ __global__ void __launch_bounds__(kThreads, 1) gru_bwd_chain(ChainParams p) {
     const int b = b0 + chain_row<RB>(warp, i);
     if (col_ok && b < B) p.dh0[l * BH + (size_t)b * H + j] = dh[i];
   }
+  if constexpr (kSeq) seq_finish<RB>(p, seq, buf, l, b0, c0);
 }
 
 namespace {
 
-template <int RB>
-cudaError_t try_chain(const ChainParams& p, bool* fits, cudaStream_t s) {
+template <int RB, bool kSeq>
+cudaError_t try_chain(const ChainParamsOf<kSeq>& p, bool* fits,
+                      cudaStream_t s) {
   const dim3 grid((p.H + kChainCols - 1) / kChainCols, (p.B + RB - 1) / RB,
                   p.L);
-  return try_cooperative(gru_bwd_chain<RB>, grid, chain_smem_bytes(p.H), p,
-                         fits, s);
+  return try_cooperative(gru_bwd_chain<RB, kSeq>, grid,
+                         chain_smem_bytes(p.H), p, fits, s);
+}
+
+// the smallest row tile whose whole grid is resident at once
+template <bool kSeq>
+cudaError_t launch_chain(const ChainParamsOf<kSeq>& p, cudaStream_t s) {
+  bool fits = false;
+  cudaError_t err;
+  if ((err = try_chain<16, kSeq>(p, &fits, s)) != cudaSuccess || fits)
+    return err;
+  if ((err = try_chain<32, kSeq>(p, &fits, s)) != cudaSuccess || fits)
+    return err;
+  if ((err = try_chain<64, kSeq>(p, &fits, s)) != cudaSuccess || fits)
+    return err;
+  return cudaErrorCooperativeLaunchTooLarge;
+}
+
+// The sub-decoders' scratch: the step barriers' counters, then the unit
+// blocks' arrival counters, the k-major dpre_h buffers, the dph stash (L,
+// T, B, 3H), the row tiles' class and bias partials (sized for 16-row
+// tiles), and the dW_hh GEMM's split-K partial tiles.
+long long seq_done_floats(int L, int H) {
+  return (long long)L * ((H + kChainCols - 1) / kChainCols) * kCtrStride;
+}
+
+long long seq_part_floats(int L, int B, int H) {
+  return (long long)L * ((B + 15) / 16) * (kSeqClasses + 1) * 3 * H;
 }
 
 }  // namespace
@@ -344,12 +618,7 @@ cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
   const ChainParams p{L, T, B, H, chain_bp(B), g, g_ls, g_ts, g_every_step,
                       stash, h_seq, h0, w_hhT, dpx, dph, dh0, scratch + nctr,
                       reinterpret_cast<unsigned*>(scratch)};
-  // the smallest row tile whose whole grid is resident at once
-  bool fits = false;
-  if ((err = try_chain<16>(p, &fits, s)) != cudaSuccess || fits) return err;
-  if ((err = try_chain<32>(p, &fits, s)) != cudaSuccess || fits) return err;
-  if ((err = try_chain<64>(p, &fits, s)) != cudaSuccess || fits) return err;
-  return cudaErrorCooperativeLaunchTooLarge;
+  return launch_chain<false>(p, s);
 }
 
 }  // namespace fader
@@ -404,4 +673,64 @@ extern "C" int fader_embed_gru_bwd(int L, int T, int B, int H, int V,
                      s)) != cudaSuccess)
     return (int)err;
   return (int)colsum(L, R, (int)G, dph, db_hh, red, s);
+}
+
+// Floats of scratch fader_embed_seq_bwd needs at these sizes on the current
+// device.
+extern "C" long long fader_embed_seq_bwd_scratch_floats(int L, int T, int B,
+                                                        int H) {
+  using namespace fader;
+  const long long G = 3LL * H;
+  return chain_scratch_floats(L, B, H) + seq_done_floats(L, H) +
+         (long long)L * T * B * G + seq_part_floats(L, B, H) +
+         reduce_scratch_floats(L, H, (int)G, T * B);
+}
+
+// The sub-decoders' backward (kernel 6) from the per-step cotangent g (L, T,
+// B, H), with at most kSeqClasses class rows (V): ids (L, T, B) int32;
+// stash (L, T, B, 4H), h_seq (L, T, B, H), h0 (L, B, H) from the forward;
+// w_hh (L, H, 3H) as the model holds it. Outputs: dw_emb (L, V, 3H), dprez
+// (L, B, 3H), dw_hh (L, H, 3H), db_hh (L, 3H), dh0 (L, B, H). T >= 1.
+// One memset of the counters, one cooperative launch of the chain in its
+// sub-decoders' mode, which also sums dprez, db_hh and dW_emb, then the
+// dW_hh GEMM over the dph stash (two kernels): whatever T is.
+extern "C" int fader_embed_seq_bwd(int L, int T, int B, int H, int V,
+                                   const int* ids, const float* g,
+                                   const float* stash, const float* h_seq,
+                                   const float* h0, const float* w_hh,
+                                   float* dw_emb, float* dprez, float* dw_hh,
+                                   float* db_hh, float* dh0, float* scratch,
+                                   long long scratch_floats, void* stream) {
+  using namespace fader;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (V < 0 || V > kSeqClasses ||
+      scratch_floats < fader_embed_seq_bwd_scratch_floats(L, T, B, H))
+    return (int)cudaErrorInvalidValue;
+  const long long BH = (long long)B * H, G = 3LL * H, R = (long long)T * B;
+  const long long nctr = chain_counter_floats(L, B);
+  const long long ndone = seq_done_floats(L, H);
+  float* dphT = scratch + nctr + ndone;
+  float* dph = dphT + (chain_scratch_floats(L, B, H) - nctr);
+  float* part = dph + L * R * G;
+  float* red = part + seq_part_floats(L, B, H);
+  cudaError_t err =
+      cudaMemsetAsync(scratch, 0, (nctr + ndone) * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  SeqChainParams p;
+  static_cast<ChainParams&>(p) =
+      ChainParams{L, T, B, H, chain_bp(B), g, T * BH, BH, 1, stash, h_seq, h0,
+                  nullptr, nullptr, dph, dh0, dphT,
+                  reinterpret_cast<unsigned*>(scratch)};
+  p.ids = ids;
+  p.V = V;
+  p.w_hh = w_hh;
+  p.dprez = dprez;
+  p.dw_emb = dw_emb;
+  p.db_hh = db_hh;
+  p.part = part;
+  p.done = reinterpret_cast<unsigned*>(scratch + nctr);
+  if ((err = launch_chain<true>(p, s)) != cudaSuccess) return (int)err;
+  SplitRows hp{h0, BH, B, h_seq, T * BH, H};
+  return (int)gemm_tn(L, H, (int)G, (int)R, hp, dph, R * G, dw_hh, H * G,
+                      red, s);
 }

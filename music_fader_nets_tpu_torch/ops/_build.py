@@ -111,6 +111,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_embed_gru_train.restype = I
     lib.fader_embed_gru_bwd.argtypes = [I] * 6 + [P] * 14 + tail
     lib.fader_embed_gru_bwd.restype = I
+    lib.fader_embed_seq_bwd.argtypes = [I] * 5 + [P] * 11 + tail
+    lib.fader_embed_seq_bwd.restype = I
     lib.fader_decoder_ce.argtypes = [I] * 4 + [P] * 18 + tail
     lib.fader_decoder_ce.restype = I
     lib.fader_decoder_ce_bwd.argtypes = [I] * 4 + [P] * 31 + tail
@@ -132,6 +134,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_decode_scratch_floats.argtypes = [I] * 2
     lib.fader_decode_scratch_floats.restype = LL
     for fn in (lib.fader_gru_bwd_scratch_floats,
+               lib.fader_embed_seq_bwd_scratch_floats,
                lib.fader_decoder_bwd_scratch_floats):
         fn.argtypes = [I] * 4
         fn.restype = LL

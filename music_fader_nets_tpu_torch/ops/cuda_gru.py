@@ -31,6 +31,11 @@ from music_fader_nets_tpu_torch.ops.gru import _gates
 # the backward chain, plus the reductions)
 LAUNCHES = {"embed_gru": 0, "embed_gru_train": 0, "embed_gru_bwd": 0,
             "embed_seq": 0, "embed_seq_bwd": 0}
+# most class-table rows the sub-decoders' backward sums inside its chain
+# (`csrc/embed_gru_bwd.cu::kSeqClasses`); a larger table (the JAX path's
+# padded 128-row one) takes the generic entry, its dpre_x stash and the
+# class scatter after the chain
+SEQ_CLASSES = 16
 # which path served the last encoder call: "kernel" or "plain-cpu"
 LAST_ENCODE_PATH = None
 # which path served the last call that builds a gradient (encoder with
@@ -175,6 +180,34 @@ def _launch_bwd(ids, g, seq_grad: bool, stash, h_seq, h0, w_hh, V: int,
     return dw_in, db_in, dprez, dw_hh, db_hh, dh0
 
 
+def _launch_seq_bwd(ids, g, stash, h_seq, h0, w_hh, V: int):
+    """fader_embed_seq_bwd, the sub-decoders' backward for class tables of
+    at most SEQ_CLASSES rows: (dw_emb (L,V,3H), dprez (L,B,3H), dw_hh,
+    db_hh, dh0)."""
+    L, T, B = ids.shape
+    H = h0.shape[-1]
+    G = 3 * H
+    dev = h0.device
+    lib = _build.load_library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dw_emb = torch.empty((L, V, G), **f32)
+    dprez = torch.empty((L, B, G), **f32)
+    dw_hh = torch.empty((L, H, G), **f32)
+    db_hh = torch.empty((L, G), **f32)
+    dh0 = torch.empty((L, B, H), **f32)
+    with torch.cuda.device(dev):
+        scratch, n_scratch = _build.entry_scratch(
+            lib.fader_embed_seq_bwd_scratch_floats, (L, T, B, H), dev)
+        err = lib.fader_embed_seq_bwd(
+            L, T, B, H, V, ids.data_ptr(), g.data_ptr(), stash.data_ptr(),
+            h_seq.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
+            dw_emb.data_ptr(), dprez.data_ptr(), dw_hh.data_ptr(),
+            db_hh.data_ptr(), dh0.data_ptr(), scratch.data_ptr(), n_scratch,
+            _stream(dev))
+    _build.check(err, "fader_embed_seq_bwd")
+    return dw_emb, dprez, dw_hh, db_hh, dh0
+
+
 def _mask(ctx, grads):
     """None for every input that asked for no gradient."""
     return tuple(g if need else None
@@ -221,9 +254,13 @@ class EmbedSeq(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_seq):
         cls_lt, w_hh, h0, h_seq, stash = ctx.saved_tensors
-        dw_emb, _, dprez, dw_hh, db_hh, dh0 = _launch_bwd(
-            cls_lt, g_seq.contiguous(), True, stash, h_seq, h0, w_hh, ctx.V,
-            want_db_in=False, want_dprez=True)
+        if ctx.V <= SEQ_CLASSES:
+            dw_emb, dprez, dw_hh, db_hh, dh0 = _launch_seq_bwd(
+                cls_lt, g_seq.contiguous(), stash, h_seq, h0, w_hh, ctx.V)
+        else:
+            dw_emb, _, dprez, dw_hh, db_hh, dh0 = _launch_bwd(
+                cls_lt, g_seq.contiguous(), True, stash, h_seq, h0, w_hh,
+                ctx.V, want_db_in=False, want_dprez=True)
         LAUNCHES["embed_seq_bwd"] += 1
         del h_seq, stash
         return _mask(ctx, (None, dw_emb, dprez, dw_hh, db_hh, dh0))

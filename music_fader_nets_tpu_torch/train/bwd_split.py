@@ -5,7 +5,10 @@ one GPU.
 
 Runs, at the config's full width (T=seq_len, B=batch_size, H=hidden_dims;
 random weights and inputs from a seed), the backward of the encoder
-(`stacked_gru_embed_finals`, L=4), of the generic stacked GRU
+(`stacked_gru_embed_finals`, L=4), of the sub-decoders
+(`stacked_gru_embed_seq`, L=2, T=attr_len, a class table of max(rhythm_dims,
+note_dims) rows, the rhythm direction's ids in [0, rhythm_dims), the note
+direction's in [0, note_dims): row 6), of the generic stacked GRU
 (`stacked_gru`, L=2) and of the teacher-forced decoder with the CE head
 (`decoder_teacher_nll`, row 10), with the masses head (`decoder_teacher_
 masses`, GLSR's n_rep=4 copies of B rows and `GLSR_MASK_RANGES`, row
@@ -16,10 +19,11 @@ backward call split by what its kernels do (`chain`: the dh recurrences;
 recurrence, dh2_head = dlogits w_out^T and the decoder's cross-layer
 cotangent; `dw_gemm`: dW = h_prev^T dpre with its split-K sum; `scatter`:
 the token scatter of dW_in; `sums`: the bias and per-sequence sums;
-`other`: memsets, the weight transposes, autograd's own copies), the
-call's device launches (kernels and memsets; for the decoder rows also at
-T/2, to show that no launch is made per step) and the call's time by CUDA
-events. Runs on CUDA only; device times from CUPTI.
+`other`: memsets, the weight transposes, autograd's own copies; the
+sub-decoders' chain sums their classes, dprez and db_hh itself), the
+call's device launches (kernels and memsets; for the sub-decoders and the
+decoder rows also at T/2, to show that no launch is made per step) and the
+call's time by CUDA events. Runs on CUDA only; device times from CUPTI.
 """
 from __future__ import annotations
 
@@ -153,6 +157,24 @@ def decoder_rows(T, B, H, V, rand, dev):
                 T, B, H, V, rand, dev).items()}
 
 
+def embed_seq_case(cfg, T, rand, gen, dev):
+    """(shape, fn, float inputs, output cotangent) of the sub-decoders'
+    entry at T steps, as the main path calls it: L = 2 directions (rhythm,
+    note) over B = batch_size rows, a class table of max(rhythm_dims,
+    note_dims) rows, direction 0's ids in [0, rhythm_dims), direction 1's
+    in [0, note_dims)."""
+    L, B, H = 2, cfg.batch_size, cfg.hidden_dims
+    G, C = 3 * H, max(cfg.rhythm_dims, cfg.note_dims)
+    cls = torch.stack([
+        torch.randint(0, n, (T, B), generator=gen, dtype=torch.int32)
+        for n in (cfg.rhythm_dims, cfg.note_dims)]).to(dev)
+    return ({"L": L, "T": T, "B": B, "H": H, "C": C},
+            lambda *fl: cuda_gru.stacked_gru_embed_seq(cls, *fl),
+            [rand((L, C, G), 0.05), rand((L, B, G), 0.5),
+             rand((L, H, G), 0.04), rand((L, G), 0.05), rand((L, B, H), 0.5)],
+            rand((L, T, B, H), 1.0))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default=None)
@@ -178,6 +200,9 @@ def main(argv=None) -> None:
                     [rand((L, Vp, G), 0.05), rand((L, G), 0.05),
                      rand((L, H, G), 0.04), rand((L, G), 0.05),
                      rand((L, B, H), 0.1)], rand((L, B, H), 1.0)))
+    A = cfg.attr_len
+    shape, fn, floats, cot = embed_seq_case(cfg, A, rand, gen, dev)
+    rows["embed_seq_bwd"] = (shape, backward_of(fn, floats, cot))
     L = 2
     rows["stacked_gru_bwd"] = (
         {"L": L, "T": T, "B": B, "H": H},
@@ -187,6 +212,8 @@ def main(argv=None) -> None:
                     rand((L, T, B, H), 1.0)))
     rows.update(decoder_rows(T, B, H, V, rand, dev))
     half = decoder_rows(T // 2, B, H, V, rand, dev)
+    _, fn, floats, cot = embed_seq_case(cfg, A // 2, rand, gen, dev)
+    half["embed_seq_bwd"] = (None, backward_of(fn, floats, cot))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

@@ -165,19 +165,39 @@ def test_embed_finals_training_kernels_match_plain(dev, B, T, L, H):
     assert cuda_gru.LAUNCHES["embed_gru"] == before["embed_gru"]
 
 
-@pytest.mark.parametrize("B,T", [(1, 1), (1, 7), (37, 1), (37, 7)])
-def test_embed_seq_training_kernels_match_plain(dev, B, T):
+# (B, T, L, class-table rows, ids): with the JAX path's padded 128-row
+# table the generic backward entry (dpre_x stash, class scatter after the
+# chain); with the model's 16 rows the chain's sub-decoders' mode, which
+# sums the classes, dprez and db_hh itself: ids of the rhythm direction in
+# [0, 3), all ids in one class, ids outside [0, 16) (negative and >= 16:
+# no row), one direction, B = 130 (a ragged row tile)
+SEQ_CASES = [(1, 1, 2, 128, "all"), (1, 7, 2, 128, "all"),
+             (37, 1, 2, 128, "all"), (37, 7, 2, 128, "all"),
+             (1, 1, 2, 16, "all"), (37, 7, 2, 16, "all"),
+             (37, 7, 2, 16, "skewed"), (37, 7, 2, 16, "one_class"),
+             (37, 7, 2, 16, "outside"), (37, 7, 1, 16, "all"),
+             (130, 5, 2, 16, "all")]
+
+
+@pytest.mark.parametrize("B,T,L,rows,ids", SEQ_CASES)
+def test_embed_seq_training_kernels_match_plain(dev, B, T, L, rows, ids):
     gen = torch.Generator().manual_seed(B * 10 + T + 1)
-    L, C, H = 2, 16, 80
+    C, H = 16, 80
     G = 3 * H
-    w_emb = torch.zeros((L, 128, G))
+    w_emb = torch.zeros((L, rows, G))
     w_emb[:, :C] = torch.randn((L, C, G), generator=gen) * 0.2
     prez = torch.randn((L, B, G), generator=gen) * 0.2
     w_hh = torch.randn((L, H, G), generator=gen) * 0.1
     b_hh = torch.randn((L, G), generator=gen) * 0.1
     h0 = torch.randn((L, B, H), generator=gen) * 0.5
-    cls_lt = torch.randint(0, C, (L, T, B), generator=gen,
-                           dtype=torch.int32).to(dev)
+    lo, hi = (-3, C + 4) if ids == "outside" else (0, C)
+    cls_lt = torch.randint(lo, hi, (L, T, B), generator=gen,
+                           dtype=torch.int32)
+    if ids == "skewed":
+        cls_lt[0] %= 3
+    elif ids == "one_class":
+        cls_lt.fill_(5)
+    cls_lt = cls_lt.to(dev)
     before = dict(cuda_gru.LAUNCHES)
     _grad_check(cuda_gru.stacked_gru_embed_seq,
                 cuda_gru.stacked_gru_embed_seq_plain, cls_lt,

@@ -103,12 +103,18 @@ def test_embed_finals_values_and_grads_match_jax(pallas_interpret):
     assert not got_g[0][:, V:].any()
 
 
-def test_embed_seq_values_and_grads_match_jax(pallas_interpret):
+@pytest.mark.parametrize("B,skewed", [(4, False), (4, True), (7, False)],
+                         ids=["base", "skewed", "odd_B"])
+def test_embed_seq_values_and_grads_match_jax(pallas_interpret, B, skewed):
     """Kernels 5 and 6: the sub-decoders' h_seq and the gradients of w_emb,
     prez, w_hh, b_hh and h0, with the class table padded to Cp = 128 rows
-    as the JAX path pads it."""
-    L, T, B, H, C = 2, 8, 4, 32, 16
+    as the JAX path pads it; `skewed`: direction 0's ids only in [0, 3), as
+    the rhythm direction's are, so its other rows get exactly 0; and an
+    odd B."""
+    L, T, H, C = 2, 8, 32, 16
     ids, floats, rng = _embed_inputs(L, T, B, H, C, 128, 1, True)
+    if skewed:
+        ids[0] %= 3
     proj = _normal(rng, (L, T, B, H), 1.0)
     want, want_g = _jax_value_and_grads(pallas_gru.stacked_gru_embed_seq,
                                         ids, floats, proj)
@@ -120,6 +126,8 @@ def test_embed_seq_values_and_grads_match_jax(pallas_interpret):
                           want_g):
         np.testing.assert_allclose(g, w, err_msg=name, **EMBED_GRAD_TOL)
     assert not got_g[0][:, C:].any()
+    if skewed:
+        assert not got_g[0][0, 3:].any() and got_g[0][0, :3].all()
 
 
 def _decoder_params(H, Zt, seed):
@@ -242,10 +250,16 @@ def test_embed_finals_wrapper_differentiates_or_serves(monkeypatch,
     assert fake.calls[-1] == ("bwd", False)
 
 
-def test_embed_seq_wrapper_differentiates(monkeypatch):
+@pytest.mark.parametrize("rows", [8, cuda_gru.SEQ_CLASSES, 128])
+def test_embed_seq_wrapper_differentiates(monkeypatch, rows):
+    """On a CUDA tensor with a gradient wanted, `stacked_gru_embed_seq`
+    goes through `EmbedSeq`; its backward takes the sub-decoders' entry
+    (the class sums inside the chain) for a class table of at most
+    SEQ_CLASSES rows and the generic entry for a larger one, and returns
+    each gradient to its own input."""
     fake = _Fake(monkeypatch)
     L, T, B, H = 2, 3, 2, 4
-    ids, floats, _ = _embed_inputs(L, T, B, H, 3, 8, 5, True)
+    ids, floats, _ = _embed_inputs(L, T, B, H, 3, rows, 5, True)
 
     def train_fwd(ids_, w_in, add, w_hh, b_hh, h0, stash):
         fake.calls.append(("train", stash))
@@ -259,13 +273,23 @@ def test_embed_seq_wrapper_differentiates(monkeypatch):
         return fake.consts([(L, Vr, 3 * H), None, (L, B, 3 * H),
                             (L, H, 3 * H), (L, 3 * H), (L, B, H)])
 
+    def seq_bwd(ids_, g, stash, h_seq, h0, w_hh, Vr):
+        fake.calls.append(("seq_bwd", Vr))
+        return fake.consts([(L, Vr, 3 * H), (L, B, 3 * H), (L, H, 3 * H),
+                            (L, 3 * H), (L, B, H)])
+
     monkeypatch.setattr(cuda_gru, "_launch_train_fwd", train_fwd)
     monkeypatch.setattr(cuda_gru, "_launch_bwd", bwd)
+    monkeypatch.setattr(cuda_gru, "_launch_seq_bwd", seq_bwd)
     ts = [torch.from_numpy(f).requires_grad_(True) for f in floats]
     out = cuda_gru.stacked_gru_embed_seq(torch.from_numpy(ids), *ts)
     assert fake.calls == [("train", True)] and out.requires_grad
-    assert _grads_by_input(out, ts) == [1.0, 3.0, 4.0, 5.0, 6.0]
-    assert fake.calls[-1] == ("bwd", True)
+    if rows <= cuda_gru.SEQ_CLASSES:
+        assert _grads_by_input(out, ts) == [1.0, 2.0, 3.0, 4.0, 5.0]
+        assert fake.calls[-1] == ("seq_bwd", rows)
+    else:
+        assert _grads_by_input(out, ts) == [1.0, 3.0, 4.0, 5.0, 6.0]
+        assert fake.calls[-1] == ("bwd", True)
     with torch.no_grad():
         cuda_gru.stacked_gru_embed_seq(torch.from_numpy(ids), *ts)
     assert fake.calls[-1] == ("train", False)
@@ -544,6 +568,12 @@ def _backward_launch(case):
     L, T, B, H, Vp = 2, 3, 5, 8, 384
     G = 3 * H
     z = torch.zeros
+    if case == "embed_seq_chain":
+        return ("fader_embed_seq_bwd", "fader_embed_seq_bwd_scratch_floats",
+                (L, T, B, H), lambda: cuda_gru._launch_seq_bwd(
+                    z((L, T, B), dtype=torch.int32), z((L, T, B, H)),
+                    z((L, T, B, 4 * H)), z((L, T, B, H)), z((L, B, H)),
+                    z((L, H, G)), 16))
     if case in ("embed_finals", "embed_seq"):
         seq = case == "embed_seq"
         ids = z((L, T, B), dtype=torch.int32)
@@ -578,12 +608,14 @@ def _backward_launch(case):
                                                      *saved, Vp))
 
 
-BACKWARD_CASES = ["embed_finals", "embed_seq", "stacked", "decoder_ce",
-                  "decoder_masses", "decoder_teacher"]
+BACKWARD_CASES = ["embed_finals", "embed_seq", "embed_seq_chain", "stacked",
+                  "decoder_ce", "decoder_masses", "decoder_teacher"]
 # pointer arguments of each entry before its scratch: the C signatures
-# (the decoder entries' dh2 / dh1 carry buffers live in the scratch)
-POINTERS = {"embed_finals": 14, "embed_seq": 14, "stacked": 10,
-            "decoder_ce": 31, "decoder_masses": 32, "decoder_teacher": 23}
+# (the decoder entries' dh2 / dh1 carry buffers live in the scratch, as
+# do the sub-decoders' entry's dph stash and class partials)
+POINTERS = {"embed_finals": 14, "embed_seq": 14, "embed_seq_chain": 11,
+            "stacked": 10, "decoder_ce": 31, "decoder_masses": 32,
+            "decoder_teacher": 23}
 
 
 @pytest.mark.parametrize("case", BACKWARD_CASES)
@@ -728,3 +760,16 @@ def test_forward_launcher_raises_on_a_cuda_error(monkeypatch, case):
     entry, _, _, launch = _forward_launch(case)
     with pytest.raises(RuntimeError, match=f"{entry}: CUDA error 720"):
         launch()
+
+
+@pytest.mark.parametrize("variant", ["no_sums", "no_class", "quad_branch",
+                                     "onehot_fma"])
+def test_bwd_ablate_edits_apply_once(variant):
+    """Each ablation of the sub-decoders' backward (`train/bwd_ablate.py`)
+    finds every text it edits exactly once in the kernel source, so that
+    the source and its ablations do not drift apart."""
+    from music_fader_nets_tpu_torch.train import bwd_ablate
+    text = (bwd_ablate.PKG / bwd_ablate.SRC).read_text()
+    for old, new in bwd_ablate.EDITS[variant]:
+        assert text.count(old) == 1
+        text = text.replace(old, new)
