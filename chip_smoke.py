@@ -58,7 +58,16 @@ prints its launches per 64-row batch, and a `determinism` phase holds two
 calls of each persistent kernel (decode greedy and sampling, encoder
 finals and training forward) bit-equal. Every token tensor a decode
 kernel returns (greedy_decode, sample_decode, ragged_forward, serving,
-evaluation) is range-checked right after its launch. Every phase prints
+evaluation, train_cli) is range-checked right after its launch. A
+`train_cli` phase then drives the user's path from training to use at full
+width in a temporary directory: the training CLI's `run_training("gmm")`
+on the dual corpus for 2 epochs (rows 3t, 4, 5, 6, 9 and 10 of the CE head
+must launch, and row 1 in its reconstruction report), the same command
+with --epochs 3 (must resume at the saved step and take one epoch's
+steps), 3 steps + save + restore + 3 steps bit-equal to 6 straight steps,
+then the server, the eval CLI and the transfer CLI (greedy and sampled,
+MIDI and WAV out) loading the saved checkpoint, their decoded rows held
+against the plain decode of the restored params. Every phase prints
 one JSON line; the kernels line follows, then the card's name and power
 limit as nvidia-smi reports them, then the final status line. Any failed
 check exits non-zero without the status line. Needs one CUDA device;
@@ -74,6 +83,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -395,15 +405,19 @@ def main() -> int:
     from music_fader_nets_tpu_torch.train.fwd_split import (
         PARTS as FWD_PARTS, SKIP as FWD_SKIP,
     )
+    from music_fader_nets_tpu_torch.serve import cli as serve_cli
+    from music_fader_nets_tpu_torch.train import cli as train_cli
     from music_fader_nets_tpu_torch.train.cli import _forward_for
     from music_fader_nets_tpu_torch.train.objectives import gmm_loss
     from music_fader_nets_tpu_torch.train.profile import (
         FAMILIES, random_corpus,
     )
-    from music_fader_nets_tpu_torch.train.trainer import Trainer
+    from music_fader_nets_tpu_torch.train.trainer import Trainer, TrainState
+    from music_fader_nets_tpu_torch.transfer import cli as transfer_cli
     from music_fader_nets_tpu_torch.transfer.arousal import (
-        compute_shift_vectors,
+        arousal_transfer, compute_shift_vectors, transfer_latent,
     )
+    from music_fader_nets_tpu_torch.utils import checkpoint as ckpt
     from music_fader_nets_tpu_torch.utils.checkpoint import tree_map, tree_to
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1989,6 +2003,302 @@ def main() -> int:
                 and set(e["decode_paths"]) <= {"kernel", "kernel-chunked"}):
             return fail(f"{target} evaluator: {e}")
     del cv_params, cv
+
+    # -------------------------------------------------------- train_cli
+    # The user's path from training to use, at full width (the GM-VAE of
+    # configs/gmm_model_config.json as the CLI loads it), in a temporary
+    # directory: `run_training("gmm")` on the dual corpus (the synthetic
+    # Yamaha corpus of 1,536 segments, seed 0, and the synthetic VGMIDI
+    # corpus) for 2 epochs, the same command with --epochs 3 (resumes after
+    # epoch 2), save -> restore bit-exactness, then the server, the eval
+    # CLI and the transfer CLI (greedy and sampled) from the saved
+    # directory, each against the plain path on this card.
+    def train_cli_phase(tmp: str) -> int:
+        repo = os.path.dirname(os.path.abspath(__file__))
+        common = ["--config", os.path.join(repo, "configs",
+                                           "gmm_model_config.json"),
+                  "--synthetic-size", str(n_seg), "--seed", str(SEED),
+                  "--save-dir", os.path.join(tmp, "params"),
+                  "--log-dir", os.path.join(tmp, "log"),
+                  "--data-dir", os.path.join(tmp, "no_cache"),
+                  "--vgmidi-dir", os.path.join(tmp, "no_vgmidi")]
+        args = train_cli.build_argparser("chip_smoke").parse_args(common)
+        tcfg = train_cli.config_from_args("gmm", args)
+        name = train_cli.MODEL_REGISTRY["gmm"]["name"]
+        ck_dir = os.path.join(tmp, "params", name)
+        counts = all_counts + (cuda_decode.LAUNCHES,)
+
+        def run(fn, *a, **kw):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            return res, out.getvalue()
+
+        def read_counts():
+            return {k: v for c in counts for k, v in c.items() if v}
+
+        def zero_counts():
+            for c in counts:
+                for k in c:
+                    c[k] = 0
+
+        # (1) two epochs
+        zero_counts()
+        t0 = time.monotonic()
+        tr2, out2 = run(train_cli.run_training, "gmm", "chip_smoke",
+                        dual_corpus=True, argv=common + ["--epochs", "2"])
+        train_s = time.monotonic() - t0
+        train_l = read_counts()
+        with open(os.path.join(tmp, "log", f"{name}.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        finite = all(np.isfinite(v) for r in recs for k, v in r.items()
+                     if isinstance(v, float) and k != "time")
+        t_ep = [r["time"] for r in recs if r["split"] == "vgmidi_train"]
+        stamped = [d for d in os.listdir(os.path.join(tmp, "params"))
+                   if d.startswith(name + "_")]
+        # (2) resume: the same command with --epochs 3
+        resumed = train_cli.make_trainer("gmm", tcfg, args)
+        t0 = time.monotonic()
+        tr3, out3 = run(train_cli.run_training, "gmm", "chip_smoke",
+                        dual_corpus=True, argv=common + ["--epochs", "3"])
+        resume_s = time.monotonic() - t0
+        per_epoch = (tr2.step // 2, tr2._host_step // 2)
+        resume = {"printed": f"resumed at step {tr2.step}" in out3,
+                  "host_step_at_resume": resumed._host_step,
+                  "step_at_resume": resumed.step,
+                  "steps_taken": tr3.step - tr2.step,
+                  "host_steps_taken": tr3._host_step - resumed._host_step,
+                  "steps_per_epoch": per_epoch[0], "seconds": resume_s}
+        del resumed
+        yam = train_cli.load_yamaha(args, tcfg)["train"].arrays()
+        ms_step = tr3.compiled_step_time(yam, iters=10) * 1e3
+        # (3) 3 steps + save + restore + 3 steps against 6 straight steps
+        start = tr3.state
+        part = {k: v[:3 * tcfg.batch_size] for k, v in yam.items()}
+        part2 = {k: v[3 * tcfg.batch_size:6 * tcfg.batch_size]
+                 for k, v in yam.items()}
+        spec = train_cli.MODEL_REGISTRY["gmm"]
+
+        def fresh():
+            t = Trainer(tcfg, spec["init"], spec["losses"], seed=SEED,
+                        params=start.params, device=dev)
+            t.load_state(start)
+            return t
+
+        straight = fresh()
+        straight.run_epoch(part, seed=1)
+        straight.run_epoch(part2, seed=2)
+        first = fresh()
+        first.run_epoch(part, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        path = ckpt.save_checkpoint(os.path.join(tmp, "exact"), first.state)
+        save_s = time.monotonic() - t0
+        ck_mb = os.path.getsize(path) / 2**20
+        t0 = time.monotonic()
+        ck = ckpt.restore_checkpoint(os.path.join(tmp, "exact"))
+        second = Trainer(tcfg, spec["init"], spec["losses"], seed=SEED,
+                         device=dev)
+        second.load_state(TrainState(ck["params"], ck["opt_state"],
+                                     ck["step"]))
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        second.run_epoch(part2, seed=2)
+        a, b = second.state, straight.state
+        differ = [("params",) + k for k, v in ckpt.named_leaves(a.params)
+                  if not torch.equal(v, dict(ckpt.named_leaves(
+                      b.params))[k])]
+        for m in ("mu", "nu"):
+            want = dict(ckpt.named_leaves(b.opt_state[m]))
+            differ += [(m,) + k for k, v in
+                       ckpt.named_leaves(a.opt_state[m])
+                       if not torch.equal(v, want[k])]
+        exact = {"steps": [a.step, b.step],
+                 "host_steps": [second._host_step, straight._host_step],
+                 "count": [a.opt_state["count"], b.opt_state["count"]],
+                 "leaves_differing": ["/".join(k) for k in differ][:8]}
+        del straight, first, second, a, b, ck
+        # (4) serving from the saved directory
+        restored = tree_to(ckpt.restore_checkpoint(ck_dir)["params"], dev)
+        served = {}
+
+        class RecordingServer(TransferServer):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                served["server"], served["pairs"] = self, []
+
+            def submit(self, req):
+                fut = super().submit(req)
+                served["pairs"].append((req, fut))
+                return fut
+
+        guard.start("train_cli")
+        zero_counts()
+        serve_cli.TransferServer = RecordingServer
+        try:
+            _, out_s = run(serve_cli.run_server, common + ["--bench", "64"])
+        finally:
+            serve_cli.TransferServer = TransferServer
+        serve_l = read_counts()
+        bench = json.loads(out_s.strip().splitlines()[-1])
+        leaf = ("linear_out_g", "w")
+        srv_params = served["server"].params
+        from_ckpt = torch.equal(srv_params[leaf[0]][leaf[1]],
+                                restored[leaf[0]][leaf[1]])
+        init_leaf = init_reg_gmvae(torch.Generator().manual_seed(SEED),
+                                   tcfg)[leaf[0]][leaf[1]]
+        not_init = not torch.equal(srv_params[leaf[0]][leaf[1]].cpu(),
+                                   init_leaf)
+        shifts = compute_shift_vectors(restored)
+        gv = _global_view(restored)
+        s_rows, s_parted = 0, 0
+        with torch.inference_mode():
+            for req, fut in served["pairs"][1:9]:
+                resp = fut.result()
+                tok = torch.tensor([req["tokens"]], device=dev)
+                x = torch.nn.functional.one_hot(tok.long(), V).float()
+                (mu_r, _), (mu_n, _) = reg_vae_encode(restored, x)
+                d = req["direction"]
+                z = torch.cat([
+                    mu_r + torch.from_numpy(shifts[f"r_{d}"]).to(dev),
+                    mu_n + torch.from_numpy(shifts[f"n_{d}"]).to(dev),
+                    torch.zeros((1, tcfg.chroma_dims), device=dev)], -1)
+                a_, _, _ = cuda_decode._prep_decode_args(gv, z)
+                ref = cuda_decode.plain_decode_tokens(gv, z, steps)
+                got = torch.tensor([resp["tokens"]], device=dev)
+                try:
+                    n_p, _ = cuda_decode.near_tie_partings(
+                        a_, V, got, ref, tol=TOL_NEAR_TIE)
+                except AssertionError as e:
+                    return fail(f"train_cli: served row vs plain: {e}")
+                s_parted += n_p
+                s_rows += 1
+        del served
+        # (5) the eval CLI from the saved directory
+        zero_counts()
+        t0 = time.monotonic()
+        _, out_e = run(eval_cli.main, ["gmm"] + common)
+        eval_s = time.monotonic() - t0
+        eval_l = read_counts()
+        # (6) the transfer CLI, greedy and sampled, from the saved directory
+        transfer = {}
+        item = train_cli.load_vgmidi(args)["test"][0]
+        for label, extra in (("greedy", []),
+                             ("sampled", ["--temperature", "1.0"])):
+            zero_counts()
+            mid = os.path.join(tmp, f"{label}.mid")
+            wav = os.path.join(tmp, f"{label}.wav")
+            (toks, notes), _ = run(transfer_cli.main, common + extra + [
+                "--out", mid, "--wav", wav])
+            t_l = read_counts()
+            with torch.inference_mode():
+                z = transfer_latent(restored, item, seed=SEED, device=dev)
+                a_, _, _ = cuda_decode._prep_decode_args(gv, z)
+                got = torch.from_numpy(toks)[None].to(dev)
+                if label == "greedy":
+                    ref = cuda_decode.plain_decode_tokens(gv, z, steps)
+                    noise = inv_t = None
+                else:
+                    noise = gumbel_rows([SEED], steps, Vp, dev)
+                    inv_t = torch.ones(1, device=dev)
+                    ref = cuda_decode.plain_sample_tokens(gv, z, noise,
+                                                          inv_t, steps)
+                try:
+                    n_p, gap = cuda_decode.near_tie_partings(
+                        a_, V, got, ref, noise, inv_t, tol=TOL_NEAR_TIE)
+                except AssertionError as e:
+                    return fail(f"train_cli: {label} transfer vs plain: {e}")
+            ms = []
+            with guard.pause():
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    arousal_transfer(restored, tcfg, item,
+                                     temperature=1.0 if extra else 0.0,
+                                     seed=SEED, device=dev)
+                    torch.cuda.synchronize()
+                    ms.append((time.monotonic() - t0) * 1e3)
+            transfer[label] = {
+                "tokens": len(toks), "notes": len(notes),
+                "midi_bytes": os.path.getsize(mid),
+                "wav_bytes": os.path.getsize(wav),
+                "launches": t_l, "plain_near_tie_rows": n_p,
+                "largest_gap": gap, "ms": statistics.median(ms)}
+        emit({"phase": "train_cli", "config": "configs/gmm_model_config.json",
+              "hidden_dims": tcfg.hidden_dims, "z_dims": tcfg.z_dims,
+              "train": {"epochs": 2, "seconds": train_s,
+                        "epoch_seconds": t_ep[1] - t_ep[0],
+                        "steps": tr2.step, "host_steps": tr2._host_step,
+                        "losses_finite": finite, "records": len(recs),
+                        "train_path": tr2.train_path, "launches": train_l,
+                        "timestamped_checkpoints": len(stamped)},
+              "resume": resume, "ms_per_step": ms_step,
+              "save_seconds": save_s, "restore_seconds": restore_s,
+              "checkpoint_mb": ck_mb, "bit_exact": exact,
+              "serving": {"req_per_s": bench["value"],
+                          "serving_path": bench["serving_path"],
+                          "latency_ms_p50": bench["latency_ms_p50"],
+                          "launches": serve_l, "params_from_checkpoint":
+                          from_ckpt, "not_the_random_init": not_init,
+                          "plain_checked_rows": s_rows,
+                          "plain_near_tie_rows": s_parted},
+              "evaluation": {"seconds": eval_s, "launches": eval_l,
+                             "restored": "restored full-state checkpoint "
+                                         "layout" in out_e,
+                             "reports": out_e.count("Consistency:")},
+              "transfer": transfer, "token_checks": guard.checked})
+        tr2_path = tr2.train_path
+        del tr2, tr3, restored
+        if guard.bad:
+            return fail(f"decode kernel tokens out of range: {guard.bad}")
+        printed = ("[vgmidi test]" in out2 and "[test]" in out2
+                   and "Epoch 2 / 2" in out2)
+        if not (finite and len(recs) == 8 and printed
+                and tr2_path == "kernel"):
+            return fail(f"train_cli: losses finite {finite}, {len(recs)} "
+                        f"log records, train_path {tr2_path}, or the "
+                        "reports were not printed")
+        row_kernels = ("embed_gru_train", "embed_gru_bwd", "embed_seq",
+                       "embed_seq_bwd", "decoder_ce", "decoder_ce_bwd",
+                       "stacked_gru")
+        if not all(train_l.get(k, 0) > 0 for k in row_kernels):
+            return fail(f"train_cli: a kernel never launched: {train_l}")
+        if not (os.path.isfile(os.path.join(ck_dir, "state.pt"))
+                and len(stamped) == 1):
+            return fail(f"train_cli: checkpoints {os.listdir(tmp)}")
+        if not (resume["printed"] and resume["host_step_at_resume"]
+                == resume["step_at_resume"] == per_epoch[0] * 2
+                and resume["steps_taken"] == per_epoch[0]
+                and resume["host_steps_taken"] == per_epoch[1]):
+            return fail(f"train_cli: resume {resume}")
+        if exact["leaves_differing"] or len(set(exact["steps"])) != 1 or \
+                len(set(exact["host_steps"])) != 1:
+            return fail(f"train_cli: save -> restore not bit-exact: {exact}")
+        if not (bench["serving_path"] == "kernel" and from_ckpt and not_init
+                and s_rows == 8 and serve_l.get("embed_gru", 0) > 0
+                and serve_l.get("greedy_decode", 0) > 0):
+            return fail(f"train_cli: serving {bench}, from checkpoint "
+                        f"{from_ckpt}, launches {serve_l}")
+        if not ("restored full-state checkpoint layout" in out_e
+                and out_e.count("Consistency:") == 2
+                and eval_l.get("embed_gru", 0) > 0
+                and eval_l.get("greedy_decode", 0) > 0):
+            return fail(f"train_cli: eval CLI {eval_l}:\n{out_e[-1500:]}")
+        for label, want in (("greedy", "greedy_decode"),
+                            ("sampled", "sample_decode")):
+            t = transfer[label]
+            if not (t["launches"].get(want, 0) > 0
+                    and t["launches"].get("embed_gru", 0) > 0
+                    and t["tokens"] == steps and t["midi_bytes"] > 0
+                    and t["wav_bytes"] > 44):
+                return fail(f"train_cli: {label} transfer {t}")
+        return 0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_cli_") as tmp:
+        rc = train_cli_phase(tmp)
+    if rc:
+        return rc
 
     launches = {**serving_launches,
                 **{k: train_launches[k] for k in train_kernels},

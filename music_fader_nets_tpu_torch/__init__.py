@@ -8,13 +8,16 @@ counterpart is easy to find and weights carry across with a plain copy.
 
 Ported so far: the GM-VAE serving path (the token bi-GRU encoder, the
 latent shift and the 300-step greedy / Gumbel-max sampling decode), the
-training step of all six families (their objectives and the `Trainer`),
-the single GM-VAE, and the evaluation path (reconstruction report,
-controllability metrics and their CLI, with the host-side tokenizer they
-read), with hand-written CUDA kernels (`csrc/`) in place of every Pallas
-kernel; each training kernel is a `torch.autograd.Function` with a
-backward kernel. Every kernel wrapper keeps a plain PyTorch version beside
-it, used only for tensors that lie on the CPU.
+training of all six families (their objectives, the `Trainer` with `fit`,
+its step timers and its state in canonical trees), checkpoints and the
+training CLI with resume, the single GM-VAE, the evaluation path
+(reconstruction report, controllability metrics and their CLI, with the
+host-side tokenizer they read), and arousal transfer to MIDI and WAV; the
+serving, evaluation and transfer CLIs load what training saved. Hand-
+written CUDA kernels (`csrc/`) stand in place of every Pallas kernel;
+each training kernel is a `torch.autograd.Function` with a backward
+kernel. Every kernel wrapper keeps a plain PyTorch version beside it, used
+only for tensors that lie on the CPU.
 
 Layout:
   ops/        GRU primitives, sampling, kernel build + wrappers
@@ -26,12 +29,14 @@ Layout:
               attributes, key estimation, the corpus pipeline (host side)
   data/       corpora (cache, MIDI rebuild, synthetic), dataset views and
               batch iteration
-  train/      the objectives, the Trainer, a step profiler, what the CLIs
-              share
+  train/      the objectives, the Trainer, the training CLI and what the
+              other CLIs share with it, step profilers
   eval/       reconstruction report, controllability evaluators, eval CLI
-  transfer/   latent shift vectors of arousal transfer
+  transfer/   arousal transfer (latent shift, decode, MIDI and WAV out)
+              and its CLI
   serve/      micro-batching TransferServer and its JSON-lines CLI
-  utils/      numpy <-> tensor parameter conversion
+  utils/      checkpoints and the reference .pt converter, parameter
+              trees, metrics logging, profiling helpers
 """
 from __future__ import annotations
 

@@ -5,9 +5,10 @@ scripts, README.md:38-40):
     python -m music_fader_nets_tpu_torch.eval.cli gmm --samples 5
 
 evaluates one of vanilla, glsr, gmm, singlevae, cvae, fader on the card
-(`--device cpu` for the plain path on the CPU). Loading a checkpoint is not
-ported yet, so the parameters are a seeded random init, as the JAX CLI's
-are when it finds no checkpoint; asking for a checkpoint raises.
+(`--device cpu` for the plain path on the CPU), with the params of
+`--from-pt` or of the checkpoint the training CLI saved under
+`--save-dir` (`_load_params`); with neither, a seeded random init, as the
+JAX CLI does.
 """
 from __future__ import annotations
 
@@ -31,7 +32,9 @@ from music_fader_nets_tpu_torch.eval.controllability import (
 from music_fader_nets_tpu_torch.train.cli import (
     MODEL_REGISTRY, build_argparser, config_from_args, load_yamaha,
 )
-from music_fader_nets_tpu_torch.utils.checkpoint import tree_to
+from music_fader_nets_tpu_torch.utils.checkpoint import (
+    check_params_like, load_pt_checkpoint, restore_checkpoint, tree_to,
+)
 
 # Eval workload sizes per model family, (epochs, samples per epoch)
 # (reference test_vanilla_v2.py:154-155, test_gmm_v2.py:203-204,
@@ -61,22 +64,32 @@ def _condition_stds(yam):
 
 
 def _load_params(kind: str, cfg: ModelConfig, args):
-    """A seeded random init. A checkpoint the user asked for (`--from-pt`,
-    or a directory under `--save-dir`) raises: evaluating a random init in
-    its place would be a silent wrong answer."""
+    """The family's params on the CPU: from `--from-pt` (a reference `.pt`
+    state_dict), else from the checkpoint under `--save-dir` (the
+    full-state or the params-only layout; which one is printed), else, when
+    neither was asked for nor exists, a seeded random init with a warning.
+    A checkpoint that was asked for and cannot be read (a missing
+    `--from-pt` file, a truncated or corrupt file, an Orbax directory of
+    the JAX package, another family's or width's params) raises: a random
+    init in its place would be a silent wrong answer."""
     spec = MODEL_REGISTRY[kind]
+    template = spec["init"](torch.Generator().manual_seed(args.seed), cfg)
     if args.from_pt:
-        raise NotImplementedError(
-            "--from-pt: loading reference .pt checkpoints waits for the "
-            "checkpoint slice of the port (ROADMAP.md)")
-    ckpt_dir = os.path.join(args.save_dir, spec["name"])
-    if os.path.isdir(ckpt_dir):
-        raise NotImplementedError(
-            f"found a checkpoint at {ckpt_dir}, but restoring checkpoints "
-            "waits for the checkpoint slice of the port (ROADMAP.md); pass "
-            "another --save-dir to evaluate a random init")
-    print(f"WARNING: no checkpoint at {ckpt_dir}; evaluating random init")
-    return spec["init"](torch.Generator().manual_seed(args.seed), cfg)
+        params = load_pt_checkpoint(args.from_pt)
+        print(f"Loaded torch checkpoint {args.from_pt}")
+    else:
+        ckpt_dir = os.path.join(args.save_dir, spec["name"])
+        if not os.path.isdir(ckpt_dir):
+            print(f"WARNING: no checkpoint at {ckpt_dir}; evaluating "
+                  "random init")
+            return template
+        print(f"Loading {ckpt_dir}")
+        ck = restore_checkpoint(ckpt_dir)
+        params = ck["params"]
+        print("restored full-state checkpoint layout" if ck["layout"] ==
+              "full" else "restored legacy params-only checkpoint layout")
+    check_params_like(params, template)
+    return params
 
 
 def run_evaluation(kind: str, description: str, argv=None,

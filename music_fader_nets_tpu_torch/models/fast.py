@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from music_fader_nets_tpu_torch.ops.gru import vocab_pad
+from music_fader_nets_tpu_torch.utils.checkpoint import named_leaves, tree_map
 
 # reference layers built for state-dict parity but used by no forward
 # (reference model_v2.py:28,36-37)
@@ -144,3 +145,70 @@ def merge_canonical(fast: Dict, frozen: Dict, template: Dict) -> Dict:
         g["w_ih"] = torch.cat([g.pop("w_tok_p")[:V], g.pop("w_z")])
         p["grucell_g"] = g
     return p
+
+
+# ---------------------------------------------------------------------------
+# the optimizer's state in the canonical layout (counterpart of
+# `opt_state_split_fast` / `opt_state_merge_canonical`)
+
+
+def opt_state_merge_canonical(optimizer: torch.optim.Adam, fast: Dict,
+                              template: Dict) -> Dict:
+    """The `torch.optim.Adam` state of the fast leaves -> the canonical,
+    optax-shaped Adam state {"count": int, "mu": tree, "nu": tree} (copies;
+    `mu` = exp_avg, `nu` = exp_avg_sq, `count` = Adam's step). A leaf Adam
+    does not step (the logvar tables, and the FROZEN_KEYS layers
+    `split_fast` set aside) gets `mu` = `nu` = 0, as optax has them after
+    zero gradients. `template`: the canonical structure (shapes only)."""
+    state = optimizer.state
+    counts = {int(state[t]["step"]) for _, t in named_leaves(fast)
+              if t in state}
+    if len(counts) > 1:
+        raise ValueError(f"Adam's leaves disagree on the step: {counts}")
+    dev = next(t for _, t in named_leaves(fast)).device
+    frozen = {k: tree_map(lambda t: torch.zeros(t.shape, device=dev), v)
+              for k, v in template.items() if k in FROZEN_KEYS}
+
+    def moment(key):
+        def leaf(t):
+            if t in state:
+                return state[t][key].detach().clone()
+            return torch.zeros(t.shape, dtype=t.dtype, device=t.device)
+        return merge_canonical(tree_map(leaf, fast), frozen, template)
+
+    return {"count": counts.pop() if counts else 0, "mu": moment("exp_avg"),
+            "nu": moment("exp_avg_sq")}
+
+
+def opt_state_split_fast(opt_state: Dict, optimizer: torch.optim.Adam,
+                         fast: Dict) -> None:
+    """Inverse of `opt_state_merge_canonical`: set the Adam state of the
+    fast leaves that `optimizer` steps from a canonical {"count", "mu",
+    "nu"} (the fast layout's pad rows come from `split_fast`'s zeros).
+    With count 0 the optimizer starts fresh."""
+    optimizer.state.clear()
+    count = int(opt_state["count"])
+    if count == 0:
+        return
+    mu = dict(named_leaves(split_fast(opt_state["mu"])[0]))
+    nu = dict(named_leaves(split_fast(opt_state["nu"])[0]))
+    group = optimizer.param_groups[0]
+    # the step as torch's Adam keeps it: a CPU scalar unless the optimizer
+    # is capturable or fused
+    on_dev = group.get("capturable") or group.get("fused")
+    stepped = {id(t) for g in optimizer.param_groups for t in g["params"]}
+    for path, t in named_leaves(fast):
+        if id(t) not in stepped:
+            continue
+        moments = {}
+        for name, src in (("exp_avg", mu), ("exp_avg_sq", nu)):
+            if tuple(src[path].shape) != tuple(t.shape):
+                raise ValueError(
+                    f"Adam {name} of {'.'.join(path)}: shape "
+                    f"{tuple(src[path].shape)}, the leaf's {tuple(t.shape)}")
+            moments[name] = src[path].detach().to(
+                t.device, t.dtype, copy=True).contiguous()
+        optimizer.state[t] = {
+            "step": torch.tensor(float(count),
+                                 device=t.device if on_dev else "cpu"),
+            **moments}

@@ -316,21 +316,29 @@ def check_temperature(temperature: float) -> None:
 
 
 def sample_decode_tokens(gview: Dict, z: torch.Tensor, steps: int,
-                         seeds: Sequence[int], temperature: float = 1.0,
-                         device=None) -> torch.Tensor:
+                         seeds: Optional[Sequence[int]],
+                         temperature: float = 1.0, device=None,
+                         noise: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Gumbel-max sampling decode from softmax(logits / temperature),
     (B, steps) int32. Row b's noise comes from a generator seeded with
-    seeds[b]; temperature <= 0 is the greedy decode."""
+    seeds[b], or the caller gives all of it as `noise` (steps, B, Vp)
+    Gumbel(0, 1) draws (seeds then unused); temperature <= 0 is the greedy
+    decode."""
     if temperature <= 0:
         return greedy_decode_tokens(gview, z, steps, device)
     check_temperature(temperature)
     dev = resolve_device(device)
     B = z.shape[0]
-    if len(seeds) != B:
-        raise ValueError(f"need one seed per row ({B}), got {len(seeds)}")
-    V = gview["linear_out_g"]["w"].shape[-1]
-    noise = gumbel_rows(seeds, steps, vocab_pad(V), dev)
+    Vp = vocab_pad(gview["linear_out_g"]["w"].shape[-1])
+    if noise is None:
+        if seeds is None or len(seeds) != B:
+            raise ValueError(f"need one seed per row ({B}), got {seeds}")
+        noise = gumbel_rows(seeds, steps, Vp, dev)
+    elif tuple(noise.shape) != (steps, B, Vp):
+        raise ValueError(f"noise must be (steps, B, Vp) = {(steps, B, Vp)}, "
+                         f"got {tuple(noise.shape)}")
     inv_t = torch.full((B,), 1.0 / temperature, dtype=torch.float32,
                        device=dev)
     return _chunked(tree_to(gview, dev), z.to(dev, torch.float32), steps,
-                    noise, inv_t)
+                    noise.to(dev, torch.float32), inv_t)

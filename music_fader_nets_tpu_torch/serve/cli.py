@@ -1,16 +1,20 @@
-"""The port's serving entry point: JSON-lines model serving over
+r"""The port's serving entry point: JSON-lines model serving over
 stdin/stdout or TCP, plus an offered-load --bench mode.
 
-    python -m music_fader_nets_tpu_torch.serve.cli --random-init --bench 256
+    python -m music_fader_nets_tpu_torch.serve.cli --save-dir params \
+        --bench 256
 
-Protocol: one JSON request per line (schema in `serve/server.py`), one JSON
-response per line, in request order; `{"op": "stats"}` returns serving
-telemetry. Responses are pipelined, so a streaming client gets real
-micro-batching. Runs on CUDA unless `--device cpu` is given.
+serves the `--kind` family's params (gmm: arousal transfer; vanilla / glsr:
+reconstruct-only) from `--from-pt` or the checkpoint the training CLI saved
+under `--save-dir`, as the evaluation CLI loads them (`--random-init`
+serves seeded random weights instead, for protocol checks). Protocol: one
+JSON request per line (schema in `serve/server.py`), one JSON response per
+line, in request order; `{"op": "stats"}` returns serving telemetry.
+Responses are pipelined, so a streaming client gets real micro-batching.
+Runs on CUDA unless `--device cpu` is given.
 """
 from __future__ import annotations
 
-import argparse
 import collections
 import json
 import sys
@@ -19,9 +23,21 @@ import time
 import numpy as np
 import torch
 
-from music_fader_nets_tpu_torch.config import load_config
-from music_fader_nets_tpu_torch.models.gmvae import init_reg_gmvae
+from music_fader_nets_tpu_torch import resolve_device
+from music_fader_nets_tpu_torch.eval.cli import _load_params
 from music_fader_nets_tpu_torch.serve.server import TransferServer
+from music_fader_nets_tpu_torch.train.cli import (
+    MODEL_REGISTRY, build_argparser, config_from_args,
+)
+
+SERVE_KINDS = ("gmm", "vanilla", "glsr")
+
+
+def _load(kind, cfg, args):
+    if args.random_init:
+        return MODEL_REGISTRY[kind]["init"](
+            torch.Generator().manual_seed(args.seed), cfg)
+    return _load_params(kind, cfg, args)
 
 
 def _bench(server: TransferServer, n: int, cfg) -> None:
@@ -108,17 +124,12 @@ def _tcp_loop(server: TransferServer, port: int) -> None:
         srv.serve_forever()
 
 
-def build_argparser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        description="Micro-batched fader-generation model server (PyTorch "
-                    "+ CUDA)")
-    ap.add_argument("--config", default=None,
-                    help="reference-format JSON config (default: "
-                         "ModelConfig defaults, the GM-VAE's dims)")
-    ap.add_argument("--random-init", action="store_true",
-                    help="serve random weights made from --seed (loading "
-                         "checkpoints is not ported yet)")
-    ap.add_argument("--seed", type=int, default=0)
+def run_server(argv=None) -> None:
+    ap = build_argparser("Micro-batched fader-generation model server "
+                         "(PyTorch + CUDA)")
+    ap.add_argument("--kind", default="gmm", choices=SERVE_KINDS,
+                    help="model family (gmm serves arousal transfer; "
+                         "vanilla/glsr reconstruct-only)")
     ap.add_argument("--steps", type=int, default=None,
                     help="decode length (default: cfg.transfer_decode_steps"
                          " = 300)")
@@ -129,24 +140,19 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--bench", type=int, default=None, metavar="N",
                     help="offered-load mode: N synthetic requests, print "
                          "one throughput JSON line and exit")
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    return ap
-
-
-def run_server(argv=None) -> None:
-    args = build_argparser().parse_args(argv)
-    if not args.random_init:
-        raise SystemExit("only --random-init is served so far: checkpoint "
-                         "loading is not ported yet")
-    cfg = load_config(args.config)
-    gen = torch.Generator().manual_seed(args.seed)
-    params = init_reg_gmvae(gen, cfg)
+    ap.add_argument("--random-init", action="store_true",
+                    help="serve random weights made from --seed instead "
+                         "of a checkpoint (protocol smoke testing)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = config_from_args(args.kind, args)
+    params = _load(args.kind, cfg, args)
     server = TransferServer(params, cfg, steps=args.steps,
                             max_batch=args.max_batch,
-                            max_wait_ms=args.max_wait_ms, device=args.device)
-    print(f"# serving steps={server.steps} max_batch={server.max_batch} "
-          f"device={server.device} path={server.serving_path}",
-          file=sys.stderr)
+                            max_wait_ms=args.max_wait_ms, device=dev)
+    print(f"# serving kind={args.kind} steps={server.steps} "
+          f"max_batch={server.max_batch} device={server.device} "
+          f"path={server.serving_path}", file=sys.stderr)
     try:
         if args.bench is not None:
             _bench(server, args.bench, cfg)

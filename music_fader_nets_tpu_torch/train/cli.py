@@ -1,8 +1,19 @@
-"""What the evaluation entry points share with the trainers' (counterpart
-of `music_fader_nets_tpu/train/cli.py`): the model registry, the argument
-parser, the config and corpus loaders, and each family's forward for the
-reconstruction report. `run_training`, `make_trainer` and the checkpoint
-helpers wait for the checkpoint slice (ROADMAP.md).
+"""The training entry point and what the evaluation, serving and transfer
+entry points share with it (counterpart of
+`music_fader_nets_tpu/train/cli.py`): the model registry, the argument
+parser, the config and corpus loaders, the trainer with resume and the
+checkpoint helpers, `run_training`, and each family's forward for the
+reconstruction report.
+
+    python -m music_fader_nets_tpu_torch.train.cli gmm --epochs 2
+
+trains one of vanilla, glsr, gmm, cvae, fader, singlevae (gmm on the dual
+corpus: supervised VGMIDI epochs at batch 32, then Yamaha) on the card, or
+with `--device cpu` on the CPU's plain path. Each epoch it checkpoints to
+`<save-dir>/<name>/state.pt` (params, Adam state, step and epoch), and at
+the end to `<save-dir>/<name>_<timestamp>/`; run again with a larger
+`--epochs`, it resumes after the saved epoch. `--from-pt` starts from a
+reference `.pt` state_dict instead.
 
 The JAX CLI's `--mesh`, `--pallas-gru` and `--platform` have no meaning
 here: the port runs on one CUDA device with its kernels always on, or,
@@ -13,11 +24,13 @@ from __future__ import annotations
 import argparse
 import functools
 import os
+import sys
+from datetime import datetime
 from typing import Callable, Dict, Tuple
 
 import torch.nn.functional as F
 
-from music_fader_nets_tpu_torch import models
+from music_fader_nets_tpu_torch import models, resolve_device
 from music_fader_nets_tpu_torch.config import ModelConfig, load_config
 from music_fader_nets_tpu_torch.data.corpus import (
     get_classic_piano, get_vgmidi,
@@ -25,7 +38,15 @@ from music_fader_nets_tpu_torch.data.corpus import (
 from music_fader_nets_tpu_torch.data.datasets import (
     VGMIDIDataset, YamahaDataset,
 )
+from music_fader_nets_tpu_torch.eval.reconstruction import (
+    reconstruction_report,
+)
 from music_fader_nets_tpu_torch.train import objectives
+from music_fader_nets_tpu_torch.train.trainer import Trainer, TrainState
+from music_fader_nets_tpu_torch.utils.checkpoint import (
+    load_pt_checkpoint, restore_checkpoint, save_checkpoint,
+)
+from music_fader_nets_tpu_torch.utils.logging import MetricsLogger
 
 MODEL_REGISTRY: Dict[str, Dict] = {
     "vanilla": dict(init=models.init_reg_vae,
@@ -100,8 +121,12 @@ def build_argparser(description: str) -> argparse.ArgumentParser:
                          "(negative-beta window, time-axis sub-decoder "
                          "softmax, GLSR batch-0 bug)")
     ap.add_argument("--from-pt", default=None,
-                    help="initialize from a reference .pt state_dict (not "
-                         "ported yet: raises)")
+                    help="initialize from a reference .pt state_dict "
+                         "(tensors; the JAX package's "
+                         "params_to_torch_state_dict exports one); a file "
+                         "that cannot be read raises")
+    ap.add_argument("--log-dir", default="log",
+                    help="where the per-epoch metrics JSONL is written")
     return ap
 
 
@@ -152,6 +177,149 @@ def load_vgmidi(args):
             for mode in ("train", "val", "test")}
 
 
+def make_trainer(kind: str, cfg: ModelConfig, args) -> Trainer:
+    """The family's Trainer on `--device`, from `--from-pt` if given, else
+    resumed from `<save-dir>/<name>/` if that holds a checkpoint: the full
+    state (params, Adam state, step; the noise stream resumes at the step
+    and the epochs after the saved one), or a params-only file with a fresh
+    optimizer at step 0. The reference saves only the state_dict, so its
+    resume restarts the KL anneal at step 0 (SURVEY.md §5); keeping the
+    step is the JAX package's deliberate fix. A checkpoint that cannot be
+    read raises; it is never replaced by a random init."""
+    spec = MODEL_REGISTRY[kind]
+    trainer = Trainer(cfg, spec["init"], spec["losses"], seed=args.seed,
+                      device=resolve_device(args.device))
+    ckpt_dir = os.path.join(args.save_dir, spec["name"])
+    if args.from_pt:
+        trainer.load_state(TrainState(load_pt_checkpoint(args.from_pt),
+                                      None, 0))
+        print(f"Loaded torch checkpoint {args.from_pt}")
+    elif os.path.isdir(ckpt_dir):
+        ck = restore_checkpoint(ckpt_dir)
+        trainer.load_state(TrainState(ck["params"], ck["opt_state"],
+                                      ck["step"]))
+        trainer.epoch = ck["epoch"]
+        if ck["layout"] == "full":
+            print(f"Loading {ckpt_dir} (resumed at step {trainer.step}, "
+                  f"after epoch {trainer.epoch})")
+        else:
+            print(f"Loading {ckpt_dir} (params only; optimizer reset)")
+    else:
+        print(f"Save path: {ckpt_dir}")
+    return trainer
+
+
+def _save(path: str, state: TrainState, epoch: int) -> None:
+    save_checkpoint(path, {"params": state.params,
+                           "opt_state": state.opt_state,
+                           "step": state.step, "epoch": epoch})
+
+
+def checkpoint_fn(kind: str, args) -> Callable[[TrainState, int], None]:
+    """save(state, epoch): the full state to `<save-dir>/<name>/`."""
+    ckpt_dir = os.path.join(args.save_dir, MODEL_REGISTRY[kind]["name"])
+
+    def save(state: TrainState, epoch: int):
+        print("Saving model...")
+        _save(ckpt_dir, state, epoch)
+
+    return save
+
+
+def save_timestamped(kind: str, args, state: TrainState, epoch: int) -> str:
+    """The full state to `<save-dir>/<name>_<ISO time>/`; returns the
+    directory."""
+    stamp = datetime.now().isoformat().replace(":", "-")
+    path = os.path.join(args.save_dir,
+                        f"{MODEL_REGISTRY[kind]['name']}_{stamp}")
+    _save(path, state, epoch)
+    print(f"Model saved as {path}!")
+    return path
+
+
+def _terms(m: Dict[str, float]) -> str:
+    return " ".join(f"{k}: {v:.4f}" for k, v in sorted(m.items()))
+
+
+def run_training(kind: str, description: str, dual_corpus: bool = False,
+                 argv=None) -> Trainer:
+    """The shared trainer main() (reference trainer.py:199-380): corpus ->
+    epochs of training and validation, a checkpoint after each, a
+    timestamped one at the end -> the reconstruction report on the Yamaha
+    train and test splits (and, for the dual-corpus GM-VAE, the VGMIDI
+    ones, with the mixture posterior's arousal accuracy). Returns the
+    trainer."""
+    args = build_argparser(description).parse_args(argv)
+    cfg = config_from_args(kind, args)
+    trainer = make_trainer(kind, cfg, args)
+    ck = checkpoint_fn(kind, args)
+    logger = MetricsLogger(MODEL_REGISTRY[kind]["name"], args.log_dir)
+    yam = load_yamaha(args, cfg)
+    print("Train / Validation / Test")
+    print(len(yam["train"]), len(yam["val"]), len(yam["test"]))
+
+    vgm = None
+    try:
+        if not dual_corpus:
+            trainer.fit(yam["train"].arrays(), yam["val"].arrays(),
+                        n_epochs=cfg.n_epochs, checkpoint_fn=ck,
+                        metrics_logger=logger,
+                        start_epoch=trainer.epoch + 1)
+        else:
+            vgm = load_vgmidi(args)
+            print("VGMIDI: Train / Validation / Test")
+            print(len(vgm["train"]), len(vgm["val"]), len(vgm["test"]))
+            for epoch in range(trainer.epoch + 1, cfg.n_epochs + 1):
+                print(f"Epoch {epoch} / {cfg.n_epochs}")
+                # supervised VGMIDI phase (batch 32, reference
+                # trainer_gmm.py:88), then the unsupervised Yamaha phase
+                sup = trainer.run_epoch(vgm["train"].arrays(),
+                                        variant="supervised", seed=epoch,
+                                        batch_size=32, compiled=True)
+                sup_val = trainer.run_epoch(vgm["val"].arrays(),
+                                            variant="supervised",
+                                            train=False, batch_size=32,
+                                            shuffle=False, compiled=True)
+                uns = trainer.run_epoch(yam["train"].arrays(), seed=epoch,
+                                        compiled=True)
+                uns_val = trainer.run_epoch(yam["val"].arrays(),
+                                            train=False, shuffle=False,
+                                            compiled=True)
+                print("vgmidi train - " + _terms(sup))
+                print("vgmidi val   - " + _terms(sup_val))
+                print("yamaha train - " + _terms(uns))
+                print("yamaha val   - " + _terms(uns_val))
+                for split, m in (("vgmidi_train", sup),
+                                 ("vgmidi_val", sup_val),
+                                 ("yamaha_train", uns),
+                                 ("yamaha_val", uns_val)):
+                    logger.log(m, step=trainer._host_step, epoch=epoch,
+                               split=split)
+                trainer.epoch = epoch
+                ck(trainer.state, epoch)
+    finally:
+        logger.close()
+    save_timestamped(kind, args, trainer.state, trainer.epoch)
+
+    # evaluation phase (reference trainer.py:280-376); for the dual-corpus
+    # GM-VAE also the VGMIDI splits, with the arousal-classification
+    # accuracy of the mixture posterior (reference trainer_gmm.py:570-605)
+    fwd, has_sub, draw = _forward_for(kind, cfg)
+    params = trainer.params
+    reports = [(f"[{split}] ", yam[split], cfg.batch_size)
+               for split in ("train", "test")]
+    if vgm is not None:
+        reports += [(f"[vgmidi {split}] ", vgm[split], 32)
+                    for split in ("train", "test") if len(vgm[split])]
+    for label, ds, bs in reports:
+        rep = reconstruction_report(params, fwd, ds.arrays(), cfg, draw=draw,
+                                    batch_size=min(bs, len(ds)),
+                                    seed=args.seed, has_subdecoders=has_sub,
+                                    device=trainer.device)
+        print(label + _terms(rep))
+    return trainer
+
+
 def _forward_for(kind: str, cfg: ModelConfig
                  ) -> Tuple[Callable, bool, Callable]:
     """(forward, has_subdecoders, draw) of a family for the reconstruction
@@ -197,3 +365,21 @@ def _forward_for(kind: str, cfg: ModelConfig
             cfg)
 
     return single, False, draw
+
+
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    ap = argparse.ArgumentParser(
+        prog="python -m music_fader_nets_tpu_torch.train.cli",
+        description="Train one model family; the options after the family "
+                    "are run_training's (--help after a family lists "
+                    "them). gmm trains on the dual corpus (VGMIDI "
+                    "supervised + Yamaha), as trainer_gmm.py does.")
+    ap.add_argument("kind", choices=sorted(MODEL_REGISTRY))
+    kind = ap.parse_args(argv[:1]).kind
+    run_training(kind, f"Train {kind}", dual_corpus=kind == "gmm",
+                 argv=argv[1:])
+
+
+if __name__ == "__main__":
+    main()

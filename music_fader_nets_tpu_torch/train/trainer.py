@@ -1,23 +1,31 @@
 """The trainer of every family (counterpart of
-`music_fader_nets_tpu/train/trainer.py`, its streaming path
-`run_epoch(compiled=False)`).
+`music_fader_nets_tpu/train/trainer.py`).
 
 A step: the loss on the fast parameter layout (`models/fast.py`), its
 backward, the global-norm clip at 1.0 and Adam(lr) (reference
 trainer.py:49,157). Adam steps the fast-layout leaves; the parity-only
 layers (`fast.FROZEN_KEYS`) and the frozen mixture logvar tables take no
-update, as in the JAX package, where their gradients are zero.
+update, as in the JAX package, where their gradients are zero. `state` /
+`load_state` carry a `TrainState` of canonical trees (params, the
+optax-shaped Adam state, the step) out and in: what a checkpoint holds.
 
 The objective's random draws are the caller's: `noise_fn(host_step, B,
-loss_fn) -> eps`, by default `objectives.draw_noise` (what that objective
-draws, see `train/objectives.py`) from a `torch.Generator` seeded from
-(seed, host_step). The host step counts every batch, training and
-evaluation, as the JAX Trainer's `_host_step` does, so a test can hand
-both trainers the same draws.
+loss_fn)`, by default `objectives.draw_noise` (what that objective draws,
+see `train/objectives.py`) from a `torch.Generator` seeded from (seed,
+host_step). The host step counts every batch, training and evaluation, as
+the JAX Trainer's `_host_step` does, so a test can hand both trainers the
+same draws. `run_epoch(compiled=True)` follows the noise schedule of the
+JAX Trainer's compiled epoch instead (trainer.py:148, :261): every batch
+draws `noise_fn(h, B, loss_fn, step=s)` with h the host step at the
+epoch's start and s the training step, and the epoch then advances the
+host step by its batch count, so an evaluation epoch reuses one draw for
+every batch. `fit` and the training CLI run that schedule, as the JAX
+package's do. The computation is the streaming step either way.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import time
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,7 +36,9 @@ from music_fader_nets_tpu_torch.data.loader import batch_iterator
 from music_fader_nets_tpu_torch.models import fast as fast_lib
 from music_fader_nets_tpu_torch.ops import cuda_decoder, cuda_gru, cuda_stacked
 from music_fader_nets_tpu_torch.train.objectives import draw_noise
-from music_fader_nets_tpu_torch.utils.checkpoint import tree_map, tree_to
+from music_fader_nets_tpu_torch.utils.checkpoint import (
+    check_params_like, tree_map, tree_to,
+)
 
 # the kernel wrappers' modules whose LAST_TRAIN_PATH a step reads
 _PATH_MODULES = (cuda_gru, cuda_decoder, cuda_stacked)
@@ -36,6 +46,16 @@ _PATH_MODULES = (cuda_gru, cuda_decoder, cuda_stacked)
 # leaves of the fast tree that Adam does not step (no gradient reaches
 # them: reference gmm_model.py:151-184 keeps them fixed)
 FROZEN_TABLES = ("logvar_r_lookup", "logvar_n_lookup")
+
+
+class TrainState(NamedTuple):
+    """What a checkpoint holds: the canonical params tree, the canonical
+    Adam state {"count", "mu", "nu"} (`models/fast.py::
+    opt_state_merge_canonical`; None = a fresh optimizer) and the training
+    step, which drives the KL anneal."""
+    params: Dict
+    opt_state: Optional[Dict]
+    step: int
 
 
 def _leaves(tree, prefix=()):
@@ -72,6 +92,17 @@ class Trainer:
         self.seed = seed
         if params is None:
             params = init_fn(torch.Generator().manual_seed(seed), cfg)
+        self._set_params(params)
+        self._loss_fns = dict(loss_fns)
+        self.noise_fn = noise_fn or self._default_noise
+        self.step = 0            # training steps taken; drives KL annealing
+        self._host_step = 0      # batches seen; drives the noise
+        self.epoch = 0           # epochs completed (fit, the training CLI)
+        self.train_path = None   # "kernel" / "plain-cpu" of the last step
+
+    def _set_params(self, params) -> None:
+        """Own copies of the canonical `params` in the fast layout, and a
+        fresh Adam over the leaves it steps."""
         params = tree_to(params, self.device)
         # merge_canonical reads only the canonical shapes
         self._template = tree_map(lambda t: t.to("meta"), params)
@@ -83,15 +114,16 @@ class Trainer:
                            if path[0] not in FROZEN_TABLES]
         for t in self._trainable:
             t.requires_grad_(True)
-        self.optimizer = torch.optim.Adam(self._trainable, lr=cfg.lr)
-        self._loss_fns = dict(loss_fns)
-        self.noise_fn = noise_fn or self._default_noise
-        self.step = 0            # training steps taken; drives KL annealing
-        self._host_step = 0      # batches seen; drives the noise
-        self.train_path = None   # "kernel" / "plain-cpu" of the last step
+        self.optimizer = torch.optim.Adam(self._trainable, lr=self.cfg.lr)
 
-    def _default_noise(self, host_step: int, B: int, loss_fn: Callable):
-        gen = torch.Generator().manual_seed(self.seed * 1_000_003 + host_step)
+    def _default_noise(self, host_step: int, B: int, loss_fn: Callable,
+                       step: Optional[int] = None):
+        if step is None:
+            key = self.seed * 1_000_003 + host_step
+        else:
+            key = int(np.random.SeedSequence(
+                [self.seed, host_step, step]).generate_state(1, np.uint64)[0])
+        gen = torch.Generator().manual_seed(key)
         return draw_noise(loss_fn, gen, B, self.cfg)
 
     @property
@@ -103,7 +135,34 @@ class Trainer:
     def params(self) -> Dict:
         """The canonical tree (copies), `merge_canonical` of the fast one."""
         fast = tree_map(lambda t: t.detach().clone(), self._fast)
-        return fast_lib.merge_canonical(fast, self._frozen, self._template)
+        frozen = tree_map(lambda t: t.clone(), self._frozen)
+        return fast_lib.merge_canonical(fast, frozen, self._template)
+
+    @property
+    def state(self) -> TrainState:
+        """The training state as canonical trees (copies, on the trainer's
+        device)."""
+        return TrainState(self.params, fast_lib.opt_state_merge_canonical(
+            self.optimizer, self._fast, self._template), self.step)
+
+    def load_state(self, state: TrainState,
+                   host_step: Optional[int] = None) -> None:
+        """Continue from `state` (a `TrainState` of canonical trees, e.g. a
+        restored checkpoint; opt_state None = a fresh optimizer). The noise
+        stream resumes at `host_step`, by default at the state's step, as
+        the JAX training CLI resumes (train/cli.py:205). Raises ValueError
+        if the params are not this model's."""
+        check_params_like(state.params, self._template)
+        self._set_params(state.params)
+        if state.opt_state is not None:
+            fast_lib.opt_state_split_fast(state.opt_state, self.optimizer,
+                                          self._fast)
+        self.step = int(state.step)
+        self._host_step = self.step if host_step is None else int(host_step)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _batch(self, batch: Dict[str, np.ndarray]):
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -132,22 +191,28 @@ class Trainer:
     def run_epoch(self, arrays: Dict[str, np.ndarray],
                   variant: str = "default", train: bool = True,
                   shuffle: bool = True, seed: Optional[int] = None,
-                  batch_size: Optional[int] = None) -> Dict[str, float]:
+                  batch_size: Optional[int] = None,
+                  compiled: bool = False) -> Dict[str, float]:
         """One pass over `arrays` in batches (the last partial one
         dropped); returns the per-batch mean of each metric. Evaluation
         (train=False) runs the same objective without a gradient, as the
-        JAX Trainer's eval step does."""
+        JAX Trainer's eval step does. compiled=True draws the noise as the
+        JAX Trainer's compiled epoch does (module docstring)."""
         n = len(next(iter(arrays.values())))
         if n == 0:
             return {}
         bs = min(batch_size or self.cfg.batch_size, n)
         loss_fn = self._loss_fns[variant]
+        start = self._host_step
         totals, nb = None, 0
         for host_batch in batch_iterator(arrays, bs, shuffle=shuffle,
                                          seed=seed):
-            eps = tuple(e.to(self.device, torch.float32)
-                        for e in self.noise_fn(self._host_step, bs, loss_fn))
-            self._host_step += 1
+            if compiled:
+                noise = self.noise_fn(start, bs, loss_fn, step=self.step)
+            else:
+                noise = self.noise_fn(self._host_step, bs, loss_fn)
+                self._host_step += 1
+            eps = tuple(e.to(self.device, torch.float32) for e in noise)
             batch = self._batch(host_batch)
             if train:
                 metrics = self.train_step(loss_fn, batch, eps)
@@ -158,6 +223,113 @@ class Trainer:
             vals = torch.stack([metrics[k].detach() for k in sorted(metrics)])
             totals = vals if totals is None else totals + vals
             nb += 1
+        if compiled:
+            self._host_step = start + nb
         if totals is None:
             return {}
         return {k: v / nb for k, v in zip(sorted(metrics), totals.tolist())}
+
+    def fit(self, train_arrays, val_arrays=None,
+            n_epochs: Optional[int] = None,
+            log_fn: Callable[[str], None] = print,
+            checkpoint_fn: Optional[Callable[[TrainState, int], None]] = None,
+            metrics_logger=None, start_epoch: int = 1) -> TrainState:
+        """Epochs `start_epoch`..`n_epochs` (default cfg.n_epochs), each a
+        training pass (shuffled with seed = epoch) and, with `val_arrays`,
+        an evaluation pass, on the compiled epoch's noise schedule; the JAX
+        Trainer's log lines, `metrics_logger.log` records and
+        `checkpoint_fn(state, epoch)` after each epoch. Returns the state."""
+        n_epochs = n_epochs or self.cfg.n_epochs
+        for epoch in range(start_epoch, n_epochs + 1):
+            log_fn(f"Epoch {epoch} / {n_epochs}")
+            t0 = time.time()
+            tr = self.run_epoch(train_arrays, train=True, seed=epoch,
+                                compiled=True)
+            lines = [f"train loss: {tr.get('loss', float('nan')):.4f}"
+                     f"  ({time.time() - t0:.1f}s)"]
+            ev = None
+            if val_arrays is not None:
+                ev = self.run_epoch(val_arrays, train=False, shuffle=False,
+                                    compiled=True)
+                lines.append(f"val loss: {ev.get('loss', float('nan')):.4f}")
+            log_fn("  ".join(lines))
+            log_fn("train by term - " + " ".join(
+                f"{k}: {v:.4f}" for k, v in sorted(tr.items()) if k != "loss"))
+            if metrics_logger is not None:
+                metrics_logger.log(tr, step=self._host_step, epoch=epoch,
+                                   split="train")
+                if ev is not None:
+                    metrics_logger.log(ev, step=self._host_step, epoch=epoch,
+                                       split="val")
+            self.epoch = epoch
+            if checkpoint_fn is not None:
+                checkpoint_fn(self.state, epoch)
+        return self.state
+
+    def _timing_batches(self, arrays, bs: int, n: int):
+        """`n` batches of `bs` rows (the corpus repeated as needed), on the
+        device."""
+        rows = len(next(iter(arrays.values())))
+        reps = -(-n * bs // rows)
+        tiled = {k: np.concatenate([v] * reps)[: n * bs]
+                 for k, v in arrays.items()}
+        return [self._batch(b) for b in
+                batch_iterator(tiled, bs, shuffle=False)]
+
+    def compiled_step_time(self, arrays, variant: str = "default",
+                           iters: int = 20,
+                           batch_size: Optional[int] = None,
+                           spread: bool = False):
+        """Seconds per training step: `iters` steps, three timed windows
+        after one warm-up window, each ended by a device synchronise;
+        returns the best window, or (best, [window seconds]) with
+        spread=True. The steps run on a copy of the trainer, so the live
+        state is never touched. Counterpart of the JAX Trainer's timer of
+        its compiled whole-epoch program; until the port has a CUDA graph
+        of the step, this times the streaming step."""
+        bs = batch_size or self.cfg.batch_size
+        loss_fn = self._loss_fns[variant]
+        state = self.state
+        twin = Trainer(self.cfg, None, self._loss_fns, seed=self.seed,
+                       params=state.params, device=self.device)
+        twin.load_state(state)
+        batches = self._timing_batches(arrays, bs, iters)
+        noise = [tuple(e.to(self.device, torch.float32)
+                       for e in self.noise_fn(self._host_step + i, bs,
+                                              loss_fn))
+                 for i in range(iters)]
+        windows = []
+        for w in range(4):
+            twin._sync()
+            t0 = time.perf_counter()
+            for batch, eps in zip(batches, noise):
+                twin.train_step(loss_fn, batch, eps)
+            twin._sync()
+            if w:                       # window 0 warms up
+                windows.append((time.perf_counter() - t0) / iters)
+        best = min(windows)
+        return (best, windows) if spread else best
+
+    def steady_state_step_time(self, arrays, variant: str = "default",
+                               warmup: int = 3, iters: int = 20,
+                               batch_size: Optional[int] = None) -> float:
+        """Seconds per step of the live trainer (it takes warmup + 3 *
+        iters steps on up to 8 batches of `arrays`, with one draw of
+        noise), the best of three windows each ended by a device
+        synchronise."""
+        bs = batch_size or self.cfg.batch_size
+        loss_fn = self._loss_fns[variant]
+        batches = self._timing_batches(arrays, bs, 8)
+        eps = tuple(e.to(self.device, torch.float32)
+                    for e in self.noise_fn(self._host_step, bs, loss_fn))
+        for i in range(warmup):
+            self.train_step(loss_fn, batches[i % len(batches)], eps)
+        self._sync()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for i in range(iters):
+                self.train_step(loss_fn, batches[i % len(batches)], eps)
+            self._sync()
+            best = min(best, (time.perf_counter() - t0) / iters)
+        return best

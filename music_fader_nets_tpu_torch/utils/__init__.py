@@ -1,1 +1,1 @@
-"""Parameter-tree helpers."""
+"""Checkpoints and parameter trees, metrics logging, profiling helpers."""

@@ -337,11 +337,14 @@ def test_run_evaluation_prints_the_report(tmp_path, capsys, kind):
 
 
 def test_cli_refuses_checkpoints_and_bfloat16(tmp_path):
+    """A checkpoint that was asked for and cannot be read raises instead of
+    evaluating a random init (the readable layouts are held in
+    tests/test_torch_checkpoint.py)."""
     argv = _tiny_argv(tmp_path)
-    with pytest.raises(NotImplementedError, match="from-pt"):
+    with pytest.raises(FileNotFoundError, match="x.pt"):
         eval_cli.run_evaluation("gmm", "t", argv + ["--from-pt", "x.pt"])
     (tmp_path / "params" / "music_attr_vae_reg_gmm").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(FileNotFoundError, match="checkpoint"):
         eval_cli.run_evaluation("gmm", "t", argv)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         eval_cli.run_evaluation("cvae", "t", argv + ["--dtype", "bfloat16"])

@@ -52,12 +52,37 @@ def test_imports_without_jax_or_reference_package():
     assert int(out.stdout.strip()) >= 47
 
 
+@pytest.mark.parametrize("blocked", ["orbax", "optax", "flax"])
+def test_imports_without_jax_libraries(blocked):
+    """Every module of the port, and chip_smoke.py, import with `blocked`
+    (a JAX library: Orbax checkpoints, optax, flax) made unimportable, and
+    none of them is loaded afterwards."""
+    code = (
+        "import sys, importlib, importlib.util, pkgutil\n"
+        f"sys.modules[{blocked!r}] = None\n"
+        "import music_fader_nets_tpu_torch as m\n"
+        "for i in pkgutil.walk_packages(m.__path__, "
+        "'music_fader_nets_tpu_torch.'):\n"
+        "    importlib.import_module(i.name)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', "
+        "'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [k for k, v in sys.modules.items() if v is not None and "
+        "k.split('.')[0] in ('jax', 'orbax', 'optax', 'flax')]\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
 def test_no_reference_imports_in_sources():
     """Static scan: no import statement of the port or chip_smoke.py names
-    jax or the JAX package (the `_torch` suffix is the port itself)."""
+    jax, a JAX library (orbax, optax, flax) or the JAX package (the
+    `_torch` suffix is the port itself)."""
     pat = re.compile(
-        r"^\s*(?:import|from)\s+(?:jax\b|music_fader_nets_tpu(?!_torch))",
-        re.MULTILINE)
+        r"^\s*(?:import|from)\s+(?:(?:jax|orbax|optax|flax)\b"
+        r"|music_fader_nets_tpu(?!_torch))", re.MULTILINE)
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 49
     hits = [(f.name, m.group(0).strip()) for f in files
@@ -65,6 +90,8 @@ def test_no_reference_imports_in_sources():
     assert hits == []
     # the scan itself finds a real reference import
     assert pat.search("from music_fader_nets_tpu.ops import gru\n")
+    assert pat.search("    import orbax.checkpoint as ocp\n")
+    assert pat.search("import optax\n") and pat.search("from flax import x")
     assert not pat.search("from music_fader_nets_tpu_torch.ops import gru\n")
 
 

@@ -376,3 +376,68 @@ def test_global_decode_matches_jax(family, j_decode):
     assert got.shape == want.shape == (3, SMALL["seq_len"], 342)
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def _gmm_objective():
+    from music_fader_nets_tpu.models.gmvae import init_reg_gmvae as j_init
+    from music_fader_nets_tpu_torch.models.gmvae import init_reg_gmvae
+    return (j_init, j_obj.gmm_loss, init_reg_gmvae, objectives.gmm_loss,
+            draws_vanilla, 0)
+
+
+# every faithful_* quirk off, a KL floor and a KL warmup: the settings the
+# CLIs' --fixed-quirks, --free-bits and --kl-warmup reach
+NON_DEFAULT = dict(faithful_negative_beta=False,
+                   faithful_subdecoder_softmax_axis=False,
+                   faithful_glsr_batch0=False, free_bits=0.5,
+                   kl_warmup_steps=50)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES) + ["gmm"])
+def test_objectives_at_non_default_flags_match_jax(family):
+    """The six objectives with every quirk off, free_bits=0.5 and
+    kl_warmup_steps=50, at step 30 (inside the warmup, and past GLSR's
+    step 20): loss and metrics to rtol=1e-5, the gradient of every leaf
+    to GRAD_TOL, JAX's draws handed over. The JAX side runs its scan path
+    (the kernels' parity is held above)."""
+    j_init, j_loss_fn, _, loss_fn, draws, _ = (
+        _gmm_objective() if family == "gmm" else FAMILIES[family])
+    step = 30
+    jcfg = JConfig(**SMALL, **NON_DEFAULT)
+    cfg = ModelConfig(**SMALL, **NON_DEFAULT)
+    p = jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(0), jcfg))
+    batch = make_batch(8)
+    if family == "gmm":
+        rng_ = np.random.default_rng(8)
+        batch["a"] = rng_.uniform(-1, 1, B).astype(np.float32)
+    rng = jax.random.PRNGKey(12)
+    j_fp, _ = j_fast.split_fast(p)
+    (j_loss, j_metrics), j_grads = jax.jit(jax.value_and_grad(
+        lambda fp_: j_loss_fn(fp_, rng, {k: jnp.asarray(v) for k, v in
+                                         batch.items()}, jnp.int32(step),
+                              jcfg),
+        has_aux=True))(j_fp)
+    fp, _ = fast.split_fast(params_from_numpy(p))
+    for _, t in _leaves(fp):
+        t.requires_grad_(True)
+    eps = tuple(torch.from_numpy(e) for e in draws(rng, B))
+    loss, metrics = loss_fn(fp, eps, {k: torch.from_numpy(v) for k, v in
+                                      batch.items()}, step, cfg)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
+    assert set(metrics) == set(j_metrics)
+    for k in metrics:
+        np.testing.assert_allclose(metrics[k].item(), float(j_metrics[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    j_leaves = dict(_leaves(jax.tree.map(np.asarray, j_grads)))
+    assert set(j_leaves) == {k for k, _ in _leaves(fp)}
+    for path, t in _leaves(fp):
+        want = j_leaves[path]
+        got = np.zeros_like(want) if t.grad is None else t.grad.numpy()
+        np.testing.assert_allclose(got, want, err_msg=str(path), **GRAD_TOL)
+    # the flags reach the objective: at the defaults the loss differs
+    with torch.no_grad():
+        default, _ = loss_fn(fp, eps, {k: torch.from_numpy(v) for k, v in
+                                       batch.items()}, step,
+                             ModelConfig(**SMALL))
+    assert abs(default.item() - loss.item()) > 1e-3 * abs(loss.item())
