@@ -49,8 +49,11 @@ widths (and the encoder's two entries, and the decode at B = 1, 37, 64,
 rule), and a `long_geometry` phase the decoder CE and the encoder forward
 + backward at T=250, B=128. No kernel may launch a step at a time: the
 encoder, greedy_decode and sample_decode phases print their device
-launches at T (steps) and T/2 (must be one kernel each, memsets apart),
-train_step, train_family, single_gmvae and long_geometry replay every
+launches at T (steps) and T/2 (must be one kernel each, memsets apart;
+a call is counted between two launches of the library's empty
+`launch_probe` kernel in one profile, and a profile that lost a probe is
+taken again, since the profiler now and then loses a profile's first
+events), train_step, train_family, single_gmvae and long_geometry replay every
 encoder and sub-decoder forward their steps called at T and T/2, the
 profiled warm-up steps and a profiled serving burst list any per-step
 kernel of the earlier port (`PER_STEP_KERNELS`, must be none), serving
@@ -67,9 +70,18 @@ with --epochs 3 (must resume at the saved step and take one epoch's
 steps), 3 steps + save + restore + 3 steps bit-equal to 6 straight steps,
 then the server, the eval CLI and the transfer CLI (greedy and sampled,
 MIDI and WAV out) loading the saved checkpoint, their decoded rows held
-against the plain decode of the restored params. Every phase prints
-one JSON line; the kernels line follows, then the card's name and power
-limit as nvidia-smi reports them, then the final status line. Any failed
+against the plain decode of the restored params. Then the reference-
+facing surface: the public GRU primitives (`ops.gru_scan` both ways,
+`ops.bigru_final_state`, an encoder stream, both sub-decoders) at full
+width, B=128, forward and gradients against the plain path, kernels 1/2
+counted and the bi-GRU timed against cuDNN in turns (`primitives`); the
+port's parity harness on full-width stand-ins of the six released
+checkpoints, section 2 on this card against the CPU replica with the
+token-id forms that run kernels 3 and 7 (`parity`); the native tokenizer
+against its pure-Python path (`native`); and `entry()` against the plain
+path (`entry`). Every phase prints one JSON line; the kernels line
+follows, then the card's name and power limit as nvidia-smi reports
+them, then the final status line. Any failed
 check exits non-zero without the status line. Needs one CUDA device;
 imports nothing of JAX.
 """
@@ -80,6 +92,7 @@ import functools
 import io
 import json
 import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -241,7 +254,9 @@ PER_STEP_KERNELS = ("embed_gru_step", "embed_gru_train_step", "dec_layer1",
 class DeviceWatch:
     """Profiles the device work of the block it wraps (torch.profiler,
     CUPTI): `kernels` and `memsets` launched, and the names among
-    PER_STEP_KERNELS seen (`per_step_kernels`, must stay empty)."""
+    PER_STEP_KERNELS seen (`per_step_kernels`, must stay empty). Launches
+    of the library's empty `launch_probe` kernel are marks, not work:
+    `between_probes` counts the events between each two of them."""
 
     def __enter__(self):
         import torch
@@ -255,35 +270,67 @@ class DeviceWatch:
         import torch
         torch.cuda.synchronize()
         self.prof.__exit__(*exc)
-        self.kernels = self.memsets = 0
-        seen = set()
-        for e in self.prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            if e.name.startswith("Memset"):
-                self.memsets += 1
-            else:
-                self.kernels += 1
-            seen.update(k for k in PER_STEP_KERNELS if k in e.name)
-        self.per_step_kernels = sorted(seen)
+        self.events = sorted(
+            (e.time_range.start, e.name) for e in self.prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        counts = self._count(n for _, n in self.events)
+        self.kernels, self.memsets, self.per_step_kernels = counts
         return False
 
+    @staticmethod
+    def _count(names):
+        from music_fader_nets_tpu_torch.train.bwd_split import PROBE
+        kernels = memsets = 0
+        seen = set()
+        for name in names:
+            if PROBE in name:
+                continue
+            if name.startswith("Memset"):
+                memsets += 1
+            else:
+                kernels += 1
+            seen.update(k for k in PER_STEP_KERNELS if k in name)
+        return kernels, memsets, sorted(seen)
 
-def device_launches(fn, profiles=3):
+    def between_probes(self):
+        """(kernels, memsets, per-step kernels) of the device events
+        between each two consecutive probes, in device time order."""
+        from music_fader_nets_tpu_torch.train.bwd_split import PROBE
+        marks = [i for i, (_, n) in enumerate(self.events) if PROBE in n]
+        return [self._count(n for _, n in self.events[a + 1:b])
+                for a, b in zip(marks, marks[1:])]
+
+
+def device_launches(fn, calls=3, profiles=5):
     """(kernel launches, memsets, per-step kernels seen) of one call of
-    `fn` after a warm-up call: the most of `profiles` profiles of one call
-    each. The profiler has been seen to drop a call's events (a count of
-    0, or 0.5 over two calls), never to add any."""
+    `fn` after a warm-up call. One profile brackets each of `calls` calls
+    between two launches of the library's empty kernel (`train/bwd_split.
+    py::launch_probe`): probe, call, probe, call, ..., probe. A call
+    counts the device events between its two probes, and the count is the
+    most over the calls of a profile that recorded every probe. The profiler has been seen to
+    drop a call's events (a count of 0, or 0.5 over two calls), and every
+    event of a profile taken right after another, never to add any: a
+    profile that lost a probe is taken again after a pause, up to
+    `profiles` profiles."""
     import torch
+    from music_fader_nets_tpu_torch.train.bwd_split import launch_probe
     fn()
     torch.cuda.synchronize()
-    best, seen = (0, 0), set()
-    for _ in range(profiles):
+    for attempt in range(profiles):
         with DeviceWatch() as w:
-            fn()
-        best = max(best, (w.kernels, w.memsets))
-        seen.update(w.per_step_kernels)
-    return best[0], best[1], sorted(seen)
+            launch_probe()
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+                launch_probe()
+        counts = w.between_probes()
+        if len(counts) == calls:
+            best = max((k, m) for k, m, _ in counts)
+            seen = sorted(set().union(*(set(s) for *_, s in counts)))
+            return best[0], best[1], seen
+        time.sleep(0.2 * (attempt + 1))
+    raise RuntimeError(f"the profiler lost a probe in each of {profiles} "
+                       f"profiles")
 
 
 class EmbedCalls:
@@ -359,6 +406,18 @@ def embed_launch_faults(launches):
     return {k: v for k, v in launches.items()
             if v["launches"] != 1 or v["launches_half_T"] != 1
             or v["per_step_kernels"]}
+
+
+def zero_counts(*counts) -> None:
+    """Set every launch count of the given LAUNCHES dicts to 0."""
+    for c in counts:
+        for k in c:
+            c[k] = 0
+
+
+def read_counts(*counts) -> dict:
+    """The non-zero launch counts of the given LAUNCHES dicts."""
+    return {k: v for c in counts for k, v in c.items() if v}
 
 
 def main() -> int:
@@ -642,6 +701,10 @@ def main() -> int:
                     f"{s_lh}")
     s_bound, s_by = bound(dec_flops, w_bytes + nbytes(*args64[9:])
                           + nbytes(noise, inv_t) + steps * 64 * 4)
+    s_b1_bound, _ = bound(dec_flops / 64, w_bytes + nbytes(*res[1][4][9:])
+                          + nbytes(noise[:, :1], inv_t[:1]) + steps * 4)
+    emit({"phase": "sample_decode_bounds", "bound_ms_b64": s_bound,
+          "bound_ms_b1": s_b1_bound, "ms_b64": s_ms, "ms_b1": s_ms_b1})
     kernels["sample_decode"] = {
         "name": "sample_decode", "route": "cuda",
         "source": "music_fader_nets_tpu_torch/csrc/decode.cu",
@@ -2035,21 +2098,13 @@ def main() -> int:
             torch.cuda.synchronize()
             return res, out.getvalue()
 
-        def read_counts():
-            return {k: v for c in counts for k, v in c.items() if v}
-
-        def zero_counts():
-            for c in counts:
-                for k in c:
-                    c[k] = 0
-
         # (1) two epochs
-        zero_counts()
+        zero_counts(*counts)
         t0 = time.monotonic()
         tr2, out2 = run(train_cli.run_training, "gmm", "chip_smoke",
                         dual_corpus=True, argv=common + ["--epochs", "2"])
         train_s = time.monotonic() - t0
-        train_l = read_counts()
+        train_l = read_counts(*counts)
         with open(os.path.join(tmp, "log", f"{name}.jsonl")) as f:
             recs = [json.loads(line) for line in f]
         finite = all(np.isfinite(v) for r in recs for k, v in r.items()
@@ -2134,13 +2189,13 @@ def main() -> int:
                 return fut
 
         guard.start("train_cli")
-        zero_counts()
+        zero_counts(*counts)
         serve_cli.TransferServer = RecordingServer
         try:
             _, out_s = run(serve_cli.run_server, common + ["--bench", "64"])
         finally:
             serve_cli.TransferServer = TransferServer
-        serve_l = read_counts()
+        serve_l = read_counts(*counts)
         bench = json.loads(out_s.strip().splitlines()[-1])
         leaf = ("linear_out_g", "w")
         srv_params = served["server"].params
@@ -2176,22 +2231,22 @@ def main() -> int:
                 s_rows += 1
         del served
         # (5) the eval CLI from the saved directory
-        zero_counts()
+        zero_counts(*counts)
         t0 = time.monotonic()
         _, out_e = run(eval_cli.main, ["gmm"] + common)
         eval_s = time.monotonic() - t0
-        eval_l = read_counts()
+        eval_l = read_counts(*counts)
         # (6) the transfer CLI, greedy and sampled, from the saved directory
         transfer = {}
         item = train_cli.load_vgmidi(args)["test"][0]
         for label, extra in (("greedy", []),
                              ("sampled", ["--temperature", "1.0"])):
-            zero_counts()
+            zero_counts(*counts)
             mid = os.path.join(tmp, f"{label}.mid")
             wav = os.path.join(tmp, f"{label}.wav")
             (toks, notes), _ = run(transfer_cli.main, common + extra + [
                 "--out", mid, "--wav", wav])
-            t_l = read_counts()
+            t_l = read_counts(*counts)
             with torch.inference_mode():
                 z = transfer_latent(restored, item, seed=SEED, device=dev)
                 a_, _, _ = cuda_decode._prep_decode_args(gv, z)
@@ -2299,6 +2354,366 @@ def main() -> int:
         rc = train_cli_phase(tmp)
     if rc:
         return rc
+
+    # ------------------------------------------------------- primitives
+    # The public GRU primitives (`ops.gru_scan` both ways,
+    # `ops.bigru_final_state`, an encoder stream over T=100 one-hots, the
+    # rhythm and note sub-decoders over T=attr_len) at full width, B=128:
+    # forward and the gradient of every param (and z) on the kernel path
+    # against the plain path on this card; kernels 1/2 launched, with the
+    # counts zeroed just before and read just after, and one forward launch
+    # a call (both bi-GRU directions in one); no per-step kernel. The
+    # bi-GRU's forward is timed in turns against cuDNN's bidirectional
+    # nn.GRU carrying the same weights (its projection included, as the
+    # primitive's einsum is).
+    from music_fader_nets_tpu_torch import ops as port_ops
+    from music_fader_nets_tpu_torch.models.modules import (
+        encoder_stream_apply, encoder_stream_init, sub_decoder_apply,
+        sub_decoder_init,
+    )
+    from music_fader_nets_tpu_torch.ops.gru import bigru_init
+
+    def one_hot(n_cls, *shape):
+        ids = torch.from_numpy(rng.integers(0, n_cls, size=shape)).to(dev)
+        return torch.nn.functional.one_hot(ids, n_cls).float()
+
+    A = cfg.attr_len
+    p_x = one_hot(V, TB, T)
+    p_z = torch.randn((TB, Z), generator=gen).to(dev)
+    faithful = cfg.faithful_subdecoder_softmax_axis
+
+    def ce_cot(n_cls):
+        """The cotangent of a sub-decoder's log-probs under its mean NLL
+        (nll_mean) on random targets, -one_hot / (B * attr_len), as
+        training gives it. (Under the time-axis log-softmax its output
+        bias gets an exact-0 gradient, float32 noise on both paths that
+        scales with the cotangent.)"""
+        return -one_hot(n_cls, TB, A) / (TB * A)
+
+    # name: (params, inputs (the first one wants no gradient), function,
+    # output cotangent or None for a standard normal one)
+    prim_cases = {
+        "gru_scan": (gru_init(gen, V, H), (p_x,),
+                     lambda p, x: port_ops.gru_scan(p, x)[0], None),
+        "gru_scan_reverse": (gru_init(gen, V, H), (p_x,),
+                             lambda p, x: port_ops.gru_scan(
+                                 p, x, reverse=True)[0], None),
+        "bigru_final_state": (bigru_init(gen, V, H), (p_x,),
+                              lambda p, x: port_ops.bigru_final_state(
+                                  p["fwd"], p["bwd"], x), None),
+        "encoder_stream": (encoder_stream_init(gen, V, H, Z), (p_x,),
+                           lambda p, x: torch.cat(
+                               encoder_stream_apply(p, x), -1), None),
+        "sub_decoder_r": (sub_decoder_init(gen, Z, cfg.rhythm_dims, H),
+                          (one_hot(cfg.rhythm_dims, TB, A), p_z),
+                          lambda p, a, z: sub_decoder_apply(p, a, z,
+                                                            faithful),
+                          ce_cot(cfg.rhythm_dims)),
+        "sub_decoder_n": (sub_decoder_init(gen, Z, cfg.note_dims, H),
+                          (one_hot(cfg.note_dims, TB, A), p_z),
+                          lambda p, a, z: sub_decoder_apply(p, a, z,
+                                                            faithful),
+                          ce_cot(cfg.note_dims)),
+    }
+
+    def prim_grads(fn, p, ins, cot):
+        """(output, gradients of every param leaf and of z) of one call."""
+        pp = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        xs = [t if i == 0 else t.detach().clone().requires_grad_(True)
+              for i, t in enumerate(ins)]
+        leaves = [t for _, t in named_leaves(pp)] + xs[1:]
+        out = fn(pp, *xs)
+        return out.detach(), torch.autograd.grad(out, leaves, cot)
+
+    prim = {}
+    for name, (p_cpu, ins, fn, cot) in prim_cases.items():
+        p = tree_to(p_cpu, dev)
+        with torch.no_grad():
+            shape = fn(p, *ins).shape
+        if cot is None:
+            cot = torch.randn(shape, generator=gen).to(dev)
+        zero_counts(cuda_stacked.LAUNCHES)
+        with DeviceWatch() as w:
+            out_k, g_k = prim_grads(fn, p, ins, cot)
+        fb_launches = dict(cuda_stacked.LAUNCHES)
+        with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
+            out_p, g_p = prim_grads(fn, p, ins, cot)
+        zero_counts(cuda_stacked.LAUNCHES)
+        with torch.no_grad():
+            fn(p, *ins)
+            torch.cuda.synchronize()
+        f_launches = dict(cuda_stacked.LAUNCHES)
+        out_err = float((out_k - out_p).abs().max())
+        g_worst = worst_leaf(g_k, g_p, [k for k, _ in named_leaves(p)]
+                             + ["z"] * (len(ins) - 1))
+        with torch.no_grad():
+            k_ms = time_ms(lambda: fn(p, *ins), 10)
+            with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
+                p_ms = time_ms(lambda: fn(p, *ins), 2, warm=1)
+        kfb_ms = time_ms(lambda: prim_grads(fn, p, ins, cot), 5)
+        prim[name] = {"out_shape": list(shape), "out_max_abs_err": out_err,
+                      **g_worst, "fwd_bwd_launches": fb_launches,
+                      "fwd_launches": f_launches,
+                      "per_step_kernels": w.per_step_kernels,
+                      "fwd_ms": k_ms, "plain_fwd_ms": p_ms,
+                      "fwd_bwd_ms": kfb_ms}
+        if name == "bigru_final_state":
+            g = torch.nn.GRU(V, H, batch_first=True,
+                             bidirectional=True).to(dev)
+            with torch.no_grad():
+                for d, suf in (("fwd", ""), ("bwd", "_reverse")):
+                    getattr(g, "weight_ih_l0" + suf).copy_(p[d]["w_ih"].t())
+                    getattr(g, "weight_hh_l0" + suf).copy_(p[d]["w_hh"].t())
+                    getattr(g, "bias_ih_l0" + suf).copy_(p[d]["b_ih"])
+                    getattr(g, "bias_hh_l0" + suf).copy_(p[d]["b_hh"])
+
+                def cudnn_bigru():
+                    h_n = g(p_x)[1]
+                    return torch.cat([h_n[0], h_n[1]], -1)
+
+                turns = {"kernel_ms": [], "cudnn_ms": []}
+                for order in (("kernel_ms", "cudnn_ms"),
+                              ("cudnn_ms", "kernel_ms")):
+                    for key in order:
+                        turns[key].append(time_ms(
+                            cudnn_bigru if key == "cudnn_ms"
+                            else (lambda: fn(p, *ins)), 10))
+                prim[name]["cudnn_turns"] = turns
+                prim[name]["cudnn_max_abs_err"] = float(
+                    (cudnn_bigru() - out_k).abs().max())
+            del g
+        del p, out_k, out_p, g_k, g_p
+    emit({"phase": "primitives", "B": TB, "H": H, "Z": Z, "V": V, "T": T,
+          "attr_len": A, "tol_out": TOL_TRAIN_OUT,
+          "tol_grad_rel": TOL_TRAIN_GRAD_REL, "cases": prim})
+    for name, r in prim.items():
+        if not (r["out_max_abs_err"] <= TOL_TRAIN_OUT
+                and r["grad_max_rel_err"] <= TOL_TRAIN_GRAD_REL):
+            return fail(f"primitives {name}: kernel vs plain output "
+                        f"{r['out_max_abs_err']}, gradients "
+                        f"{r['grad_max_rel_err']} (relative)")
+        if not (r["fwd_bwd_launches"]["stacked_gru"] >= 1
+                and r["fwd_bwd_launches"]["stacked_gru_bwd"] >= 1
+                and r["fwd_launches"] == {"stacked_gru": 1,
+                                          "stacked_gru_bwd": 0}
+                and not r["per_step_kernels"]):
+            return fail(f"primitives {name}: launches {r}")
+
+    # ----------------------------------------------------------- parity
+    # The port's parity harness (`music_fader_nets_tpu_torch.parity`) on
+    # stand-ins for the six released checkpoints, made at full width by the
+    # port's own `params_to_torch_state_dict` from seeded inits: section 1
+    # (converter round trip), section 2 (the port on this card against the
+    # torch replica on the CPU, atol 1e-4: the encoders on dense inputs
+    # through kernel 1 and on one-hots with their token ids through kernel
+    # 3, the sub-decoders through kernel 1, the teacher decode through
+    # kernel 1 and, with token ids, kernel 7), section 3 (the Table-1 eval)
+    # for gmm, and section 4 (token re-encode) on 64 rows of the port's
+    # own codec. Each kind's launches are read with the counts zeroed just
+    # before its section 2.
+    from music_fader_nets_tpu_torch import parity as port_parity
+    from music_fader_nets_tpu_torch.tokenizer.midi_io import MidiNote
+    from music_fader_nets_tpu_torch.tokenizer.performance_codec import (
+        performance_decode, performance_encode,
+    )
+
+    def parity_phase(tmp: str) -> int:
+        pcfg = ModelConfig()
+        rows = []
+        for _ in range(64):
+            t = np.cumsum(rng.random(24) * 0.3)
+            notes = [MidiNote(int(rng.integers(21, 109)),
+                              int(rng.integers(1, 128)), float(s),
+                              float(s + rng.random() + 0.01)) for s in t]
+            # a stream the codec wrote from quantized notes, as the
+            # released token arrays are
+            rows.append(performance_encode(performance_decode(
+                performance_encode(notes)), add_eos=True))
+        width = max(len(r) for r in rows)
+        tok_path = os.path.join(tmp, "song_tokens.npy")
+        np.save(tok_path, np.stack([np.pad(r, (0, width - len(r)))
+                                    for r in rows]))
+        guard.start("parity")
+        res = {}
+        for i, (fname, kind) in enumerate(port_parity.RELEASED_CKPTS):
+            path = os.path.join(tmp, fname)
+            torch.save(ckpt.params_to_torch_state_dict(
+                train_cli.MODEL_REGISTRY[kind]["init"](
+                    torch.Generator().manual_seed(SEED + i), pcfg)), path)
+            sd = port_parity.load_state_dict(path)
+            r, secs, diffs = {}, {}, {}
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                t0 = time.monotonic()
+                r["roundtrip"] = port_parity.check_roundtrip(sd)
+                secs["roundtrip"] = time.monotonic() - t0
+                zero_counts(*all_counts, cuda_decode.LAUNCHES)
+                t0 = time.monotonic()
+                r["forward"] = port_parity.check_forward(sd, kind, "cuda",
+                                                         diffs=diffs)
+                torch.cuda.synchronize()
+                secs["forward"] = time.monotonic() - t0
+                fwd_l = read_counts(*all_counts, cuda_decode.LAUNCHES)
+                if kind == "gmm":
+                    args = port_parity.build_argparser().parse_args([
+                        "--from-pt", path, "--device", "cuda",
+                        "--config", os.path.join(repo_root, "configs",
+                                                 "gmm_model_config.json"),
+                        "--synthetic-size", str(n_seg), "--samples", "4",
+                        "--eval-epochs", "1"])
+                    zero_counts(*all_counts, cuda_decode.LAUNCHES)
+                    t0 = time.monotonic()
+                    r["table1"] = port_parity.run_table1_eval(kind, args)
+                    torch.cuda.synchronize()
+                    secs["table1"] = time.monotonic() - t0
+                    eval_l = read_counts(*all_counts, cuda_decode.LAUNCHES)
+                t0 = time.monotonic()
+                r["tokens"] = port_parity.check_token_stream(tok_path, 0)
+                secs["tokens"] = time.monotonic() - t0
+            os.remove(path)
+            res[kind] = {"pass": r, "seconds": secs, "max_abs_d": diffs,
+                         "forward_launches": fwd_l}
+            if kind == "gmm":
+                res[kind]["table1_launches"] = eval_l
+            if not all(r.values()):
+                emit({"phase": "parity", "results": res})
+                return fail(f"parity {kind}: {r}:\n{out.getvalue()[-3000:]}")
+            want = {"stacked_gru", "decoder_teacher"} | (
+                set() if kind == "cvae" else {"embed_gru"})
+            if not want <= set(fwd_l):
+                return fail(f"parity {kind}: section 2 launched {fwd_l}, "
+                            f"not all of {sorted(want)}")
+            if kind == "gmm" and not {"embed_gru", "greedy_decode"} <= set(
+                    eval_l):
+                return fail(f"parity gmm: the eval launched {eval_l}")
+        emit({"phase": "parity", "tol": 1e-4, "token_rows": len(rows),
+              "token_checks": guard.checked, "results": res})
+        if guard.bad:
+            return fail(f"decode kernel tokens out of range: {guard.bad}")
+        return 0
+
+    repo_root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parity_") as tmp:
+        rc = parity_phase(tmp)
+    if rc:
+        return rc
+
+    # ----------------------------------------------------------- native
+    # The port's native tokenizer (`native/fadertok.cc`, built with g++ at
+    # its first use in this process) against its pure-Python path on a
+    # synthetic corpus: 512 note lists encoded, their tokens decoded, 128
+    # pianorolls encoded to events; every output equal, and the host ms of
+    # both paths on this machine's CPU.
+    from music_fader_nets_tpu_torch import native
+    from music_fader_nets_tpu_torch.tokenizer import (
+        event_codec, performance_codec,
+    )
+    note_lists = []
+    for _ in range(512):
+        t = np.cumsum(rng.random(64) * 0.3)
+        note_lists.append([MidiNote(int(rng.integers(21, 109)),
+                                    int(rng.integers(1, 128)), float(s),
+                                    float(s + rng.random() * 1.5 + 0.01))
+                           for s in t])
+    rolls = []
+    for _ in range(128):
+        pr = np.zeros((64, 128), np.int64)
+        for t in range(64):
+            for pitch in rng.choice(np.arange(1, 128),
+                                    size=rng.integers(0, 5), replace=False):
+                pr[t: t + int(rng.integers(1, 4)), pitch] = int(
+                    rng.integers(1, 128))
+        rolls.append(pr)
+    t0 = time.monotonic()
+    native.fadertok()
+    load_s = time.monotonic() - t0
+
+    def codec_run():
+        """(outputs, host ms of each part, the paths that served)."""
+        paths, ms, outs = set(), {}, {}
+        t0 = time.perf_counter()
+        outs["tokens"] = [performance_codec.performance_encode(n, True)
+                          for n in note_lists]
+        paths.add(native.PATH)
+        ms["encode"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        outs["notes"] = [[(n.pitch, n.velocity, n.start, n.end)
+                          for n in performance_codec.performance_decode(t)]
+                         for t in outs["tokens"]]
+        paths.add(native.PATH)
+        ms["decode"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        outs["events"] = [event_codec.encode_pianoroll(pr)[0] for pr in rolls]
+        paths.add(native.PATH)
+        ms["pianoroll_events"] = (time.perf_counter() - t0) * 1e3
+        return outs, ms, sorted(paths)
+
+    was = native.HAVE_NATIVE
+    try:
+        native.HAVE_NATIVE = True
+        n_out, n_ms, n_paths = codec_run()
+        native.HAVE_NATIVE = False
+        p_out, p_ms, p_paths = codec_run()
+    finally:
+        native.HAVE_NATIVE = was
+    same = {k: n_out[k] == p_out[k] for k in n_out}
+    with open("/proc/cpuinfo") as f:
+        cpu_model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")),
+                         platform.processor() or platform.machine())
+    emit({"phase": "native", "paths": {"native": n_paths,
+                                       "python": p_paths},
+          "bit_identical": same, "build_seconds": native.BUILD_SECONDS,
+          "load_seconds": load_s, "module": native.fadertok().__file__,
+          "note_lists": len(note_lists), "pianorolls": len(rolls),
+          "tokens": sum(len(t) for t in n_out["tokens"]),
+          "native_ms": n_ms, "python_ms": p_ms,
+          "host": {"cpu": cpu_model, "cpu_count": os.cpu_count()}})
+    if not (n_paths == ["native"] and p_paths == ["python"]
+            and all(same.values())):
+        return fail(f"native tokenizer: paths {n_paths} / {p_paths}, "
+                    f"identical {same}")
+
+    # ------------------------------------------------------------ entry
+    # The port's graft entry (`music_fader_nets_tpu_torch.entry.entry()`):
+    # the GM-VAE forward + gmm_loss at full width, B=8, on this card (the
+    # token encoder, the class-embedded sub-decoders and the decoder with
+    # its CE head: kernels 3, 5 and 9, counted from zero), held against
+    # the plain path on the same card: the loss and every metric within
+    # 1e-4 of max(1, |plain value|).
+    from music_fader_nets_tpu_torch.entry import entry as port_entry
+    zero_counts(*all_counts, cuda_decode.LAUNCHES)
+    e_fn, e_args = port_entry()
+    with torch.no_grad():
+        e_loss, e_metrics = e_fn(*e_args)
+        torch.cuda.synchronize()
+        e_launches = read_counts(*all_counts, cuda_decode.LAUNCHES)
+        with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
+            ep_loss, ep_metrics = e_fn(*e_args)
+
+        def host_ms(f, reps):
+            ts = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(ts)
+
+        e_ms = host_ms(lambda: e_fn(*e_args), 5)
+        with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
+            ep_ms = host_ms(lambda: e_fn(*e_args), 2)
+    e_err = {k: abs(float(e_metrics[k]) - float(v)) / max(1.0, abs(float(v)))
+             for k, v in ep_metrics.items()}
+    emit({"phase": "entry", "B": int(e_args[2]["x"].shape[0]),
+          "loss": float(e_loss), "plain_loss": float(ep_loss),
+          "rel_err": e_err, "tol": 1e-4, "launches": e_launches,
+          "ms": e_ms, "plain_ms": ep_ms})
+    if not (np.isfinite(float(e_loss)) and max(e_err.values()) <= 1e-4):
+        return fail(f"entry: kernel vs plain {e_err}")
+    if not {"embed_gru", "embed_seq", "decoder_ce"} <= set(e_launches):
+        return fail(f"entry: launches {e_launches}")
 
     launches = {**serving_launches,
                 **{k: train_launches[k] for k in train_kernels},

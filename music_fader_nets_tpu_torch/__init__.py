@@ -13,7 +13,11 @@ its step timers and its state in canonical trees), checkpoints and the
 training CLI with resume, the single GM-VAE, the evaluation path
 (reconstruction report, controllability metrics and their CLI, with the
 host-side tokenizer they read), and arousal transfer to MIDI and WAV; the
-serving, evaluation and transfer CLIs load what training saved. Hand-
+serving, evaluation and transfer CLIs load what training saved. The
+reference-facing surface too: the JAX package's public primitives and
+subpackage exports, the tokenizer's compat layer, the VGMIDI label
+filtering, the native C++ codec, the released-artifact parity harness
+(`parity.py`) and the graft entry (`entry.py`). Hand-
 written CUDA kernels (`csrc/`) stand in place of every Pallas kernel;
 each training kernel is a `torch.autograd.Function` with a backward
 kernel. Every kernel wrapper keeps a plain PyTorch version beside it, used
@@ -26,9 +30,11 @@ Layout:
               GM-VAE pieces, the fast (kernel-layout) parameter view
   losses/     ELBO terms, GM-VAE KL terms, the Pati regularizer
   tokenizer/  MIDI notes, the 342-token performance codec, pianoroll
-              attributes, key estimation, the corpus pipeline (host side)
-  data/       corpora (cache, MIDI rebuild, synthetic), dataset views and
-              batch iteration
+              attributes, key estimation, the corpus pipeline, the
+              reference-API compat layer (host side)
+  native/     the C++ tokenizer kernels, built with g++ at first use
+  data/       corpora (cache, MIDI rebuild, synthetic), dataset views,
+              batch iteration, VGMIDI annotation filtering
   train/      the objectives, the Trainer, the training CLI and what the
               other CLIs share with it, step profilers
   eval/       reconstruction report, controllability evaluators, eval CLI
@@ -37,6 +43,8 @@ Layout:
   serve/      micro-batching TransferServer and its JSON-lines CLI
   utils/      checkpoints and the reference .pt converter, parameter
               trees, metrics logging, profiling helpers
+  parity.py   the released-artifact parity harness
+  entry.py    the graft entry: the GM-VAE forward + loss
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
-"""Building blocks of the model families: the fused bi-GRU encoder
-streams, the paired teacher-forced attribute sub-decoders and the 2-layer
-GRUCell global decoder (counterpart of
-`music_fader_nets_tpu/models/modules.py`, same parameter names).
+"""Building blocks of the model families: the bi-GRU encoder streams
+(one, or all of a model's fused), the teacher-forced attribute
+sub-decoders (one, or a model's pair fused) and the 2-layer GRUCell
+global decoder (counterpart of `music_fader_nets_tpu/models/modules.py`,
+same parameter names).
 
 The decoder's per-step input is `[one_hot(token), z]`; the z half is
 constant across steps, so its projection is computed once, and the one-hot
@@ -15,14 +16,34 @@ import torch
 
 from music_fader_nets_tpu_torch.ops import cuda_decoder, cuda_gru
 from music_fader_nets_tpu_torch.ops.gru import (
+    bigru_apply,
+    bigru_init,
     gru_cell_from_pre,
     gru_init,
+    gru_scan,
     linear_apply,
     linear_init,
     multi_gru_final_states,
     multi_gru_final_states_packed,
     stacked_gru_seq,
 )
+
+
+def encoder_stream_init(gen: torch.Generator, in_dim: int, hidden: int,
+                        z_dims: int) -> dict:
+    """One encoder stream: a bi-GRU and the mu / logsig heads."""
+    return {"gru": bigru_init(gen, in_dim, hidden),
+            "mu": linear_init(gen, 2 * hidden, z_dims),
+            "var": linear_init(gen, 2 * hidden, z_dims)}
+
+
+def encoder_stream_apply(p: dict, x_oh: torch.Tensor):
+    """x_oh (B, T, V) -> (mu, stddev), stddev = exp(logsig) (the
+    reference's `var` head predicts log-sigma, model_v2.py:85). The bi-GRU
+    is one L=2 recurrence over the hoisted projection (`bigru_apply`):
+    kernel 1 on CUDA tensors, kernel 2 under autograd."""
+    h = bigru_apply(p["gru"], x_oh)                         # (B, 2H)
+    return linear_apply(p["mu"], h), torch.exp(linear_apply(p["var"], h))
 
 
 def _heads(finals: torch.Tensor, heads: list):
@@ -71,6 +92,29 @@ def _sub_heads(outs, out_r, out_n, faithful_softmax_axis: bool):
     n_logits = linear_apply(out_n, outs[1].transpose(0, 1))
     return (torch.log_softmax(r_logits, dim=dim),
             torch.log_softmax(n_logits, dim=dim))
+
+
+def sub_decoder_init(gen: torch.Generator, z_dims: int, track_dims: int,
+                     hidden: int) -> dict:
+    return {"gru": gru_init(gen, z_dims + track_dims, hidden),
+            "init": linear_init(gen, z_dims, hidden),
+            "out": linear_init(gen, hidden, track_dims)}
+
+
+def sub_decoder_apply(p: dict, track_oh: torch.Tensor, z: torch.Tensor,
+                      faithful_softmax_axis: bool = True) -> torch.Tensor:
+    """One teacher-forced attribute sub-decoder (reference
+    model_v2.py:99-116): step input [track_onehot_t, z], h0 =
+    linear_init(z), the recurrence through `gru_scan` (kernel 1 on CUDA
+    tensors, kernel 2 under autograd). Log-probs (B, T, C), taken in
+    float32 over the TIME axis with `faithful_softmax_axis` (the
+    reference's `F.log_softmax(..., 1)` quirk), else over the classes."""
+    B, T, _ = track_oh.shape
+    z_rep = z[:, None, :].expand(B, T, z.shape[-1])
+    outs, _ = gru_scan(p["gru"], torch.cat([track_oh, z_rep], dim=-1),
+                       linear_apply(p["init"], z))
+    logits = linear_apply(p["out"], outs).to(torch.float32)
+    return torch.log_softmax(logits, dim=1 if faithful_softmax_axis else -1)
 
 
 def sub_decoder_pair_apply(p_r: dict, p_n: dict, r_oh, n_oh, z_r, z_n,

@@ -55,6 +55,10 @@ def linear_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
 
 
+# the JAX package's alias of `linear_apply`
+linear = linear_apply
+
+
 def _gates(pre_x: torch.Tensor, pre_h: torch.Tensor,
            h: torch.Tensor) -> torch.Tensor:
     """Gate math given precomputed input and hidden projections
@@ -65,6 +69,12 @@ def _gates(pre_x: torch.Tensor, pre_h: torch.Tensor,
     z = torch.sigmoid(xz + hz)
     n = torch.tanh(xn + r * hn)
     return (1.0 - z) * n + z * h
+
+
+def gru_cell(p: dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """One GRU step: x (B, I), h (B, H) -> h' (B, H). Plain torch ops on
+    any device, as the JAX package computes it outside any kernel."""
+    return gru_cell_from_pre(p, x @ p["w_ih"] + p["b_ih"], h)
 
 
 def gru_cell_from_pre(p: dict, pre_x: torch.Tensor,
@@ -92,6 +102,51 @@ def stacked_gru_scan(pre: torch.Tensor, w_hh: torch.Tensor,
     if pre.shape[1] == 0:
         return h0
     return stacked_gru_seq(pre, w_hh, b_hh, h0)[:, -1]
+
+
+def gru_scan(p: dict, x: torch.Tensor, h0: Optional[torch.Tensor] = None,
+             reverse: bool = False):
+    """One GRU over a whole sequence: x (B, T, I) -> (outs (B, T, H),
+    h_final (B, H)); h0 None means zeros of x's dtype.
+
+    The input projection x @ w_ih + b_ih of all T steps is one matmul; the
+    recurrence is one `stacked_gru_seq` call at L=1 (kernel 1 on CUDA
+    tensors, `StackedGRU` with kernel 2 when a float input wants a
+    gradient; the plain version on the CPU). With `reverse` the GRU
+    consumes x right to left, as `lax.scan(reverse=True)` does in the JAX
+    package: outs[:, t] is the state after the step that consumed x[:, t]
+    (input order), and h_final the state after t = 0."""
+    B, T, _ = x.shape
+    H = p["w_hh"].shape[0]
+    if h0 is None:
+        h0 = x.new_zeros((B, H))
+    if T == 0:
+        return x.new_zeros((B, 0, H)), h0
+    pre = (torch.matmul(x, p["w_ih"]) + p["b_ih"]).transpose(0, 1)  # T,B,3H
+    if reverse:
+        pre = pre.flip(0)
+    h_seq = stacked_gru_seq(pre[None], p["w_hh"][None], p["b_hh"][None],
+                            h0[None])[0]                         # (T, B, H)
+    h_final = h_seq[-1]
+    if reverse:
+        h_seq = h_seq.flip(0)
+    return h_seq.transpose(0, 1), h_final
+
+
+def bigru_final_state(p_fwd: dict, p_bwd: dict,
+                      x: torch.Tensor) -> torch.Tensor:
+    """Bidirectional GRU, the concatenated final states (B, 2H):
+    `nn.GRU(bidirectional=True)(x)[-1]` as the reference reshapes it
+    (model_v2.py:83-85), the forward direction's state after the last
+    step, then the backward direction's after consuming x right to left.
+    Both directions are one L=2 recurrence (the backward one over the
+    time-flipped input): one kernel-1 launch on CUDA tensors."""
+    finals = multi_gru_final_states([p_fwd, p_bwd], x, [False, True])
+    return torch.cat([finals[0], finals[1]], dim=-1)
+
+
+def bigru_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return bigru_final_state(p["fwd"], p["bwd"], x)
 
 
 def vocab_pad(V: int) -> int:

@@ -1,5 +1,5 @@
-"""Sampling ops: the reparameterised latent, per-row Gumbel noise and the
-gradient reversal layer.
+"""Sampling ops: greedy one-hot feedback, the reparameterised latent,
+per-row Gumbel noise and the gradient reversal layer.
 
 JAX's PRNG streams cannot be reproduced in PyTorch, so `reparameterize`
 takes its standard-normal noise explicitly and the Gumbel noise comes from
@@ -9,6 +9,15 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+
+
+def argmax_one_hot(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy feedback (reference model_v2.py:72-79 `_sampling`): the
+    one-hot of the argmax class, in the logits' dtype. Ties take the first
+    maximal index, as `jnp.argmax` does."""
+    idx = torch.argmax(logits, dim=-1)
+    return torch.nn.functional.one_hot(idx, logits.shape[-1]).to(
+        logits.dtype)
 
 
 def reparameterize(mu: torch.Tensor, std: torch.Tensor,

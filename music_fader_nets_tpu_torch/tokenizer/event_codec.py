@@ -22,6 +22,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from music_fader_nets_tpu_torch import native
+
 START = 128
 END = 129
 SHIFT = 130
@@ -146,10 +148,16 @@ def rhythm_from_pianoroll(pr: np.ndarray) -> List[int]:
 
 
 def encode_pianoroll(pr: np.ndarray):
-    """pr (T,128) -> (events, pitch_lst, vel_lst, rhythm)."""
+    """pr (T,128) -> (events, pitch_lst, vel_lst, rhythm).
+
+    Event generation dispatches to the native tokenizer (`native/`)."""
     pitch_lst, vel_lst = pianoroll_to_pitch_lists(pr)
     rhythm = rhythm_from_pianoroll(pr)
-    events = pitch_lists_to_events(pitch_lst, vel_lst)
+    ft = native.select(bool(len(pr)))
+    if ft is not None:
+        events = ft.pr_to_events(np.ascontiguousarray(pr, np.int64)).tolist()
+    else:
+        events = pitch_lists_to_events(pitch_lst, vel_lst)
     return events, pitch_lst, vel_lst, rhythm
 
 

@@ -21,6 +21,9 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
+
+from music_fader_nets_tpu_torch import native
 from music_fader_nets_tpu_torch.tokenizer.midi_io import MidiData, MidiNote
 
 PAD = 0
@@ -73,9 +76,20 @@ def bin_to_velocity(b: int) -> int:
 
 def performance_encode(notes: List[MidiNote], add_eos: bool = False) -> List[int]:
     """Note list -> token ids. Pitches outside [21, 108] are dropped (the
-    Magenta encoder's behavior for out-of-range pitches)."""
+    Magenta encoder's behavior for out-of-range pitches).
+
+    Dispatches to the native tokenizer (`native/`); the pure-Python path
+    below is the reference implementation."""
     notes = [n for n in notes if MIN_PITCH <= n.pitch <= MAX_PITCH]
     notes = sorted(notes, key=lambda n: (n.start, n.pitch))
+    ft = native.select(bool(notes))
+    if ft is not None:
+        return ft.perf_encode(
+            np.array([n.pitch for n in notes], np.int64),
+            np.array([n.velocity for n in notes], np.int64),
+            np.array([n.start for n in notes], np.float64),
+            np.array([n.end for n in notes], np.float64),
+            int(add_eos)).tolist()
     events = []                                  # (step, sort_idx, is_off, i)
     for i, n in enumerate(notes):
         # Magenta's sequences_lib.quantize_to_step with QUANTIZE_CUTOFF=0.5:
@@ -120,6 +134,14 @@ def performance_decode(tokens, default_velocity: int = 100,
     """Token ids -> note list. PAD/EOS and malformed tokens are skipped;
     notes left open at the end are closed `trailing_note_seconds` after the
     final event (Magenta closes them at the performance end time)."""
+    ft = native.select()
+    if ft is not None:
+        p, v, s, e = ft.perf_decode(
+            np.asarray(list(tokens), np.int64), int(default_velocity),
+            int(round(trailing_note_seconds * STEPS_PER_SECOND)))
+        return [MidiNote(int(p[i]), int(v[i]), float(s[i]) / STEPS_PER_SECOND,
+                         float(e[i]) / STEPS_PER_SECOND)
+                for i in range(len(p))]
     notes: List[MidiNote] = []
     open_notes = {}
     step = 0

@@ -31,13 +31,15 @@ import argparse
 import json
 import statistics
 import subprocess
+import time
 
 import torch
 
 from music_fader_nets_tpu_torch import resolve_device
 from music_fader_nets_tpu_torch.config import load_config
 from music_fader_nets_tpu_torch.losses.regularizers import GLSR_MASK_RANGES
-from music_fader_nets_tpu_torch.ops import cuda_decoder, cuda_gru, cuda_stacked
+from music_fader_nets_tpu_torch.ops import (
+    _build, cuda_decoder, cuda_gru, cuda_stacked)
 from music_fader_nets_tpu_torch.ops.gru import vocab_pad
 
 # part of a backward call -> substrings of its kernels' names
@@ -51,27 +53,51 @@ PARTS = {
 }
 
 
+# the library's empty kernel (`csrc/decode.cu`), a mark in a profile
+PROBE = "launch_probe"
+
+
+def launch_probe() -> None:
+    """One launch of the `launch_probe` kernel on the current stream,
+    waited for."""
+    stream = torch.cuda.current_stream().cuda_stream
+    _build.check(_build.load_library().fader_launch_probe(0, 1, stream),
+                 "fader_launch_probe")
+    torch.cuda.synchronize()
+
+
 def kernel_split(fn, reps: int = 3, parts=PARTS, skip=()):
     """(device ms of one call of `fn` by part (`parts`: name -> substrings
     of its kernels' names, and `other`), device launches of one call:
     kernels and memsets, less the events whose names start with a prefix
     in `skip`, which are timed but not counted), over `reps` profiled
-    calls after one warm-up call. A profile that caught no device event
-    at all (seen now and then right after another profile) is taken
-    again, up to twice."""
+    calls after one warm-up call. The calls run between two probe
+    launches (`launch_probe`) and only the device events between the
+    probes count. The profiler has been seen to lose the first events of
+    a profile, and every event of one taken right after another: a
+    profile that lost a probe is taken again after a pause, up to four
+    profiles."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for attempt in range(4):
         with torch.profiler.profile(activities=acts) as prof:
+            launch_probe()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+            launch_probe()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if PROBE in e.name]
+        if len(marks) == 2:
+            events = events[marks[0] + 1:marks[1]]
             break
+        time.sleep(0.2 * (attempt + 1))
+    else:
+        raise RuntimeError("the profiler lost a probe in each of 4 profiles")
     split = {part: 0.0 for part in (*parts, "other")}
     n = 0
     for e in events:
