@@ -79,7 +79,11 @@ port's parity harness on full-width stand-ins of the six released
 checkpoints, section 2 on this card against the CPU replica with the
 token-id forms that run kernels 3 and 7 (`parity`); the native tokenizer
 against its pure-Python path (`native`); and `entry()` against the plain
-path (`entry`). Every phase prints one JSON line; the kernels line
+path (`entry`). Last, data parallelism: the GM-VAE `Trainer` on a mesh of
+one NCCL rank, bit-equal to the Trainer without one, and on two ranks
+sharing the card over gloo, 64 + 64 rows against one process at 128
+(`data_parallel`), then `entry.dryrun_multichip(2)` on the card
+(`dryrun_multichip`). Every phase prints one JSON line; the kernels line
 follows, then the card's name and power limit as nvidia-smi reports
 them, then the final status line. Any failed
 check exits non-zero without the status line. Needs one CUDA device;
@@ -309,13 +313,18 @@ def device_launches(fn, calls=3, profiles=5):
     counts the device events between its two probes, and the count is the
     most over the calls of a profile that recorded every probe. The profiler has been seen to
     drop a call's events (a count of 0, or 0.5 over two calls), and every
-    event of a profile taken right after another, never to add any: a
-    profile that lost a probe is taken again after a pause, up to
+    event of a profile taken right after another, never to add any (once,
+    every profile of a replay in the 3 s after GLSR's profiled steps,
+    thousands of launches a step, lost a probe): a profile that lost a
+    probe is taken again after a pause of a second, then two, ..., up to
     `profiles` profiles."""
     import torch
-    from music_fader_nets_tpu_torch.train.bwd_split import launch_probe
+    from music_fader_nets_tpu_torch.train.bwd_split import (
+        PROBE, launch_probe,
+    )
     fn()
     torch.cuda.synchronize()
+    probes = []
     for attempt in range(profiles):
         with DeviceWatch() as w:
             launch_probe()
@@ -328,9 +337,10 @@ def device_launches(fn, calls=3, profiles=5):
             best = max((k, m) for k, m, _ in counts)
             seen = sorted(set().union(*(set(s) for *_, s in counts)))
             return best[0], best[1], seen
-        time.sleep(0.2 * (attempt + 1))
+        probes.append(sum(PROBE in n for _, n in w.events))
+        time.sleep(1.0 * (attempt + 1))
     raise RuntimeError(f"the profiler lost a probe in each of {profiles} "
-                       f"profiles")
+                       f"profiles (probes seen of {calls + 1}: {probes})")
 
 
 class EmbedCalls:
@@ -418,6 +428,106 @@ def zero_counts(*counts) -> None:
 def read_counts(*counts) -> dict:
     """The non-zero launch counts of the given LAUNCHES dicts."""
     return {k: v for c in counts for k, v in c.items() if v}
+
+
+DP_STEPS = 3            # steps of each GM-VAE branch in data_parallel
+
+
+def dp_drive(mesh) -> dict:
+    """The data_parallel phase's run of the GM-VAE `Trainer` at
+    ModelConfig() widths from seed SEED, on `mesh` (None: one process, the
+    reference): each branch's first-step loss, metrics and all-reduced
+    gradients (global B=128 unsupervised, B=32 supervised; the rank feeds
+    its rows), then DP_STEPS steps of each branch with the training
+    kernels' launch counts set to 0 just before and read just after, the
+    canonical params after them, the step time (`steady_state_step_time`,
+    global B=128) and, on a mesh, the one all-reduce's time and bytes.
+    Tensors come back on the CPU."""
+    import torch
+    import torch.distributed as dist
+    from music_fader_nets_tpu_torch.config import ModelConfig
+    from music_fader_nets_tpu_torch.data.datasets import (
+        VGMIDIDataset, YamahaDataset,
+    )
+    from music_fader_nets_tpu_torch.models.gmvae import init_reg_gmvae
+    from music_fader_nets_tpu_torch.ops import cuda_decoder, cuda_gru
+    from music_fader_nets_tpu_torch.parallel.collectives import (
+        all_reduce_mean_,
+    )
+    from music_fader_nets_tpu_torch.parallel.mesh import shard_batch
+    from music_fader_nets_tpu_torch.train.objectives import gmm_loss
+    from music_fader_nets_tpu_torch.train.profile import random_corpus
+    from music_fader_nets_tpu_torch.train.trainer import Trainer
+
+    cfg = ModelConfig()
+    losses = {"default": gmm_loss,
+              "supervised": functools.partial(gmm_loss, is_supervised=True)}
+    tr = Trainer(cfg, init_reg_gmvae, losses, seed=SEED,
+                 device=None if mesh else "cuda", mesh=mesh)
+    TB, SB = cfg.batch_size, 32
+    yam = YamahaDataset(*random_corpus(cfg, 10 * TB, SEED),
+                        mode="train").arrays()            # 8 batches
+    vg = VGMIDIDataset(*random_corpus(cfg, 7 * SB, SEED + 1,
+                                      supervised=True),
+                       mode="train").arrays()             # 5 batches
+
+    def local(arrays, bs, lo, n):
+        """The rank's rows of global batches lo .. lo + n - 1."""
+        parts = [{k: v[i * bs: (i + 1) * bs] for k, v in arrays.items()}
+                 for i in range(lo, lo + n)]
+        if mesh is not None:
+            parts = [shard_batch(p, mesh) for p in parts]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    leaves = tr.optimizer.param_groups[0]["params"]
+    branches = (("unsupervised", yam, TB, "default"),
+                ("supervised", vg, SB, "supervised"))
+    first = {}
+    for host_step, (name, arrays, bs, variant) in enumerate(branches):
+        loss_fn = losses[variant]
+        rows = local(arrays, bs, 0, 1)
+        m = tr.compute_gradients(
+            loss_fn, tr._batch(rows),
+            tr._rank_noise(tr.noise_fn(host_step, bs, loss_fn),
+                           len(rows["x"])))
+        first[name] = {"metrics": {k: float(v.detach())
+                                   for k, v in m.items()},
+                       "grads": [t.grad.detach().cpu() for t in leaves]}
+    counts = (cuda_gru.LAUNCHES, cuda_decoder.LAUNCHES)
+    zero_counts(*counts)
+    epochs = {name: tr.run_epoch(local(arrays, bs, 1, DP_STEPS), variant,
+                                 batch_size=bs, shuffle=False)
+              for name, arrays, bs, variant in branches}
+    torch.cuda.synchronize()
+    launches = read_counts(*counts)
+    out = {"first": first, "epochs": epochs, "launches": launches,
+           "train_path": tr.train_path, "step": tr.step,
+           "device": str(tr.device),
+           "backend": dist.get_backend() if mesh else None,
+           "params": [t.cpu() for _, t in named_leaves(tr.params)],
+           "ms_per_step": 1e3 * tr.steady_state_step_time(
+               yam, warmup=1, iters=5, batch_size=TB)}
+    if mesh is not None:
+        grads = [t.grad for t in leaves]
+        ts = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_mean_(grads, mesh)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out["allreduce_ms"] = statistics.median(ts[1:])
+        out["allreduce_bytes"] = sum(g.numel() * g.element_size()
+                                     for g in grads)
+    return out
+
+
+def dp_rank(device: str) -> dict:
+    """One rank of data_parallel (b) / (c): `dp_drive` on this rank's
+    mesh, placed as `run_ranks` placed its process group ("cuda:0": the
+    ranks share card 0 over gloo; "cuda": a card each over NCCL)."""
+    from music_fader_nets_tpu_torch.parallel.mesh import make_mesh
+    return dp_drive(make_mesh(devices=device))
 
 
 def main() -> int:
@@ -2714,6 +2824,125 @@ def main() -> int:
         return fail(f"entry: kernel vs plain {e_err}")
     if not {"embed_gru", "embed_seq", "decoder_ce"} <= set(e_launches):
         return fail(f"entry: launches {e_launches}")
+
+    # ---------------------------------------------------- data parallel
+    # The GM-VAE Trainer on a data-parallel mesh (parallel/, the port's
+    # counterpart of the JAX mesh and its six `_dp` wrappers): (a) world
+    # size 1 over NCCL in this process, params bit-equal to the Trainer
+    # without a mesh; (b) two ranks sharing this card over gloo (NCCL
+    # refuses two ranks on one device), 64 + 64 rows (16 + 16 supervised)
+    # against one process at 128 (32): first-step loss within 1e-5
+    # relative and gradients within 1e-4 of each tensor's largest entry,
+    # params bit-equal across ranks; (c) two ranks over NCCL when there
+    # are two cards. Each run's training-kernel counts are set to 0 just
+    # before its steps and read just after.
+    import torch.distributed as dist
+    from music_fader_nets_tpu_torch.parallel.launch import (
+        init_from_env, run_ranks,
+    )
+    from music_fader_nets_tpu_torch.parallel.mesh import make_mesh
+    t_dp = time.monotonic()
+    dp_ref = dp_drive(None)
+    init_from_env("cuda")               # no torchrun: a world of one
+    try:
+        dp_a = dp_drive(make_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+
+    def dp_compare(run):
+        """First-step loss (relative) and gradient (relative to each
+        tensor's largest entry) errors of a run against the reference."""
+        errs = {}
+        for name, want in dp_ref["first"].items():
+            got = run["first"][name]
+            lo = want["metrics"]["loss"]
+            errs[name] = {
+                "loss_rel_err": abs(got["metrics"]["loss"] - lo) / abs(lo),
+                "grad_max_rel_err": grad_errors(got["grads"],
+                                                want["grads"])[1]}
+        return errs
+
+    def dp_equal(x, y):
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+
+    dp_kernels = ("embed_gru_train", "embed_gru_bwd", "embed_seq",
+                  "embed_seq_bwd", "decoder_ce", "decoder_ce_bwd")
+    a_line = {"backend": dp_a["backend"], "device": dp_a["device"],
+              "params_equal_no_mesh": dp_equal(dp_a["params"],
+                                               dp_ref["params"]),
+              "train_path": dp_a["train_path"], "launches": dp_a["launches"],
+              "ms_per_step": dp_a["ms_per_step"],
+              "no_mesh_ms_per_step": dp_ref["ms_per_step"],
+              "allreduce_ms": dp_a["allreduce_ms"],
+              "allreduce_bytes": dp_a["allreduce_bytes"]}
+    dp_b = run_ranks(dp_rank, 2, args=("cuda:0",), device="cuda:0",
+                     timeout=600.0)
+    b_line = {"ranks": 2, "backend": [r["backend"] for r in dp_b],
+              "devices": [r["device"] for r in dp_b],
+              "rows_per_rank": {"unsupervised": TB // 2, "supervised": 16},
+              "first_step": dp_compare(dp_b[0]),
+              "params_equal_across_ranks": dp_equal(dp_b[0]["params"],
+                                                    dp_b[1]["params"]),
+              "train_path": [r["train_path"] for r in dp_b],
+              "launches": [r["launches"] for r in dp_b],
+              "ms_per_step": [r["ms_per_step"] for r in dp_b],
+              "allreduce_ms": [r["allreduce_ms"] for r in dp_b],
+              "allreduce_bytes": dp_b[0]["allreduce_bytes"]}
+    if torch.cuda.device_count() >= 2:
+        dp_c = run_ranks(dp_rank, 2, args=("cuda",), device="cuda",
+                         timeout=600.0)
+        c_line = {"backend": [r["backend"] for r in dp_c],
+                  "devices": [r["device"] for r in dp_c],
+                  "first_step": dp_compare(dp_c[0]),
+                  "params_equal_across_ranks": dp_equal(
+                      dp_c[0]["params"], dp_c[1]["params"]),
+                  "ms_per_step": [r["ms_per_step"] for r in dp_c],
+                  "allreduce_ms": [r["allreduce_ms"] for r in dp_c]}
+        dp_runs = dp_b + dp_c
+    else:
+        c_line, dp_c = "not run: 1 device", []
+        dp_runs = dp_b
+    emit({"phase": "data_parallel", "B": TB, "supervised_B": 32,
+          "steps_per_branch": DP_STEPS, "tol_loss_rel": 1e-5,
+          "tol_grad_rel": TOL_TRAIN_GRAD_REL, "world_1_nccl": a_line,
+          "gloo_two_ranks_one_card": b_line, "nccl_two_rank": c_line,
+          "seconds": time.monotonic() - t_dp})
+    if not (a_line["params_equal_no_mesh"] and a_line["backend"] == "nccl"):
+        return fail(f"data_parallel (a): {a_line}")
+    for run in [dp_a] + dp_runs:
+        if run["train_path"] != "kernel" or not all(
+                run["launches"].get(k, 0) > 0 for k in dp_kernels):
+            return fail(f"data_parallel: path {run['train_path']}, "
+                        f"launches {run['launches']}")
+        if not all(np.isfinite(v) for m in run["epochs"].values()
+                   for v in m.values()):
+            return fail(f"data_parallel: a loss is not finite "
+                        f"{run['epochs']}")
+    for line in [b_line] + ([c_line] if dp_c else []):
+        worst = line["first_step"]
+        if not (line["params_equal_across_ranks"] and all(
+                e["loss_rel_err"] <= 1e-5
+                and e["grad_max_rel_err"] <= TOL_TRAIN_GRAD_REL
+                for e in worst.values())):
+            return fail(f"data_parallel: {line}")
+
+    # ------------------------------------------------ dryrun_multichip
+    # `entry.dryrun_multichip(2)` as a user calls it, on the card: two
+    # ranks placed by `launch.placement` (sharing this card over gloo, or
+    # a card each over NCCL), one step of each GM-VAE branch at the JAX
+    # dryrun's shapes (H=64, z=16, T=24, B=4). It raises unless every
+    # rank's losses are finite and equal; each rank must have trained on
+    # a card, through the kernels.
+    from music_fader_nets_tpu_torch.entry import dryrun_multichip
+    t_dry = time.monotonic()
+    dry = dryrun_multichip(2)
+    emit({"phase": "dryrun_multichip", "ranks": 2,
+          "devices": [r["device"] for r in dry],
+          "train_path": [r["train_path"] for r in dry],
+          "losses": dry[0]["losses"], "seconds": time.monotonic() - t_dry})
+    if any(not r["device"].startswith("cuda") or r["train_path"] != "kernel"
+           for r in dry):
+        return fail(f"dryrun_multichip: {dry}")
 
     launches = {**serving_launches,
                 **{k: train_launches[k] for k in train_kernels},

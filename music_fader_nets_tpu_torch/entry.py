@@ -16,6 +16,13 @@ The params are the fast (kernel) layout the `Trainer` trains
 the training path: the token encoder, the class-embedded sub-decoders and
 the decoder with its cross-entropy head. `eps` is the objective's noise,
 drawn by `train/objectives.py::draw_noise` from a generator seeded 1.
+
+`dryrun_multichip(n, device=None)` is the counterpart of the root
+`__graft_entry__.dryrun_multichip`: one unsupervised and one supervised
+GM-VAE training step at its tiny shapes, data-parallel over n ranks: on
+the cards (NCCL with a card a rank, else gloo with the ranks sharing card
+0) unless `device="cpu"`, which runs n gloo ranks on the CPU as the JAX
+dryrun does.
 """
 from __future__ import annotations
 
@@ -68,6 +75,58 @@ def entry(device=None):
         return gmm_loss(params, eps, batch, step, cfg)
 
     return fn, (params, eps, batch, step)
+
+
+def _dryrun_rank(n: int, device) -> dict:
+    """One rank of `dryrun_multichip`: its shard of the batch, one step of
+    each GM-VAE branch on an n x 1 mesh; the global losses."""
+    import functools
+
+    from music_fader_nets_tpu_torch.data.loader import (
+        shard_arrays_for_process,
+    )
+    from music_fader_nets_tpu_torch.models.gmvae import init_reg_gmvae
+    from music_fader_nets_tpu_torch.parallel.mesh import make_mesh
+    from music_fader_nets_tpu_torch.train.objectives import gmm_loss
+    from music_fader_nets_tpu_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(hidden_dims=64, z_dims=16, num_clusters=2, seq_len=24,
+                      attr_len=8, batch_size=2 * n)
+    trainer = Trainer(cfg, init_reg_gmvae, {
+        "default": gmm_loss,
+        "supervised": functools.partial(gmm_loss, is_supervised=True)},
+        mesh=make_mesh(n, 1, devices=device))
+    shard = shard_arrays_for_process(example_batch(cfg, cfg.batch_size))
+    losses = {variant: trainer.run_epoch(shard, variant, shuffle=False)["loss"]
+              for variant in ("default", "supervised")}
+    return {"losses": losses, "device": str(trainer.device),
+            "train_path": trainer.train_path}
+
+
+def dryrun_multichip(n_devices: int, device=None) -> list:
+    """One unsupervised and one supervised GM-VAE training step (H=64,
+    z=16, T=24, attr_len=8, B=2n) on an n x 1 data-parallel mesh of n
+    ranks placed by `parallel.launch.placement(device)` (CUDA unless
+    `device="cpu"`); raises unless every rank's losses are finite and
+    equal, then prints `dryrun_multichip ok: ...` and returns each rank's
+    losses, device and training path. The JAX dryrun also builds an
+    (n/2) x 2 mesh for even n: the port's model axis waits for tensor
+    parallelism (ROADMAP queue 1 item 6)."""
+    from music_fader_nets_tpu_torch.parallel.launch import run_ranks
+
+    ranks = run_ranks(_dryrun_rank, n_devices, args=(n_devices, device),
+                      device=device, timeout=300.0)
+    first = ranks[0]["losses"]
+    if not all(np.isfinite(v) for v in first.values()) or any(
+            r["losses"] != first for r in ranks):
+        raise RuntimeError(f"dryrun_multichip: losses by rank {ranks}")
+    model_axis = ("; model axis (JAX's (n/2)x2 mesh): not ported, ROADMAP "
+                  "queue 1 item 6" if n_devices % 2 == 0 else "")
+    print(f"dryrun_multichip ok: mesh={{'data': {n_devices}, 'model': 1}} "
+          f"device={ranks[0]['device']} "
+          f"unsup_loss={first['default']:.4f} "
+          f"sup_loss={first['supervised']:.4f}{model_axis}")
+    return ranks
 
 
 if __name__ == "__main__":

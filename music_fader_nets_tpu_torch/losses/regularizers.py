@@ -1,6 +1,14 @@
 """The families' regularizers: Pati, the FaderNets adversarial loss, the
 GM-VAE KL terms and GLSR (counterpart of
-`music_fader_nets_tpu/losses/regularizers.py`)."""
+`music_fader_nets_tpu/losses/regularizers.py`).
+
+Under a data-parallel `Trainer` (`parallel.mesh.current_trace_mesh()` is
+set) a rank holds only its rows of the batch. The two terms that couple
+rows read the global batch, as GSPMD gives the JAX mesh: the Pati
+regulariser gathers z and the attribute of every row, and GLSR's faithful
+batch-0 read takes global row 0 from rank 0, both through
+`parallel.collectives.gather_rows`, whose backward sends each rank the
+cotangent of its rows summed over the ranks."""
 from __future__ import annotations
 
 import math
@@ -9,12 +17,20 @@ from typing import Callable, Tuple
 import torch
 
 from music_fader_nets_tpu_torch.losses.elbo import kl_diag_gaussians
+from music_fader_nets_tpu_torch.parallel.collectives import gather_rows
+from music_fader_nets_tpu_torch.parallel.mesh import current_trace_mesh
 
 
 def pati_regularizer(z_dim0: torch.Tensor, attr: torch.Tensor
                      ) -> torch.Tensor:
     """MSE(tanh(pairwise delta of z[:, 0]), sign(pairwise delta of attr))
-    (reference trainer.py:117-132). z_dim0, attr: (B,)."""
+    (reference trainer.py:117-132). z_dim0, attr: (B,), this rank's rows
+    under a trace mesh: the term is then the global batch's, on every
+    rank."""
+    mesh = current_trace_mesh()
+    if mesh is not None:
+        z_dim0, attr = gather_rows(
+            torch.stack([z_dim0, attr.to(z_dim0.dtype)], -1), mesh).unbind(-1)
     d_z = z_dim0[:, None] - z_dim0[None, :]
     d_attr = attr[:, None] - attr[None, :]
     return ((torch.tanh(d_z) - torch.sign(d_attr)) ** 2).mean()
@@ -116,9 +132,13 @@ def rhythm_density_from_masses(played: torch.Tensor, sep: torch.Tensor,
     the sample's separator mass. Stepped in time order, as the JAX
     package's scan. faithful_batch0 keeps the reference's indexing bug:
     every sample accumulates batch element 0's note-on masses
-    (trainer_glsr.py:154)."""
+    (trainer_glsr.py:154); under a trace mesh, global row 0, from rank
+    0."""
     if faithful_batch0:
-        played = played[0:1].expand_as(played)
+        mesh = current_trace_mesh()
+        row0 = played[0:1] if mesh is None else gather_rows(played[0:1],
+                                                            mesh)[0:1]
+        played = row0.expand_as(played)
     boundary = sep >= 0.9
     cur = played.new_zeros(played.shape[0])
     total = played.new_zeros(played.shape[0])

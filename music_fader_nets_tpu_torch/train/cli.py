@@ -15,9 +15,22 @@ the end to `<save-dir>/<name>_<timestamp>/`; run again with a larger
 `--epochs`, it resumes after the saved epoch. `--from-pt` starts from a
 reference `.pt` state_dict instead.
 
-The JAX CLI's `--mesh`, `--pallas-gru` and `--platform` have no meaning
-here: the port runs on one CUDA device with its kernels always on, or,
-with `--device cpu`, on the CPU with their plain versions.
+`--mesh Nx1` trains data-parallel over N ranks, one process each, started
+by torchrun, which gives the process group its rank, world size and
+address (`parallel/launch.py::init_from_env`):
+
+    torchrun --nproc_per_node 2 -m music_fader_nets_tpu_torch.train.cli \
+        gmm --mesh 2x1
+
+Each rank trains on its shard of every split
+(`data/loader.py::shard_arrays_for_process`) at `--batch-size / N` rows of
+each global batch, on `cuda:LOCAL_RANK` over NCCL, or over gloo on the
+CPU (`--device cpu`) or when the ranks share a card; rank 0 alone logs,
+checkpoints and reports, and a resumed run resumes on every rank. A model
+axis above 1 (tensor parallelism) raises: not ported yet. The JAX CLI's
+`--pallas-gru` and `--platform` have no meaning here: the port runs its
+kernels on CUDA always, or, with `--device cpu`, their plain versions on
+the CPU.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import sys
 from datetime import datetime
 from typing import Callable, Dict, Tuple
 
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from music_fader_nets_tpu_torch import models, resolve_device
@@ -38,9 +52,12 @@ from music_fader_nets_tpu_torch.data.corpus import (
 from music_fader_nets_tpu_torch.data.datasets import (
     VGMIDIDataset, YamahaDataset,
 )
+from music_fader_nets_tpu_torch.data.loader import shard_arrays_for_process
 from music_fader_nets_tpu_torch.eval.reconstruction import (
     reconstruction_report,
 )
+from music_fader_nets_tpu_torch.parallel import mesh as mesh_lib
+from music_fader_nets_tpu_torch.parallel.launch import init_from_env
 from music_fader_nets_tpu_torch.train import objectives
 from music_fader_nets_tpu_torch.train.trainer import Trainer, TrainState
 from music_fader_nets_tpu_torch.utils.checkpoint import (
@@ -98,6 +115,10 @@ def build_argparser(description: str) -> argparse.ArgumentParser:
     ap.add_argument("--data-type", default="short", choices=["short", "long"],
                     help="corpus variant: short = 4 beats/<=100 tokens, "
                          "long = 16 beats/<=250 tokens (ptb_v2.py:301-303)")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh shape as DATAxMODEL, e.g. 2x1: data-parallel "
+                         "over DATA ranks started by torchrun (default: one "
+                         "process on one device); MODEL > 1 raises")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="where to run: cuda (default; an error without a "
                          "card) with the kernels, or cpu with their plain "
@@ -177,36 +198,56 @@ def load_vgmidi(args):
             for mode in ("train", "val", "test")}
 
 
+def make_mesh(args):
+    """The `--mesh DATAxMODEL` of this rank (joining the torchrun process
+    group), or None."""
+    if not getattr(args, "mesh", None):
+        return None
+    nd, nm = (int(x) for x in args.mesh.lower().split("x"))
+    return mesh_lib.make_mesh(nd, nm, devices=init_from_env(args.device))
+
+
 def make_trainer(kind: str, cfg: ModelConfig, args) -> Trainer:
-    """The family's Trainer on `--device`, from `--from-pt` if given, else
+    """The family's Trainer on `--device` (on `--mesh`, this rank's device;
+    the params broadcast from rank 0), from `--from-pt` if given, else
     resumed from `<save-dir>/<name>/` if that holds a checkpoint: the full
     state (params, Adam state, step; the noise stream resumes at the step
     and the epochs after the saved one), or a params-only file with a fresh
     optimizer at step 0. The reference saves only the state_dict, so its
     resume restarts the KL anneal at step 0 (SURVEY.md §5); keeping the
     step is the JAX package's deliberate fix. A checkpoint that cannot be
-    read raises; it is never replaced by a random init."""
+    read raises; it is never replaced by a random init. On a mesh every
+    rank reads the checkpoint."""
     spec = MODEL_REGISTRY[kind]
+    mesh = make_mesh(args)
     trainer = Trainer(cfg, spec["init"], spec["losses"], seed=args.seed,
-                      device=resolve_device(args.device))
+                      device=None if mesh else resolve_device(args.device),
+                      mesh=mesh)
+    say = _lead_print(trainer)
     ckpt_dir = os.path.join(args.save_dir, spec["name"])
     if args.from_pt:
         trainer.load_state(TrainState(load_pt_checkpoint(args.from_pt),
                                       None, 0))
-        print(f"Loaded torch checkpoint {args.from_pt}")
+        say(f"Loaded torch checkpoint {args.from_pt}")
     elif os.path.isdir(ckpt_dir):
         ck = restore_checkpoint(ckpt_dir)
         trainer.load_state(TrainState(ck["params"], ck["opt_state"],
                                       ck["step"]))
         trainer.epoch = ck["epoch"]
         if ck["layout"] == "full":
-            print(f"Loading {ckpt_dir} (resumed at step {trainer.step}, "
-                  f"after epoch {trainer.epoch})")
+            say(f"Loading {ckpt_dir} (resumed at step {trainer.step}, "
+                f"after epoch {trainer.epoch})")
         else:
-            print(f"Loading {ckpt_dir} (params only; optimizer reset)")
+            say(f"Loading {ckpt_dir} (params only; optimizer reset)")
     else:
-        print(f"Save path: {ckpt_dir}")
+        say(f"Save path: {ckpt_dir}")
     return trainer
+
+
+def _lead_print(trainer: Trainer) -> Callable:
+    """`print` on the rank that logs (rank 0, or the only process), a
+    no-op on the others."""
+    return print if trainer.is_lead else (lambda *a, **k: None)
 
 
 def _save(path: str, state: TrainState, epoch: int) -> None:
@@ -248,57 +289,70 @@ def run_training(kind: str, description: str, dual_corpus: bool = False,
     timestamped one at the end -> the reconstruction report on the Yamaha
     train and test splits (and, for the dual-corpus GM-VAE, the VGMIDI
     ones, with the mixture posterior's arousal accuracy). Returns the
-    trainer."""
+    trainer. On `--mesh` each rank trains on its shard of each split, and
+    rank 0 alone logs, checkpoints and reports."""
     args = build_argparser(description).parse_args(argv)
     cfg = config_from_args(kind, args)
     trainer = make_trainer(kind, cfg, args)
+    say = _lead_print(trainer)
     ck = checkpoint_fn(kind, args)
-    logger = MetricsLogger(MODEL_REGISTRY[kind]["name"], args.log_dir)
+    logger = (MetricsLogger(MODEL_REGISTRY[kind]["name"], args.log_dir)
+              if trainer.is_lead else None)
     yam = load_yamaha(args, cfg)
-    print("Train / Validation / Test")
-    print(len(yam["train"]), len(yam["val"]), len(yam["test"]))
+    say("Train / Validation / Test")
+    say(len(yam["train"]), len(yam["val"]), len(yam["test"]))
+    if trainer.mesh is not None:
+        say(f"data-parallel: {trainer.mesh.n_data} ranks, each keeps "
+            f"1/{trainer.mesh.n_data} of each split")
+
+    def shard(ds):
+        return shard_arrays_for_process(ds.arrays())
 
     vgm = None
     try:
         if not dual_corpus:
-            trainer.fit(yam["train"].arrays(), yam["val"].arrays(),
+            trainer.fit(shard(yam["train"]), shard(yam["val"]),
                         n_epochs=cfg.n_epochs, checkpoint_fn=ck,
                         metrics_logger=logger,
                         start_epoch=trainer.epoch + 1)
         else:
             vgm = load_vgmidi(args)
-            print("VGMIDI: Train / Validation / Test")
-            print(len(vgm["train"]), len(vgm["val"]), len(vgm["test"]))
+            say("VGMIDI: Train / Validation / Test")
+            say(len(vgm["train"]), len(vgm["val"]), len(vgm["test"]))
             for epoch in range(trainer.epoch + 1, cfg.n_epochs + 1):
-                print(f"Epoch {epoch} / {cfg.n_epochs}")
+                say(f"Epoch {epoch} / {cfg.n_epochs}")
                 # supervised VGMIDI phase (batch 32, reference
                 # trainer_gmm.py:88), then the unsupervised Yamaha phase
-                sup = trainer.run_epoch(vgm["train"].arrays(),
+                sup = trainer.run_epoch(shard(vgm["train"]),
                                         variant="supervised", seed=epoch,
                                         batch_size=32, compiled=True)
-                sup_val = trainer.run_epoch(vgm["val"].arrays(),
+                sup_val = trainer.run_epoch(shard(vgm["val"]),
                                             variant="supervised",
                                             train=False, batch_size=32,
                                             shuffle=False, compiled=True)
-                uns = trainer.run_epoch(yam["train"].arrays(), seed=epoch,
+                uns = trainer.run_epoch(shard(yam["train"]), seed=epoch,
                                         compiled=True)
-                uns_val = trainer.run_epoch(yam["val"].arrays(),
+                uns_val = trainer.run_epoch(shard(yam["val"]),
                                             train=False, shuffle=False,
                                             compiled=True)
-                print("vgmidi train - " + _terms(sup))
-                print("vgmidi val   - " + _terms(sup_val))
-                print("yamaha train - " + _terms(uns))
-                print("yamaha val   - " + _terms(uns_val))
+                say("vgmidi train - " + _terms(sup))
+                say("vgmidi val   - " + _terms(sup_val))
+                say("yamaha train - " + _terms(uns))
+                say("yamaha val   - " + _terms(uns_val))
                 for split, m in (("vgmidi_train", sup),
                                  ("vgmidi_val", sup_val),
                                  ("yamaha_train", uns),
                                  ("yamaha_val", uns_val)):
-                    logger.log(m, step=trainer._host_step, epoch=epoch,
-                               split=split)
+                    if logger is not None:
+                        logger.log(m, step=trainer._host_step, epoch=epoch,
+                                   split=split)
                 trainer.epoch = epoch
-                ck(trainer.state, epoch)
+                trainer.checkpoint(ck, epoch)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+    if not trainer.is_lead:
+        return trainer
     save_timestamped(kind, args, trainer.state, trainer.epoch)
 
     # evaluation phase (reference trainer.py:280-376); for the dual-corpus
@@ -316,7 +370,7 @@ def run_training(kind: str, description: str, dual_corpus: bool = False,
                                     batch_size=min(bs, len(ds)),
                                     seed=args.seed, has_subdecoders=has_sub,
                                     device=trainer.device)
-        print(label + _terms(rep))
+        say(label + _terms(rep))
     return trainer
 
 
@@ -377,8 +431,12 @@ def main(argv=None) -> None:
                     "supervised + Yamaha), as trainer_gmm.py does.")
     ap.add_argument("kind", choices=sorted(MODEL_REGISTRY))
     kind = ap.parse_args(argv[:1]).kind
-    run_training(kind, f"Train {kind}", dual_corpus=kind == "gmm",
-                 argv=argv[1:])
+    try:
+        run_training(kind, f"Train {kind}", dual_corpus=kind == "gmm",
+                     argv=argv[1:])
+    finally:
+        if dist.is_initialized():       # joined for --mesh
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

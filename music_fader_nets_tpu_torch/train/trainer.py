@@ -21,6 +21,29 @@ epoch's start and s the training step, and the epoch then advances the
 host step by its batch count, so an evaluation epoch reuses one draw for
 every batch. `fit` and the training CLI run that schedule, as the JAX
 package's do. The computation is the streaming step either way.
+
+Data parallelism (`mesh=`, a `parallel.mesh.Mesh` of n data ranks, one
+process each): the counterpart of the JAX Trainer's mesh path. Each rank
+feeds its own rows, `batch_size // n` of each global batch (its corpus
+shard from `data.loader.shard_arrays_for_process`); the noise is drawn for
+the global batch and sliced to the rank's rows, so n ranks see the noise
+of one process at the global batch. The params are broadcast from rank 0
+at `__init__` and `load_state`. The loss runs under
+`parallel.mesh.trace_mesh_scope`, where the terms that couple rows (Pati,
+GLSR's batch-0 read) gather the global batch (`losses/regularizers.py`).
+After `loss.backward()` ONE flat all-reduce (mean) of every trainable
+gradient, with the step's metrics in the same buffer, runs before the
+clip: the clip's norm is the global batch's, every rank's Adam state stays
+equal, and the metrics are the global batch's. That all-reduce stands in
+for the `psum` over `data` of the weight gradients in the JAX package's
+six `_dp` shard_map wrappers (`ops/pallas_gru.py`: `stacked_gru_pallas_dp`,
+`stacked_gru_embed_finals_dp`, `stacked_gru_embed_seq_dp`,
+`_dec_teacher_core_dp`, `_dec_nll_core_dp`, `_dec_mask_core_dp`) together
+with GSPMD's `psum` of every other leaf: the kernels run on a rank's rows
+as those wrappers run them on a device's, and no wrapper reduces on its
+own. `fit` logs and checkpoints on rank 0 only, the other ranks waiting
+at a barrier; the step timers synchronise and meet at a barrier around
+each window.
 """
 from __future__ import annotations
 
@@ -29,12 +52,17 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from music_fader_nets_tpu_torch import resolve_device
 from music_fader_nets_tpu_torch.config import ModelConfig
 from music_fader_nets_tpu_torch.data.loader import batch_iterator
 from music_fader_nets_tpu_torch.models import fast as fast_lib
 from music_fader_nets_tpu_torch.ops import cuda_decoder, cuda_gru, cuda_stacked
+from music_fader_nets_tpu_torch.parallel.collectives import all_reduce_mean_
+from music_fader_nets_tpu_torch.parallel.mesh import (
+    shard_params, trace_mesh_scope,
+)
 from music_fader_nets_tpu_torch.train.objectives import draw_noise
 from music_fader_nets_tpu_torch.utils.checkpoint import (
     check_params_like, tree_map, tree_to,
@@ -80,14 +108,20 @@ def clip_by_global_norm_(grads, max_norm: float = 1.0) -> torch.Tensor:
 class Trainer:
     def __init__(self, cfg: ModelConfig, init_fn: Callable,
                  loss_fns: Dict[str, Callable], seed: int = 0, params=None,
-                 device=None, noise_fn: Optional[Callable] = None):
+                 device=None, noise_fn: Optional[Callable] = None,
+                 mesh=None):
         """loss_fns: named objectives, e.g. {"default": vanilla_loss}, or
         {"default": gmm_loss, "supervised": partial(gmm_loss,
         is_supervised=True)} for the dual-corpus GM-VAE loop. `params` is
         a canonical tree (default: `init_fn(torch.Generator().manual_seed(
-        seed), cfg)`); it is copied.
+        seed), cfg)`); it is copied. `mesh`: a data-parallel mesh
+        (`parallel.make_mesh`; module docstring), whose device is the
+        default one.
         Runs on CUDA unless device="cpu" (RuntimeError without a card)."""
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.seed = seed
         if params is None:
@@ -110,6 +144,9 @@ class Trainer:
         own = (lambda t: t.detach().clone())
         self._fast = tree_map(own, fast)
         self._frozen = tree_map(own, frozen)
+        if self.mesh is not None:
+            shard_params({"fast": self._fast, "frozen": self._frozen},
+                         self.mesh)
         self._trainable = [t for path, t in _leaves(self._fast)
                            if path[0] not in FROZEN_TABLES]
         for t in self._trainable:
@@ -160,19 +197,55 @@ class Trainer:
         self.step = int(state.step)
         self._host_step = self.step if host_step is None else int(host_step)
 
+    @property
+    def is_lead(self) -> bool:
+        """True on the rank that logs and checkpoints (rank 0; the only
+        process without a mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (nothing without one)."""
+        if self.mesh is not None:
+            dist.barrier()
+
     def _sync(self) -> None:
+        """Wait for the device, then for every rank."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.barrier()
+
+    def _local_batch_size(self, bs: int) -> int:
+        """The rows this rank feeds of a global batch of `bs` (JAX
+        :178-189): bs // n over n data ranks. Raises ValueError when n
+        does not divide bs."""
+        n = 1 if self.mesh is None else self.mesh.n_data
+        if bs % n:
+            raise ValueError(f"global batch {bs} not divisible over {n} "
+                             f"data ranks")
+        return bs // n
+
+    def _rank_noise(self, noise, bs: int):
+        """This rank's rows of the global batch's draws (every draw leads
+        with the batch axis), on the device."""
+        lo = 0 if self.mesh is None else self.mesh.rank * bs
+        return tuple(e[lo: lo + bs].to(self.device, torch.float32)
+                     for e in noise)
 
     def _batch(self, batch: Dict[str, np.ndarray]):
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
-    def train_step(self, loss_fn: Callable, batch, eps):
-        """One step on a batch of device tensors; returns the metrics."""
+    def compute_gradients(self, loss_fn: Callable, batch, eps):
+        """The loss and its backward on a batch of device tensors (this
+        rank's rows, and `eps` its rows of the draws), leaving each
+        trainable leaf's `.grad` set; with a mesh, then the one all-reduce
+        (mean) of the gradients and the metrics. Returns the metrics, the
+        global batch's."""
         for m in _PATH_MODULES:
             m.LAST_TRAIN_PATH = None
-        loss, metrics = loss_fn(self._fast, eps, batch, self.step, self.cfg)
+        with trace_mesh_scope(self.mesh):
+            loss, metrics = loss_fn(self._fast, eps, batch, self.step,
+                                    self.cfg)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         paths = {m.LAST_TRAIN_PATH for m in _PATH_MODULES} - {None}
@@ -182,8 +255,20 @@ class Trainer:
             if t.grad is None:      # optax steps a zero gradient too
                 t.grad = torch.zeros_like(t)
             grads.append(t.grad)
+        if self.mesh is None:
+            return metrics
+        names = sorted(metrics)
+        vals = torch.stack([metrics[k].detach().to(grads[0].dtype)
+                            for k in names])
+        all_reduce_mean_(grads + [vals], self.mesh)
+        return dict(zip(names, vals.unbind()))
+
+    def train_step(self, loss_fn: Callable, batch, eps):
+        """One step on a batch of device tensors (`compute_gradients`, the
+        global-norm clip, Adam); returns the metrics."""
+        metrics = self.compute_gradients(loss_fn, batch, eps)
         with torch.no_grad():
-            clip_by_global_norm_(grads, 1.0)
+            clip_by_global_norm_([t.grad for t in self._trainable], 1.0)
         self.optimizer.step()
         self.step += 1
         return metrics
@@ -197,27 +282,33 @@ class Trainer:
         dropped); returns the per-batch mean of each metric. Evaluation
         (train=False) runs the same objective without a gradient, as the
         JAX Trainer's eval step does. compiled=True draws the noise as the
-        JAX Trainer's compiled epoch does (module docstring)."""
+        JAX Trainer's compiled epoch does (module docstring). With a mesh,
+        `arrays` is this rank's shard, `batch_size` the global batch, and
+        the metrics are the global batch's."""
         n = len(next(iter(arrays.values())))
         if n == 0:
             return {}
-        bs = min(batch_size or self.cfg.batch_size, n)
+        # with a mesh, `arrays` holds this rank's shard: the global item
+        # count is n * ranks (JAX :246-251)
+        ranks = 1 if self.mesh is None else self.mesh.n_data
+        bs = min(batch_size or self.cfg.batch_size, n * ranks)
+        bs_local = self._local_batch_size(bs)
         loss_fn = self._loss_fns[variant]
         start = self._host_step
         totals, nb = None, 0
-        for host_batch in batch_iterator(arrays, bs, shuffle=shuffle,
+        for host_batch in batch_iterator(arrays, bs_local, shuffle=shuffle,
                                          seed=seed):
             if compiled:
                 noise = self.noise_fn(start, bs, loss_fn, step=self.step)
             else:
                 noise = self.noise_fn(self._host_step, bs, loss_fn)
                 self._host_step += 1
-            eps = tuple(e.to(self.device, torch.float32) for e in noise)
+            eps = self._rank_noise(noise, bs_local)
             batch = self._batch(host_batch)
             if train:
                 metrics = self.train_step(loss_fn, batch, eps)
             else:
-                with torch.no_grad():
+                with torch.no_grad(), trace_mesh_scope(self.mesh):
                     _, metrics = loss_fn(self._fast, eps, batch, self.step,
                                          self.cfg)
             vals = torch.stack([metrics[k].detach() for k in sorted(metrics)])
@@ -227,6 +318,8 @@ class Trainer:
             self._host_step = start + nb
         if totals is None:
             return {}
+        if self.mesh is not None and not train:
+            all_reduce_mean_([totals], self.mesh)
         return {k: v / nb for k, v in zip(sorted(metrics), totals.tolist())}
 
     def fit(self, train_arrays, val_arrays=None,
@@ -238,8 +331,12 @@ class Trainer:
         training pass (shuffled with seed = epoch) and, with `val_arrays`,
         an evaluation pass, on the compiled epoch's noise schedule; the JAX
         Trainer's log lines, `metrics_logger.log` records and
-        `checkpoint_fn(state, epoch)` after each epoch. Returns the state."""
+        `checkpoint_fn(state, epoch)` after each epoch; with a mesh, on
+        rank 0 only, the other ranks waiting at a barrier. Returns the
+        state."""
         n_epochs = n_epochs or self.cfg.n_epochs
+        if not self.is_lead:
+            log_fn, metrics_logger = (lambda _: None), None
         for epoch in range(start_epoch, n_epochs + 1):
             log_fn(f"Epoch {epoch} / {n_epochs}")
             t0 = time.time()
@@ -263,12 +360,21 @@ class Trainer:
                                        split="val")
             self.epoch = epoch
             if checkpoint_fn is not None:
-                checkpoint_fn(self.state, epoch)
+                self.checkpoint(checkpoint_fn, epoch)
         return self.state
 
+    def checkpoint(self, checkpoint_fn: Callable[[TrainState, int], None],
+                   epoch: int) -> None:
+        """`checkpoint_fn(state, epoch)` on rank 0 (the only process without
+        a mesh), the other ranks waiting at a barrier until it is done."""
+        if self.is_lead:
+            checkpoint_fn(self.state, epoch)
+        self.barrier()
+
     def _timing_batches(self, arrays, bs: int, n: int):
-        """`n` batches of `bs` rows (the corpus repeated as needed), on the
-        device."""
+        """`n` batches of this rank's rows of a global batch of `bs` (the
+        corpus repeated as needed), on the device."""
+        bs = self._local_batch_size(bs)
         rows = len(next(iter(arrays.values())))
         reps = -(-n * bs // rows)
         tiled = {k: np.concatenate([v] * reps)[: n * bs]
@@ -286,17 +392,19 @@ class Trainer:
         spread=True. The steps run on a copy of the trainer, so the live
         state is never touched. Counterpart of the JAX Trainer's timer of
         its compiled whole-epoch program; until the port has a CUDA graph
-        of the step, this times the streaming step."""
+        of the step, this times the streaming step. With a mesh every rank
+        calls it; `batch_size` is the global batch."""
         bs = batch_size or self.cfg.batch_size
         loss_fn = self._loss_fns[variant]
         state = self.state
         twin = Trainer(self.cfg, None, self._loss_fns, seed=self.seed,
-                       params=state.params, device=self.device)
+                       params=state.params, device=self.device,
+                       mesh=self.mesh)
         twin.load_state(state)
         batches = self._timing_batches(arrays, bs, iters)
-        noise = [tuple(e.to(self.device, torch.float32)
-                       for e in self.noise_fn(self._host_step + i, bs,
-                                              loss_fn))
+        noise = [self._rank_noise(self.noise_fn(self._host_step + i, bs,
+                                                loss_fn),
+                                  self._local_batch_size(bs))
                  for i in range(iters)]
         windows = []
         for w in range(4):
@@ -316,12 +424,12 @@ class Trainer:
         """Seconds per step of the live trainer (it takes warmup + 3 *
         iters steps on up to 8 batches of `arrays`, with one draw of
         noise), the best of three windows each ended by a device
-        synchronise."""
+        synchronise (and, with a mesh, a barrier: every rank calls it)."""
         bs = batch_size or self.cfg.batch_size
         loss_fn = self._loss_fns[variant]
         batches = self._timing_batches(arrays, bs, 8)
-        eps = tuple(e.to(self.device, torch.float32)
-                    for e in self.noise_fn(self._host_step, bs, loss_fn))
+        eps = self._rank_noise(self.noise_fn(self._host_step, bs, loss_fn),
+                               self._local_batch_size(bs))
         for i in range(warmup):
             self.train_step(loss_fn, batches[i % len(batches)], eps)
         self._sync()

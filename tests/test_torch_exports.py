@@ -3,8 +3,7 @@ JAX package re-exports in its `__init__.py` is an attribute of the port's
 subpackage of the same name, so code written against the JAX package's
 import paths (`from ...data import YamahaDataset`) finds the port's
 counterpart. The JAX `__init__.py` files are read with `ast`, not imported
-(no JAX import here). `parallel` waits for the port's data and tensor
-parallelism."""
+(no JAX import here)."""
 import ast
 import importlib
 import subprocess
@@ -16,7 +15,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 JAX_PKG = REPO / "music_fader_nets_tpu"
 SUBPACKAGES = ("ops", "models", "data", "eval", "train", "serve",
-               "transfer", "utils", "tokenizer", "losses")
+               "transfer", "utils", "tokenizer", "losses", "parallel")
 
 
 def reexported(subpackage: str):
