@@ -120,6 +120,20 @@ TOL_NEAR_TIE = 1e-4     # a parting argmax must be this close to the max
 TOL_TRAIN_OUT = 1e-4
 TOL_TRAIN_GRAD_REL = 1e-4
 GRAD_SCALE_FLOOR = 1e-3
+# bf16 mixed precision (the `mixed_precision` phase): a bf16 kernel against
+# its bf16 plain version rounds the same values at the same points, but a
+# float32 sum in another order can land a value on the other side of a
+# bf16 rounding (one ulp, 2^-8 relative) and the flip propagates: outputs
+# to 1e-2 (the CPU tests' bound against the Pallas kernels), each kernel
+# gradient to 2e-2 of its tensor's largest entry; an objective's first
+# step, through the bf16 torch ops around the kernels, its loss to 1e-3
+# relative and each gradient tensor to 4e-2 (the CPU tests' bound against
+# the JAX package, below its own scan-vs-Pallas bf16 disagreement)
+PEAK_BF16_FLOPS = 989e12
+MP_TOL_OUT = 1e-2
+MP_TOL_GRAD_REL = 2e-2
+MP_TOL_LOSS_REL = 1e-3
+MP_TOL_STEP_GRAD_REL = 4e-2
 SEED = 0
 
 
@@ -317,7 +331,13 @@ def device_launches(fn, calls=3, profiles=5):
     every profile of a replay in the 3 s after GLSR's profiled steps,
     thousands of launches a step, lost a probe): a profile that lost a
     probe is taken again after a pause of a second, then two, ..., up to
-    `profiles` profiles."""
+    `profiles` profiles. A profile's first events are the ones it has
+    been seen to lose, so it opens with a lead probe pair that brackets
+    nothing: with every probe seen, that empty interval is dropped; with
+    only the lead probe lost, the first interval holds the first call
+    (not empty) and the profile counts; an empty first interval and one
+    interval short means a later probe was lost, and the profile is taken
+    again."""
     import torch
     from music_fader_nets_tpu_torch.train.bwd_split import (
         PROBE, launch_probe,
@@ -328,11 +348,14 @@ def device_launches(fn, calls=3, profiles=5):
     for attempt in range(profiles):
         with DeviceWatch() as w:
             launch_probe()
+            launch_probe()
             for _ in range(calls):
                 fn()
                 torch.cuda.synchronize()
                 launch_probe()
         counts = w.between_probes()
+        if counts and counts[0][:2] == (0, 0):
+            counts = counts[1:] if len(counts) == calls + 1 else []
         if len(counts) == calls:
             best = max((k, m) for k, m, _ in counts)
             seen = sorted(set().union(*(set(s) for *_, s in counts)))
@@ -340,7 +363,7 @@ def device_launches(fn, calls=3, profiles=5):
         probes.append(sum(PROBE in n for _, n in w.events))
         time.sleep(1.0 * (attempt + 1))
     raise RuntimeError(f"the profiler lost a probe in each of {profiles} "
-                       f"profiles (probes seen of {calls + 1}: {probes})")
+                       f"profiles (probes seen of {calls + 2}: {probes})")
 
 
 class EmbedCalls:
@@ -2545,14 +2568,14 @@ def main() -> int:
         zero_counts(cuda_stacked.LAUNCHES)
         with DeviceWatch() as w:
             out_k, g_k = prim_grads(fn, p, ins, cot)
-        fb_launches = dict(cuda_stacked.LAUNCHES)
+        fb_launches = read_counts(cuda_stacked.LAUNCHES)
         with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
             out_p, g_p = prim_grads(fn, p, ins, cot)
         zero_counts(cuda_stacked.LAUNCHES)
         with torch.no_grad():
             fn(p, *ins)
             torch.cuda.synchronize()
-        f_launches = dict(cuda_stacked.LAUNCHES)
+        f_launches = read_counts(cuda_stacked.LAUNCHES)
         out_err = float((out_k - out_p).abs().max())
         g_worst = worst_leaf(g_k, g_p, [k for k, _ in named_leaves(p)]
                              + ["z"] * (len(ins) - 1))
@@ -2602,10 +2625,9 @@ def main() -> int:
             return fail(f"primitives {name}: kernel vs plain output "
                         f"{r['out_max_abs_err']}, gradients "
                         f"{r['grad_max_rel_err']} (relative)")
-        if not (r["fwd_bwd_launches"]["stacked_gru"] >= 1
-                and r["fwd_bwd_launches"]["stacked_gru_bwd"] >= 1
-                and r["fwd_launches"] == {"stacked_gru": 1,
-                                          "stacked_gru_bwd": 0}
+        if not (r["fwd_bwd_launches"].get("stacked_gru", 0) >= 1
+                and r["fwd_bwd_launches"].get("stacked_gru_bwd", 0) >= 1
+                and r["fwd_launches"] == {"stacked_gru": 1}
                 and not r["per_step_kernels"]):
             return fail(f"primitives {name}: launches {r}")
 
@@ -2944,12 +2966,516 @@ def main() -> int:
            for r in dry):
         return fail(f"dryrun_multichip: {dry}")
 
+    # -------------------------------------------------- mixed precision
+    # ModelConfig(dtype="bfloat16") at full width (H=512, z=128, T=100,
+    # attr_len=16), random weights from seed 0: (a) each bf16 instantiation
+    # (rows 3 finals, 3t/4, 5/6, 1/2 at the CVAE encoder's shape, 9/10 CE)
+    # against the bf16 plain version on this card, output and every
+    # gradient, two calls bit-equal, timed beside its plain version and,
+    # where one exists, cuDNN's bf16 GRU; (b) the GM-VAE `gmm_loss` first
+    # step (unsupervised B=128, supervised B=32) on the kernels against
+    # the plain path, then 3 + 3 steps with the counts set to 0 just
+    # before (every bf16 row of the path must launch; master params and
+    # Adam moments float32; train_path "kernel"), and the ms a step of a
+    # bf16 and a float32 Trainer in turns (f32, bf16, bf16, f32); (c) the
+    # first step of vanilla, CVAE (rows 1/2), FaderNets and SingleVAE in
+    # bf16, kernel against plain; (d) GLSR at step 21 under the bf16
+    # config bit-equal to the float32 config; (e) the training CLI with
+    # --dtype bfloat16 for one epoch with its validation pass (row 3's
+    # finals in bf16), then save -> restore bit-exact, float32 tensors.
+    BF = torch.bfloat16
+    mp_cfg = ModelConfig(dtype="bfloat16")
+    mp_src = {"fwd": csrc + "gru_fwd_chain.cu", "bwd": csrc +
+              "embed_gru_bwd.cu"}
+    mp_launches = {}
+
+    def mp_bound(flops, nbytes_):
+        """max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s dense bf16): the
+        least time for bf16 operands with float32 accumulation."""
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes_ / PEAK_BYTES_PER_S * 1e3
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def mp_kernel(phase, names, srcs, replaces, fn, plain, ids, floats, cot,
+                  shape, flops, lib=None):
+        """One bf16 kernel pair against its bf16 plain version (see
+        train_kernel_phase): values to MP_TOL_OUT, gradients to
+        MP_TOL_GRAD_REL of each tensor's largest entry, two calls of the
+        forward and of the backward bit-equal."""
+        ts, out, grads = fwd_bwd(fn, ids, floats, cot)
+        _, out_p, grads_p = fwd_bwd(plain, ids, floats, cot)
+        again = fn(ids, *ts)
+        grads_2 = torch.autograd.grad(out, ts, cot, retain_graph=True)
+        torch.cuda.synchronize()
+        same = torch.equal(out, again) and all(
+            torch.equal(a, b) for a, b in zip(grads, grads_2))
+        dtypes = sorted({str(g.dtype) for g in grads} | {str(out.dtype)})
+        out_err = float((out.float() - out_p.float()).abs().max())
+        g_abs, g_rel = grad_errors([g.float() for g in grads],
+                                   [g.float() for g in grads_p])
+        k_f, k_b = time_fwd_bwd(fn, ids, ts, cot, 10)
+        p_ts = [t.detach().clone().requires_grad_(True) for t in floats]
+        p_f, p_b = time_fwd_bwd(plain, ids, p_ts, cot, 3, warm=1)
+        l_f = l_b = None
+        if lib is not None:
+            lib_fn, lib_leaves, lib_cot = lib
+            l_f = time_ms(lib_fn, 10)
+            lib_out = lib_fn()
+            l_b = time_ms(lambda: torch.autograd.grad(
+                lib_out, lib_leaves, lib_cot, retain_graph=True), 10)
+        in_bytes = nbytes(ids, *floats)
+        f_bound, f_by = mp_bound(flops[0], in_bytes + nbytes(out))
+        b_bound, b_by = mp_bound(flops[1], in_bytes + nbytes(cot, *grads))
+        emit({"phase": "mixed_precision", "part": phase, "shape": shape,
+              "dtypes": dtypes, "out_max_abs_err": out_err,
+              "tol_out": MP_TOL_OUT, "grad_max_abs_err": g_abs,
+              "grad_max_rel_err": g_rel, "tol_grad_rel": MP_TOL_GRAD_REL,
+              "fwd_ms": k_f, "bwd_ms": k_b, "plain_fwd_ms": p_f,
+              "plain_bwd_ms": p_b, "library_fwd_ms": l_f,
+              "library_bwd_ms": l_b, "bound_fwd_ms": f_bound,
+              "bound_bwd_ms": b_bound, "determinism": same})
+        if dtypes != ["torch.bfloat16"] and not (
+                names[0] == "decoder_ce_bf16"
+                and dtypes == ["torch.bfloat16", "torch.float32"]):
+            return fail(f"mixed_precision {phase}: dtypes {dtypes}")
+        if not (out_err <= MP_TOL_OUT and g_rel <= MP_TOL_GRAD_REL):
+            return fail(f"mixed_precision {phase}: kernel vs plain output "
+                        f"{out_err}, gradients {g_rel} (relative)")
+        if not same:
+            return fail(f"mixed_precision {phase}: two calls differ in a "
+                        "bit")
+        for nm, src, rep, err, ms_, pms, lms, bd, by in (
+                (names[0], srcs[0], replaces[0], out_err, k_f, p_f, l_f,
+                 f_bound, f_by),
+                (names[1], srcs[1], replaces[1], g_abs, k_b, p_b, l_b,
+                 b_bound, b_by)):
+            kernels[nm] = {
+                "name": nm, "route": "cuda", "source": src,
+                "replaces": rep, "max_abs_err": err, "ms": ms_,
+                "plain_ms": pms, "bound_ms": bd, "bound_by": by,
+                "library_ms": lms}
+        return 0
+
+    def bf(*ts):
+        return [t.to(dev, BF) for t in ts]
+
+    # (a) rows 3t/4: the encoder, L=4, T=100, B=128, Vp=384
+    mp_dirs = [gru_init(gen, V, H) for _ in range(L)]
+    e_w = bf(*stack_directions(mp_dirs))
+    e_tok = direction_tokens(torch.from_numpy(
+        rng.integers(0, V, size=(TB, T)).astype(np.int32)).to(dev),
+        [False, True, False, True])
+    e_h0 = torch.zeros((L, TB, H), device=dev, dtype=BF)
+    e_cot = torch.randn((L, TB, H), generator=gen).to(dev, BF)
+    e_grus = []
+    for s_ in range(2):
+        g_ = torch.nn.GRU(V, H, batch_first=True,
+                          bidirectional=True).to(dev)
+        with torch.no_grad():
+            for d, suf in ((2 * s_, ""), (2 * s_ + 1, "_reverse")):
+                getattr(g_, "weight_ih_l0" + suf).copy_(e_w[0][d, :V].t())
+                getattr(g_, "weight_hh_l0" + suf).copy_(e_w[2][d].t())
+                getattr(g_, "bias_ih_l0" + suf).copy_(e_w[1][d])
+                getattr(g_, "bias_hh_l0" + suf).copy_(e_w[3][d])
+        e_grus.append(g_.to(BF))
+    e_x = torch.nn.functional.one_hot(
+        e_tok[0].t().long(), V).to(BF)            # direction 0's tokens
+    e_h0_lib = e_h0.clone().requires_grad_(True)
+
+    def cudnn_enc_bf16():
+        return torch.cat([g_(e_x, e_h0_lib[2 * i:2 * i + 2])[1]
+                          for i, g_ in enumerate(e_grus)])
+
+    # cuDNN's GRU in bf16 is the yardstick where this build runs it
+    try:
+        cudnn_enc_bf16()
+        e_lib = (cudnn_enc_bf16, [p_ for g_ in e_grus
+                                  for p_ in g_.parameters()] + [e_h0_lib],
+                 e_cot)
+        lib_note = "cuDNN bf16 nn.GRU"
+    except RuntimeError as e:
+        e_lib, lib_note = None, f"no bf16 cuDNN GRU: {e}"[:200]
+    emit({"phase": "mixed_precision", "part": "library", "note": lib_note})
+    e_f = 2.0 * L * T * TB * H * G
+    rc = mp_kernel(
+        "encoder", ("embed_gru_train_bf16", "embed_gru_bwd_bf16"),
+        (mp_src["fwd"], mp_src["bwd"]), (pg + "428", pg + "536"),
+        cuda_gru.stacked_gru_embed_finals,
+        cuda_gru.stacked_gru_embed_finals_plain, e_tok,
+        [*e_w, e_h0], e_cot, {"L": L, "T": T, "B": TB, "H": H, "Vp": Vp},
+        (e_f, 2 * e_f), lib=e_lib)
+    if rc:
+        return rc
+    # row 3, finals (the validation pass's variant): no gradient, B=128
+    with torch.no_grad():
+        fin_k = cuda_gru.stacked_gru_embed_finals(e_tok, *e_w, e_h0)
+        fin_p = cuda_gru.stacked_gru_embed_finals_plain(e_tok, *e_w, e_h0)
+        fin_again = cuda_gru.stacked_gru_embed_finals(e_tok, *e_w, e_h0)
+        torch.cuda.synchronize()
+        fin_err = float((fin_k.float() - fin_p.float()).abs().max())
+        fin_ms = time_ms(lambda: cuda_gru.stacked_gru_embed_finals(
+            e_tok, *e_w, e_h0), 10)
+        fin_pms = time_ms(lambda: cuda_gru.stacked_gru_embed_finals_plain(
+            e_tok, *e_w, e_h0), 3, warm=1)
+        fin_lms = time_ms(cudnn_enc_bf16, 10) if e_lib else None
+    fin_bound, fin_by = mp_bound(e_f, nbytes(e_tok, *e_w, e_h0, fin_k))
+    kernels["embed_gru_bf16"] = {
+        "name": "embed_gru_bf16", "route": "cuda", "source": mp_src["fwd"],
+        "replaces": pg + "428", "max_abs_err": fin_err, "ms": fin_ms,
+        "plain_ms": fin_pms, "bound_ms": fin_bound, "bound_by": fin_by,
+        "library_ms": fin_lms}
+    emit({"phase": "mixed_precision", "part": "encoder_finals",
+          "dtype": str(fin_k.dtype), "out_max_abs_err": fin_err,
+          "tol_out": MP_TOL_OUT, "ms": fin_ms, "plain_ms": fin_pms,
+          "library_ms": fin_lms, "bound_ms": fin_bound,
+          "determinism": torch.equal(fin_k, fin_again)})
+    if fin_k.dtype != BF or fin_err > MP_TOL_OUT or not torch.equal(
+            fin_k, fin_again):
+        return fail(f"mixed_precision encoder_finals: {fin_err}")
+    del e_grus, e_x, fin_k, fin_p, fin_again
+
+    # rows 5/6: the sub-decoders, L=2, T=16, B=128, 16 class rows
+    A_, C_ = cfg.attr_len, max(cfg.rhythm_dims, cfg.note_dims)
+    sd = [gru_init(gen, C_ + Z, H) for _ in range(2)]
+    s_emb, s_z, s_bih, s_whh, s_bhh = bf(
+        torch.stack([p_["w_ih"][:C_] for p_ in sd]),
+        torch.stack([p_["w_ih"][C_:] for p_ in sd]),
+        torch.stack([p_["b_ih"] for p_ in sd]),
+        torch.stack([p_["w_hh"] for p_ in sd]),
+        torch.stack([p_["b_hh"] for p_ in sd]))
+    s_zs = torch.randn((2, TB, Z), generator=gen).to(dev, BF)
+    s_prez = torch.bmm(s_zs, s_z) + s_bih[:, None, :]
+    s_h0_ = (torch.randn((2, TB, H), generator=gen) * 0.5).to(dev, BF)
+    s_w = [s_emb, s_prez, s_whh, s_bhh, s_h0_]
+    s_cls = torch.from_numpy(np.stack([
+        rng.integers(0, cfg.rhythm_dims, (A_, TB)),
+        rng.integers(0, cfg.note_dims, (A_, TB))]).astype(np.int32)).to(dev)
+    s_cot_ = torch.randn((2, A_, TB, H), generator=gen).to(dev, BF)
+    s_lib = []
+    for i in range(2):
+        g_ = torch.nn.GRU(C_ + Z, H, batch_first=True).to(dev, BF)
+        with torch.no_grad():
+            g_.weight_ih_l0.copy_(torch.cat([s_emb[i], s_z[i]]).t())
+            g_.weight_hh_l0.copy_(s_whh[i].t())
+            g_.bias_ih_l0.copy_(s_bih[i])
+            g_.bias_hh_l0.copy_(s_bhh[i])
+        s_lib.append(g_)
+    s_x = [torch.cat([torch.nn.functional.one_hot(
+        s_cls[i].t().long(), C_).to(BF),
+        s_zs[i][:, None, :].expand(TB, A_, Z)], dim=-1) for i in range(2)]
+    s_h0_lib = s_h0_.clone().requires_grad_(True)
+
+    def cudnn_sub_bf16():
+        return torch.stack([g_(s_x[i], s_h0_lib[i:i + 1])[0].transpose(
+            0, 1) for i, g_ in enumerate(s_lib)])
+
+    s_f = 2.0 * 2 * A_ * TB * H * G
+    rc = mp_kernel(
+        "subdecoders", ("embed_seq_bf16", "embed_seq_bwd_bf16"),
+        (mp_src["fwd"], mp_src["bwd"]), (pg + "779", pg + "888"),
+        cuda_gru.stacked_gru_embed_seq, cuda_gru.stacked_gru_embed_seq_plain,
+        s_cls, s_w, s_cot_, {"L": 2, "T": A_, "B": TB, "H": H, "C": C_},
+        (s_f, 2 * s_f), lib=e_lib and (
+            cudnn_sub_bf16, [p_ for g_ in s_lib for p_ in g_.parameters()]
+            + [s_h0_lib], s_cot_))
+    if rc:
+        return rc
+    del s_lib, s_x
+
+    # rows 1/2: the CVAE encoder's stacked GRU, L=2, T=100, B=128, I=344
+    c_dirs = [gru_init(gen, V + 2, H) for _ in range(2)]
+    c_wih, c_bih, c_whh, c_bhh = bf(*stack_directions(c_dirs))
+    c_x = torch.cat([torch.nn.functional.one_hot(torch.from_numpy(
+        rng.integers(0, V, size=(TB, T))).long(), V).float(),
+        torch.rand((TB, 1, 2), generator=gen).expand(TB, T, 2)],
+        dim=-1).to(dev, BF)
+    c_dir = torch.stack([c_x, c_x.flip(1)])
+    c_pre = (torch.einsum("lbti,lig->ltbg", c_dir, c_wih[:, :V + 2])
+             + c_bih[:, None, None, :])
+    c_h0 = torch.zeros((2, TB, H), device=dev, dtype=BF)
+    c_cot = torch.randn((2, T, TB, H), generator=gen).to(dev, BF)
+    c_f = 2.0 * 2 * T * TB * H * G
+    # cuDNN's bidirectional bf16 GRU over x_in, its input projection
+    # included (the f32 row's yardstick)
+    c_gru = torch.nn.GRU(V + 2, H, batch_first=True,
+                         bidirectional=True).to(dev, BF)
+    with torch.no_grad():
+        for d, suf in ((0, ""), (1, "_reverse")):
+            getattr(c_gru, "weight_ih_l0" + suf).copy_(c_wih[d, :V + 2].t())
+            getattr(c_gru, "weight_hh_l0" + suf).copy_(c_whh[d].t())
+            getattr(c_gru, "bias_ih_l0" + suf).copy_(c_bih[d])
+            getattr(c_gru, "bias_hh_l0" + suf).copy_(c_bhh[d])
+    c_cot_lib = torch.randn((TB, T, 2 * H), generator=gen).to(dev, BF)
+
+    def cudnn_stacked_bf16():
+        return c_gru(c_x)[0]
+
+    def stacked(_ids, *fl):
+        return cuda_stacked.stacked_gru(*fl)
+
+    def stacked_plain(_ids, *fl):
+        return cuda_stacked.stacked_gru_plain(*fl)
+
+    rc = mp_kernel(
+        "stacked_gru", ("stacked_gru_bf16", "stacked_gru_bwd_bf16"),
+        (csrc + "stacked_gru.cu", csrc + "stacked_gru.cu"),
+        (pg + "147", pg + "238"), stacked, stacked_plain,
+        torch.empty(0, device=dev), [c_pre, c_whh, c_bhh, c_h0], c_cot,
+        {"L": 2, "T": T, "B": TB, "H": H, "I": V + 2}, (c_f, 2 * c_f),
+        lib=e_lib and (cudnn_stacked_bf16, list(c_gru.parameters()),
+                       c_cot_lib))
+    if rc:
+        return rc
+    del c_x, c_dir, c_pre, c_gru
+
+    # rows 9/10 CE: the teacher decode with the CE head, T=100, B=128
+    gd = global_decoder_init(gen, 2 * Z + cfg.chroma_dims, V, H)
+    gd = tree_map(lambda t: t.to(dev, BF), gd)
+    d_z = torch.randn((TB, 2 * Z + cfg.chroma_dims), generator=gen).to(
+        dev, BF)
+    d_tokens = torch.from_numpy(
+        rng.integers(0, V, size=(TB, T)).astype(np.int32)).to(dev)
+    d_tok_t, d_w = cuda_decoder._fused_args(gd, d_z, d_tokens, V)
+    d_tgt = d_tokens.t().contiguous()
+    d_cot = torch.randn((T, TB), generator=gen).to(dev)
+    d_f = 2.0 * T * TB * (3 * H * G + H * Vp)
+
+    def dec(ids, *fl):
+        return cuda_decoder.decoder_teacher_nll(ids, d_tgt, *fl)
+
+    def dec_plain(ids, *fl):
+        return cuda_decoder.decoder_teacher_nll_plain(ids, d_tgt, *fl)
+
+    rc = mp_kernel(
+        "decoder_ce", ("decoder_ce_bf16", "decoder_ce_bwd_bf16"),
+        (csrc + "decoder_ce.cu", csrc + "decoder_ce_bwd.cu"),
+        (pg + "1482", pg + "1627"), dec, dec_plain, d_tok_t,
+        [t.contiguous() for t in d_w], d_cot,
+        {"T": T, "B": TB, "H": H, "Vp": Vp}, (d_f, 2 * d_f))
+    if rc:
+        return rc
+    del gd, d_w
+
+    # (b) the GM-VAE in bf16: the first step against the plain path, then
+    # 3 + 3 steps on the kernels
+    gmm_losses = {"default": gmm_loss,
+                  "supervised": functools.partial(gmm_loss,
+                                                  is_supervised=True)}
+    mtr = Trainer(mp_cfg, init_reg_gmvae, gmm_losses, seed=SEED,
+                  device="cuda")
+    m_yam = YamahaDataset(*random_corpus(cfg, 7 * TB, SEED + 3),
+                          mode="train").arrays()             # 5 batches
+    m_vg = VGMIDIDataset(*random_corpus(cfg, 6 * 32, SEED + 4,
+                                        supervised=True),
+                         mode="train").arrays()              # 4 batches
+    m_leaves = mtr.optimizer.param_groups[0]["params"]
+    m_names = {id(t): name for name, t in named_leaves(mtr.fast_params)}
+    first_steps = {}
+    for variant, arrays, bs in (("default", m_yam, TB),
+                                ("supervised", m_vg, 32)):
+        loss_fn = gmm_losses[variant]
+        batch = {k: torch.from_numpy(v[:bs]).to(dev)
+                 for k, v in arrays.items()}
+        m_eps = tuple(e.to(dev) for e in mtr.noise_fn(0, bs, loss_fn))
+
+        def m_loss_grads(loss_fn=loss_fn, batch=batch, m_eps=m_eps):
+            loss, _ = loss_fn(mtr.fast_params, m_eps, batch, 0, mp_cfg)
+            return loss.detach(), torch.autograd.grad(loss, m_leaves,
+                                                      allow_unused=True)
+
+        m_loss_k, m_grads_k = m_loss_grads()
+        m_paths = (cuda_gru.LAST_TRAIN_PATH, cuda_decoder.LAST_TRAIN_PATH)
+        with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
+            m_loss_p, m_grads_p = m_loss_grads()
+        torch.cuda.synchronize()
+        first_steps[variant] = {
+            "B": bs, "loss_kernel": float(m_loss_k),
+            "loss_plain": float(m_loss_p),
+            "loss_rel_err": abs(float(m_loss_k) - float(m_loss_p))
+            / max(abs(float(m_loss_p)), 1e-6),
+            "grad_dtypes": sorted({str(g.dtype) for g in m_grads_k
+                                   if g is not None}),
+            **worst_leaf(m_grads_k, m_grads_p,
+                         [m_names[id(t)] for t in m_leaves]),
+            "kernel_paths": m_paths}
+        del m_grads_k, m_grads_p
+    zero_counts(*all_counts)
+    m_runs = {}
+    for variant, arrays, bs in (("default", m_yam, TB),
+                                ("supervised", m_vg, 32)):
+        m_runs[variant] = mtr.run_epoch(take(arrays, 0, 3 * bs), variant,
+                                        batch_size=bs, seed=1)
+    torch.cuda.synchronize()
+    gmm_bf16_launches = read_counts(*all_counts)
+    m_path = mtr.train_path
+    opt_dtypes = sorted({str(v.dtype) for st in mtr.optimizer.state.values()
+                         for k, v in st.items() if k != "step"})
+    param_dtypes = sorted({str(t.dtype) for t in m_leaves})
+    m_finite = all(np.isfinite(v) for m in m_runs.values()
+                   for v in m.values())
+    # ms a step, float32 and bf16 Trainers in turns (f32, bf16, bf16, f32),
+    # 2 warm-up and 3 timed B=128 steps each
+    f32_tr = Trainer(cfg, init_reg_gmvae, gmm_losses, seed=SEED,
+                     device="cuda")
+    turns = []
+    for label, t_ in (("float32", f32_tr), ("bfloat16", mtr),
+                      ("bfloat16", mtr), ("float32", f32_tr)):
+        t_.run_epoch(take(m_yam, 3 * TB, 5 * TB), batch_size=TB, seed=3)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        t_.run_epoch(take(m_yam, 0, 3 * TB), batch_size=TB, seed=4)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        turns.append({"dtype": label, "ms_per_step": wall * 1e3 / 3,
+                      "seq_per_s": 3 * TB / wall})
+    del f32_tr
+    want_rows = ("embed_gru_train_bf16", "embed_gru_bwd_bf16",
+                 "embed_seq_bf16", "embed_seq_bwd_bf16", "decoder_ce_bf16",
+                 "decoder_ce_bwd_bf16")
+    emit({"phase": "mixed_precision", "part": "gmm_trainer",
+          "first_step": first_steps, "tol_loss_rel": MP_TOL_LOSS_REL,
+          "tol_grad_rel": MP_TOL_STEP_GRAD_REL, "runs": m_runs,
+          "finite": m_finite, "train_path": m_path,
+          "launches": gmm_bf16_launches, "param_dtypes": param_dtypes,
+          "adam_dtypes": opt_dtypes, "ms_per_step_in_turns": turns})
+    for variant, fs in first_steps.items():
+        if fs["kernel_paths"] != ("kernel", "kernel") or fs[
+                "grad_dtypes"] != ["torch.float32"]:
+            return fail(f"mixed_precision gmm {variant}: {fs}")
+        if not (fs["loss_rel_err"] <= MP_TOL_LOSS_REL
+                and fs["grad_max_rel_err"] <= MP_TOL_STEP_GRAD_REL):
+            return fail(f"mixed_precision gmm {variant}: first step kernel "
+                        f"vs plain {fs}")
+    if not m_finite or m_path != "kernel" or param_dtypes != [
+            "torch.float32"] or opt_dtypes != ["torch.float32"]:
+        return fail(f"mixed_precision gmm: finite {m_finite}, path "
+                    f"{m_path}, params {param_dtypes}, Adam {opt_dtypes}")
+    if not all(gmm_bf16_launches.get(k, 0) > 0 for k in want_rows) or any(
+            k in gmm_bf16_launches for k in ("embed_gru_train",
+                                             "decoder_ce")):
+        return fail(f"mixed_precision gmm launches {gmm_bf16_launches}")
+    mp_launches.update({k: gmm_bf16_launches[k] for k in want_rows})
+
+    # (c) the other casting families' first step in bf16; (d) GLSR
+    for fam in ("vanilla", "cvae", "fader", "singlevae", "glsr"):
+        init_fn, loss_fn, profile_step = FAMILIES[fam]
+        first_step = profile_step or 1000
+        ftr = Trainer(mp_cfg, init_fn, {"default": loss_fn}, seed=SEED,
+                      device="cuda")
+        f_eps = tuple(e.to(dev) for e in ftr.noise_fn(0, TB, loss_fn))
+        f_leaves = ftr.optimizer.param_groups[0]["params"]
+        f_names = {id(t): n for n, t in named_leaves(ftr.fast_params)}
+
+        def f_loss_grads(c=mp_cfg, ftr=ftr, f_eps=f_eps, f_leaves=f_leaves,
+                         loss_fn=loss_fn, first_step=first_step):
+            loss, _ = loss_fn(ftr.fast_params, f_eps, fam_first, first_step,
+                              c)
+            return loss.detach(), torch.autograd.grad(loss, f_leaves,
+                                                      allow_unused=True)
+
+        for m in (cuda_gru, cuda_decoder, cuda_stacked):
+            m.LAST_TRAIN_PATH = None
+        zero_counts(*all_counts)
+        f_loss_k, f_grads_k = f_loss_grads()
+        torch.cuda.synchronize()
+        f_launches = read_counts(*all_counts)
+        f_paths = sorted({m.LAST_TRAIN_PATH for m in (
+            cuda_gru, cuda_decoder, cuda_stacked)} - {None})
+        if fam == "glsr":
+            # GLSR ignores the dtype: the float32 config's step, bit for bit
+            f_loss_32, f_grads_32 = f_loss_grads(cfg)
+            torch.cuda.synchronize()
+            equal = torch.equal(f_loss_k, f_loss_32) and all(
+                (a is None and b is None) or torch.equal(a, b)
+                for a, b in zip(f_grads_k, f_grads_32))
+            emit({"phase": "mixed_precision", "part": "glsr_f32",
+                  "step": first_step, "bit_equal_to_float32": equal,
+                  "launches": f_launches})
+            if not equal or any(k.endswith("_bf16") for k in f_launches):
+                return fail(f"mixed_precision glsr: bit-equal {equal}, "
+                            f"launches {f_launches}")
+            continue
+        with plain_path(cuda_gru, cuda_decoder, cuda_stacked):
+            f_loss_p, f_grads_p = f_loss_grads()
+        torch.cuda.synchronize()
+        f_line = {"loss_kernel": float(f_loss_k),
+                  "loss_plain": float(f_loss_p),
+                  "loss_rel_err": abs(float(f_loss_k) - float(f_loss_p))
+                  / max(abs(float(f_loss_p)), 1e-6),
+                  **worst_leaf(f_grads_k, f_grads_p,
+                               [f_names[id(t)] for t in f_leaves]),
+                  "kernel_paths": f_paths, "launches": f_launches}
+        emit({"phase": "mixed_precision", "part": "family", "family": fam,
+              "B": TB, "step": first_step, "first_step": f_line})
+        if f_paths != ["kernel"] or not (
+                f_line["loss_rel_err"] <= MP_TOL_LOSS_REL
+                and f_line["grad_max_rel_err"] <= MP_TOL_STEP_GRAD_REL):
+            return fail(f"mixed_precision {fam}: {f_line}")
+        if fam == "cvae":
+            if not (f_launches.get("stacked_gru_bf16", 0) > 0
+                    and f_launches.get("stacked_gru_bwd_bf16", 0) > 0):
+                return fail(f"mixed_precision cvae launches {f_launches}")
+            mp_launches.update({k: f_launches[k] for k in (
+                "stacked_gru_bf16", "stacked_gru_bwd_bf16")})
+        del ftr, f_grads_k, f_grads_p
+
+    # (e) the training CLI in bf16: one epoch with its validation pass, then
+    # save -> restore
+    with tempfile.TemporaryDirectory(dir="build") as mp_tmp:
+        repo = os.path.dirname(os.path.abspath(__file__))
+        mp_common = ["--config", os.path.join(repo, "configs",
+                                              "gmm_model_config.json"),
+                     "--synthetic-size", "512", "--seed", str(SEED),
+                     "--dtype", "bfloat16",
+                     "--save-dir", os.path.join(mp_tmp, "params"),
+                     "--log-dir", os.path.join(mp_tmp, "log"),
+                     "--data-dir", os.path.join(mp_tmp, "no_cache"),
+                     "--vgmidi-dir", os.path.join(mp_tmp, "no_vgmidi")]
+        zero_counts(*all_counts)
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ctr = train_cli.run_training("gmm", "chip_smoke",
+                                         dual_corpus=True,
+                                         argv=mp_common + ["--epochs", "1"])
+        torch.cuda.synchronize()
+        cli_s = time.monotonic() - t0
+        cli_l = read_counts(*all_counts)
+        name = train_cli.MODEL_REGISTRY["gmm"]["name"]
+        with open(os.path.join(mp_tmp, "log", f"{name}.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        cli_finite = all(np.isfinite(r["loss"]) for r in recs)
+        back = ckpt.restore_checkpoint(os.path.join(mp_tmp, "params", name))
+        st = ctr.state
+        pairs = [(a, b) for tree_a, tree_b in (
+            (back["params"], st.params),
+            (back["opt_state"]["mu"], st.opt_state["mu"]),
+            (back["opt_state"]["nu"], st.opt_state["nu"]))
+            for (_, a), (_, b) in zip(named_leaves(tree_a),
+                                      named_leaves(tree_b))]
+        exact = all(torch.equal(a.cpu(), b.cpu()) for a, b in pairs)
+        ck_dtypes = sorted({str(a.dtype) for a, _ in pairs})
+    emit({"phase": "mixed_precision", "part": "train_cli",
+          "dtype": ctr.cfg.dtype, "seconds": cli_s, "steps": ctr.step,
+          "finite": cli_finite, "splits": sorted({r["split"] for r in recs}),
+          "launches": cli_l, "restore_bit_exact": exact,
+          "checkpoint_dtypes": ck_dtypes})
+    if not (cli_finite and exact and ck_dtypes == ["torch.float32"]
+            and ctr.cfg.dtype == "bfloat16"
+            and cli_l.get("embed_gru_bf16", 0) > 0
+            and "yamaha_val" in {r["split"] for r in recs}):
+        return fail(f"mixed_precision train_cli: finite {cli_finite}, "
+                    f"exact {exact}, dtypes {ck_dtypes}, launches {cli_l}")
+    mp_launches["embed_gru_bf16"] = cli_l["embed_gru_bf16"]
+    del ctr, mtr
+
     launches = {**serving_launches,
                 **{k: train_launches[k] for k in train_kernels},
                 **{k: sg_launches[k] for k in ("decoder_teacher",
                                                "decoder_teacher_bwd")},
                 **{k: family_launches[fam][k]
-                   for fam, ks in family_kernels.items() for k in ks}}
+                   for fam, ks in family_kernels.items() for k in ks},
+                **mp_launches}
     for name, k in kernels.items():
         k["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -53,9 +53,13 @@ import torch
 __version__ = "0.1.0"
 
 # Greedy token feedback turns one flipped near-tie into wholesale
-# divergence, so every float32 product stays in full float32.
+# divergence, so every float32 product stays in full float32; and a bf16
+# product outside the kernels (the mixed-precision objectives' input
+# projections) accumulates in float32 before its one rounding, as XLA's
+# does, rather than reducing split-K partials in bf16.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from music_fader_nets_tpu_torch.config import ModelConfig, load_config  # noqa: E402,F401
 

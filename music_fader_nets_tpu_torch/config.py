@@ -39,8 +39,11 @@ class ModelConfig:
     eval_decode_steps: int = 100   # reference test_class.py:253
     transfer_decode_steps: int = 300   # arousal_transfer.ipynb cells 15/17
 
-    # compute dtype; the port's kernels are float32 and "bfloat16" raises
-    # NotImplementedError (mixed precision waits, ROADMAP.md)
+    # compute dtype: "float32", or "bfloat16" for the mixed precision of the
+    # JAX package (train/objectives.py::_mixed_precision: params and inputs
+    # cast to bf16 at the forward, the loss terms, master weights, Adam
+    # state and checkpoints float32; GLSR, serving and evaluation stay
+    # float32)
     dtype: str = "float32"
     # Kept so the JAX package's JSON configs load unchanged. The port takes
     # no such switch: on CUDA tensors the kernels always run, on CPU
@@ -64,11 +67,7 @@ class ModelConfig:
     free_bits: float = 0.0
 
     def __post_init__(self):
-        if self.dtype == "bfloat16":
-            raise NotImplementedError(
-                "bfloat16 mixed precision is not ported yet: the port's "
-                "kernels are float32")
-        if self.dtype != "float32":
+        if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown dtype {self.dtype!r}")
 
     @property

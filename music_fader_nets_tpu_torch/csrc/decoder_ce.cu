@@ -47,6 +47,16 @@
 // kMaxRanges of them, passed by value. Each chain holds its layer's w_hh
 // columns resident in shared memory for all T steps: two layers' weights
 // would not fit one block.
+//
+// bf16 storage (the CE entry only, fader_decoder_ce_bf16: the JAX
+// package's bf16 objectives reach kernel 9 with its CE head; the masses
+// head serves GLSR, which stays float32): the same four parts with bf16
+// weights and outputs. As in the Pallas kernel, whose layer-2 input and
+// head read the float32 h1' and h2' it holds (pallas_gru.py:1518-1535),
+// layer 1's chain also writes its float32 h (h1_32), from which the GEMM
+// takes layer 2's input product (float32) and layer 2 its first state;
+// layer 2 writes its float32 h (h2_32) for the head. h1_seq, h2_seq and
+// the stashes are bf16, the NLL float32 (:1576).
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
@@ -57,10 +67,10 @@ constexpr int kHeadTB = 16;
 // The CE head over R rows of h2 (16 a block). Forward (g null): nll[row] =
 // lse - logit[tgt]. Backward (g given): dlogits[row, :] = (softmax - onehot
 // (tgt)) * g[row] (pad lanes give exactly 0: exp(-1e30 - max) is 0).
-template <int TB>
+template <int TB, typename AT, typename WT>
 __global__ void __launch_bounds__(kThreads)
-    ce_head(int R, int H, int Vp, const float* __restrict__ h2,
-            const float* __restrict__ w_out, const float* __restrict__ b_out,
+    ce_head(int R, int H, int Vp, const AT* __restrict__ h2,
+            const WT* __restrict__ w_out, const WT* __restrict__ b_out,
             const int* __restrict__ tgt, const float* __restrict__ g,
             float* __restrict__ nll, float* __restrict__ dlogits) {
   extern __shared__ float4 smem4[];
@@ -70,21 +80,21 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = blockIdx.x * TB;
 
-  load_a_tile<TB>(sA, h2, H, R, r0, H);
+  load_a_tile<TB, AT>(sA, h2, H, R, r0, H);
   __syncthreads();
   for (int c0 = 0; c0 < Vp; c0 += kTileN) {
     const int j = c0 + lane;
     float out[TB / kWarps][1];
     {
       float acc[TB][1] = {};
-      splitk_gemm<TB, 1>(acc, sA, H, w_out, Vp, 0, j < Vp, j);
+      splitk_gemm<TB, 1, WT>(acc, sA, H, w_out, Vp, 0, j < Vp, j);
       splitk_reduce<TB, 1>(acc, out, red);
     }
     if (j < Vp) {
 #pragma unroll
       for (int i = 0; i < TB / kWarps; ++i)
         sL[(size_t)(warp + kWarps * i) * Vp + j] =
-            __fadd_rn(out[i][0], b_out[j]);
+            __fadd_rn(out[i][0], to_f32(b_out[j]));
     }
   }
   __syncthreads();
@@ -118,18 +128,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-cudaError_t launch_ce_head(int R, int H, int Vp, const float* h2,
-                           const float* w_out, const float* b_out,
-                           const int* tgt, const float* g, float* nll,
-                           float* dlogits, cudaStream_t s) {
+template <typename AT, typename WT>
+cudaError_t launch_ce_head(int R, int H, int Vp, const AT* h2,
+                           const WT* w_out, const WT* b_out, const int* tgt,
+                           const float* g, float* nll, float* dlogits,
+                           cudaStream_t s) {
   const size_t smem =
       smem_bytes<kHeadTB>(1, H) + (size_t)kHeadTB * Vp * sizeof(float);
-  cudaError_t err = allow_smem(ce_head<kHeadTB>, smem);
+  cudaError_t err = allow_smem(ce_head<kHeadTB, AT, WT>, smem);
   if (err != cudaSuccess) return err;
-  ce_head<kHeadTB><<<(R + kHeadTB - 1) / kHeadTB, kThreads, smem, s>>>(
-      R, H, Vp, h2, w_out, b_out, tgt, g, nll, dlogits);
+  ce_head<kHeadTB, AT, WT>
+      <<<(R + kHeadTB - 1) / kHeadTB, kThreads, smem, s>>>(
+          R, H, Vp, h2, w_out, b_out, tgt, g, nll, dlogits);
   return cudaGetLastError();
 }
+
+template cudaError_t launch_ce_head<float, float>(int, int, int,
+                                                  const float*, const float*,
+                                                  const float*, const int*,
+                                                  const float*, float*,
+                                                  float*, cudaStream_t);
+template cudaError_t launch_ce_head<float, bf16>(int, int, int, const float*,
+                                                 const bf16*, const bf16*,
+                                                 const int*, const float*,
+                                                 float*, float*,
+                                                 cudaStream_t);
+template cudaError_t launch_ce_head<bf16, bf16>(int, int, int, const bf16*,
+                                                const bf16*, const bf16*,
+                                                const int*, const float*,
+                                                float*, float*, cudaStream_t);
 
 // The masses head over R = T*B rows of h2 (16 a block), row t*B + b.
 // Forward (g null): masses[t, k, b] = sum over range k of p. Backward (g
@@ -262,18 +289,45 @@ cudaError_t launch_decoder_recurrence(
   float* pre2x = scratch + pre2x_at(B, H);
   cudaError_t err;
   // (1) layer 1: xpre = w_tok[tok] + pre_z, from h1_0
-  if ((err = launch_gru_fwd_chain(1, T, B, H, tok, w_tok, Vp, pre_z,
-                                  (long long)B * G, G, w_hh1, b_hh1, h1_0,
-                                  h1_seq, nullptr, g41, scratch, s)) !=
-          cudaSuccess ||
+  if ((err = launch_gru_fwd_chain<float, float>(
+           1, T, B, H, tok, w_tok, Vp, pre_z, (long long)B * G, G, w_hh1,
+           b_hh1, h1_0, h1_seq, nullptr, g41, scratch, s)) != cudaSuccess ||
       // (2) layer 2's input product over all steps
       (err = gemm_nn(T * B, G, H, h1_seq, w_ih2, pre2x, nullptr, 0, s)) !=
           cudaSuccess)
     return err;
   // (3) layer 2: xpre = pre2x + b_ih2, from h1_seq[0] (the step-0 rule)
-  return launch_gru_fwd_chain(1, T, B, H, nullptr, pre2x, 0, b_ih2, 0, 0,
-                              w_hh2, b_hh2, h1_seq, h2_seq, nullptr, g42,
-                              scratch, s);
+  return launch_gru_fwd_chain<float, float>(1, T, B, H, nullptr, pre2x, 0,
+                                            b_ih2, 0, 0, w_hh2, b_hh2,
+                                            h1_seq, h2_seq, nullptr, g42,
+                                            scratch, s);
+}
+
+cudaError_t launch_decoder_recurrence_bf16(
+    int T, int B, int H, int Vp, const int* tok, const bf16* w_tok,
+    const bf16* pre_z, const bf16* w_hh1, const bf16* b_hh1,
+    const bf16* w_ih2, const bf16* b_ih2, const bf16* w_hh2,
+    const bf16* b_hh2, const bf16* h1_0, bf16* h1_seq, bf16* h2_seq,
+    bf16* g41, bf16* g42, float* h1_32, float* h2_32, float* scratch,
+    cudaStream_t s) {
+  const int G = 3 * H;
+  float* pre2x = scratch + pre2x_at(B, H);
+  cudaError_t err;
+  // (1) layer 1: xpre = w_tok[tok] + pre_z, from h1_0; h1 also in float32
+  if ((err = launch_gru_fwd_chain<bf16, bf16>(
+           1, T, B, H, tok, w_tok, Vp, pre_z, (long long)B * G, G, w_hh1,
+           b_hh1, h1_0, h1_seq, nullptr, g41, scratch, s, h1_32)) !=
+          cudaSuccess ||
+      // (2) layer 2's input product over all steps, from the float32 h1
+      (err = gemm_nn(T * B, G, H, h1_32, w_ih2, pre2x, nullptr, 0, s)) !=
+          cudaSuccess)
+    return err;
+  // (3) layer 2: xpre = pre2x + b_ih2, from the float32 h1[0]; h2 also in
+  // float32, for the head
+  return launch_gru_fwd_chain<float, bf16>(1, T, B, H, nullptr, pre2x, 0,
+                                           b_ih2, 0, 0, w_hh2, b_hh2, h1_32,
+                                           h2_seq, nullptr, g42, scratch, s,
+                                           h2_32);
 }
 
 bool make_ranges(int K, const int* ranges, MassRanges* rg) {
@@ -321,6 +375,32 @@ extern "C" int fader_decoder_ce(int T, int B, int H, int Vp, const int* tok,
       b_hh2, h1_0, h1_seq, h2_seq, g41, g42, scratch, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_ce_head(T * B, H, Vp, h2_seq, w_out, b_out, tgt,
+                             nullptr, nll, nullptr, s);
+}
+
+// As fader_decoder_ce with bf16 weights, pre_z, h1_0 and outputs h1_seq,
+// h2_seq, g41, g42 (the NLL float32). h1_32, h2_32 (T,B,H) float32
+// scratch: layer 1's and layer 2's float32 states, from which layer 2 and
+// the head read.
+extern "C" int fader_decoder_ce_bf16(
+    int T, int B, int H, int Vp, const int* tok, const int* tgt,
+    const fader::bf16* w_tok, const fader::bf16* pre_z,
+    const fader::bf16* w_hh1, const fader::bf16* b_hh1,
+    const fader::bf16* w_ih2, const fader::bf16* b_ih2,
+    const fader::bf16* w_hh2, const fader::bf16* b_hh2,
+    const fader::bf16* h1_0, const fader::bf16* w_out,
+    const fader::bf16* b_out, fader::bf16* h1_seq, fader::bf16* h2_seq,
+    fader::bf16* g41, fader::bf16* g42, float* nll, float* h1_32,
+    float* h2_32, float* scratch, long long scratch_floats, void* stream) {
+  using namespace fader;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch_floats < decoder_fwd_scratch_floats(T, B, H))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_decoder_recurrence_bf16(
+      T, B, H, Vp, tok, w_tok, pre_z, w_hh1, b_hh1, w_ih2, b_ih2, w_hh2,
+      b_hh2, h1_0, h1_seq, h2_seq, g41, g42, h1_32, h2_32, scratch, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_ce_head(T * B, H, Vp, h2_32, w_out, b_out, tgt,
                              nullptr, nll, nullptr, s);
 }
 

@@ -55,6 +55,14 @@
 // is dh2_head as it stands. The chains stash their dpre rows, and
 // grad_reduce.cu turns them into the weight gradients with deterministic
 // GEMMs (split-K through scratch), scatter and sums.
+//
+// bf16 storage (the CE entry, fader_decoder_ce_bwd_bf16): h1_seq, h2_seq,
+// the stashes, h1_0 and the weights are bf16 and widened where they are
+// read; the head recomputes its logits from the bf16 h2_seq (as the Pallas
+// backward does from its h2 residual, pallas_gru.py:1652-1664), and
+// dlogits, dh2_head, inject, the dpre rows, the chains' dh and every
+// gradient stay float32; the caller rounds the gradients to bf16
+// (:1822-1828).
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
@@ -82,12 +90,13 @@ long long red_at(int T, int B, int H) {
 // The two chains and the recurrence's weight gradients, from dh2_head
 // (T, B, H), the cotangent of h2_seq. tok (T, B/n_rep) are the input ids of
 // the B/n_rep distinct sequences; fold (T, B/n_rep, 3H) is scratch when
-// n_rep > 1 (else unused); scratch as laid out above.
+// n_rep > 1 (else unused); scratch as laid out above. S: the storage type
+// of the forward's outputs, h1_0 and the weights.
+template <typename S>
 cudaError_t decoder_bwd_from_dh2(
-    int T, int B, int H, int Vp, int n_rep, const int* tok,
-    const float* h1_seq, const float* h2_seq, const float* g41,
-    const float* g42, const float* h1_0, const float* w_hh1T,
-    const float* w_ih2T, const float* w_hh2T, const float* dh2_head,
+    int T, int B, int H, int Vp, int n_rep, const int* tok, const S* h1_seq,
+    const S* h2_seq, const S* g41, const S* g42, const S* h1_0,
+    const S* w_hh1T, const S* w_ih2T, const S* w_hh2T, const float* dh2_head,
     float* s1x, float* s1h, float* s2x, float* s2h, float* fold,
     float* dw_tok, float* dpre_z, float* dw_hh1, float* db_hh1,
     float* dw_ih2, float* db_ih2, float* dw_hh2, float* db_hh2,
@@ -100,16 +109,16 @@ cudaError_t decoder_bwd_from_dh2(
   float* red = scratch + red_at(T, B, H);
   cudaError_t err;
   // (1) layer 2, h2p(0) = h1_seq[0]; dh2_0 is the dh2 that leaves step 0
-  if ((err = launch_gru_bwd_chain(1, T, B, H, dh2_head, 0, BH, 1, g42,
-                                  h2_seq, h1_seq, w_hh2T, s2x, s2h, dh2_0,
-                                  chain, s)) != cudaSuccess ||
+  if ((err = launch_gru_bwd_chain<S>(1, T, B, H, dh2_head, 0, BH, 1, g42,
+                                     h2_seq, h1_seq, w_hh2T, s2x, s2h, dh2_0,
+                                     chain, s)) != cudaSuccess ||
       // (2) inject = dpre2x @ w_ih2^T, + dh2_0 on step 0's B rows
       (err = gemm_nn(R, H, (int)G, s2x, w_ih2T, inject, dh2_0, B, s)) !=
           cudaSuccess ||
       // (3) layer 1, h1p(0) = h1_0
-      (err = launch_gru_bwd_chain(1, T, B, H, inject, 0, BH, 1, g41, h1_seq,
-                                  h1_0, w_hh1T, s1x, s1h, dh1_0, chain, s)) !=
-          cudaSuccess)
+      (err = launch_gru_bwd_chain<S>(1, T, B, H, inject, 0, BH, 1, g41,
+                                     h1_seq, h1_0, w_hh1T, s1x, s1h, dh1_0,
+                                     chain, s)) != cudaSuccess)
     return err;
   // dW_tok: with n_rep copies, fold dpre1x over them first (sum_over_t
   // over the copy axis of s1x viewed as (T, n_rep, B0 * 3H)), then scatter
@@ -122,9 +131,9 @@ cudaError_t decoder_bwd_from_dh2(
       return err;
     tok_rows = fold;
   }
-  const SplitRows h1prev{h1_0, 0, B, h1_seq, 0, H};
-  const SplitRows h1cur{nullptr, 0, 0, h1_seq, 0, H};
-  const SplitRows h2prev{h1_seq, 0, B, h2_seq, 0, H};
+  const SplitRowsT<S> h1prev{h1_0, 0, B, h1_seq, 0, H};
+  const SplitRowsT<S> h1cur{nullptr, 0, 0, h1_seq, 0, H};
+  const SplitRowsT<S> h2prev{h1_seq, 0, B, h2_seq, 0, H};
   if ((err = segment_rows(1, T * B0, (int)G, Vp, tok, tok_rows, dw_tok, s)) ||
       (err = sum_over_t(1, T, (int)(B * G), s1x, dpre_z, s)) ||
       (err = gemm_tn(1, H, (int)G, R, h1prev, s1h, 0, dw_hh1, 0, red, s)) ||
@@ -140,11 +149,11 @@ cudaError_t decoder_bwd_from_dh2(
 // Everything after a head, from its dlogits (T*B, Vp): dh2_head = dlogits @
 // w_out^T, the shared chains and gradients, and the head's own dW_out,
 // db_out.
+template <typename S>
 cudaError_t decoder_bwd_from_dlogits(
-    int T, int B, int H, int Vp, int n_rep, const int* tok,
-    const float* h1_seq, const float* h2_seq, const float* g41,
-    const float* g42, const float* h1_0, const float* w_hh1T,
-    const float* w_ih2T, const float* w_hh2T, const float* w_outT,
+    int T, int B, int H, int Vp, int n_rep, const int* tok, const S* h1_seq,
+    const S* h2_seq, const S* g41, const S* g42, const S* h1_0,
+    const S* w_hh1T, const S* w_ih2T, const S* w_hh2T, const S* w_outT,
     float* dlogits, float* dh2_head, float* s1x, float* s1h, float* s2x,
     float* s2h, float* fold, float* dw_tok, float* dpre_z, float* dw_hh1,
     float* db_hh1, float* dw_ih2, float* db_ih2, float* dw_hh2,
@@ -162,7 +171,7 @@ cudaError_t decoder_bwd_from_dlogits(
                              dh1_0, scratch, s);
   if (err != cudaSuccess) return err;
   float* red = scratch + red_at(T, B, H);
-  const SplitRows h2cur{nullptr, 0, 0, h2_seq, 0, H};
+  const SplitRowsT<S> h2cur{nullptr, 0, 0, h2_seq, 0, H};
   if ((err = gemm_tn(1, H, Vp, R, h2cur, dlogits, 0, dw_out, 0, red, s)) ||
       (err = colsum(1, R, Vp, dlogits, db_out, red, s)))
     return err;
@@ -215,6 +224,35 @@ extern "C" int fader_decoder_ce_bwd(
                                    g, nullptr, dlogits, s);
   if (err != cudaSuccess) return (int)err;
   return (int)decoder_bwd_from_dlogits(
+      T, B, H, Vp, 1, tok, h1_seq, h2_seq, g41, g42, h1_0, w_hh1T, w_ih2T,
+      w_hh2T, w_outT, dlogits, dh2_head, s1x, s1h, s2x, s2h, nullptr, dw_tok,
+      dpre_z, dw_hh1, db_hh1, dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0, dw_out,
+      db_out, scratch, s);
+}
+
+// As fader_decoder_ce_bwd with bf16 h1_seq, h2_seq, g41, g42, h1_0 and
+// weights (w_hh1T, w_ih2T, w_hh2T, w_out, b_out, w_outT); g, the scratch and
+// every output float32.
+extern "C" int fader_decoder_ce_bwd_bf16(
+    int T, int B, int H, int Vp, const int* tok, const int* tgt,
+    const float* g, const fader::bf16* h1_seq, const fader::bf16* h2_seq,
+    const fader::bf16* g41, const fader::bf16* g42, const fader::bf16* h1_0,
+    const fader::bf16* w_hh1T, const fader::bf16* w_ih2T,
+    const fader::bf16* w_hh2T, const fader::bf16* w_out,
+    const fader::bf16* b_out, const fader::bf16* w_outT, float* dlogits,
+    float* dh2_head, float* s1x, float* s1h, float* s2x, float* s2h,
+    float* dw_tok, float* dpre_z, float* dw_hh1, float* db_hh1,
+    float* dw_ih2, float* db_ih2, float* dw_hh2, float* db_hh2,
+    float* dh1_0, float* dw_out, float* db_out, float* scratch,
+    long long scratch_floats, void* stream) {
+  using namespace fader;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch_floats < fader_decoder_bwd_scratch_floats(T, B, H, Vp))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_ce_head(T * B, H, Vp, h2_seq, w_out, b_out, tgt,
+                                   g, nullptr, dlogits, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)decoder_bwd_from_dlogits<bf16>(
       T, B, H, Vp, 1, tok, h1_seq, h2_seq, g41, g42, h1_0, w_hh1T, w_ih2T,
       w_hh2T, w_outT, dlogits, dh2_head, s1x, s1h, s2x, s2h, nullptr, dw_tok,
       dpre_z, dw_hh1, db_hh1, dw_ih2, db_ih2, dw_hh2, db_hh2, dh1_0, dw_out,

@@ -68,6 +68,16 @@
 // unit block to arrive (an atomic counter) adds the tiles' partials in
 // tile order: every sum has a fixed order, no float atomics. dW_hh stays
 // the split-K GEMM over the dph stash: 3 kernels and 1 memset a call.
+//
+// bf16 storage (mixed-precision training): the chain is instantiated on S,
+// the type of what it reads from the forward (stash, h_seq, h0) and of
+// w_hh. Loads widen to float; dh, the gate backward, the product and every
+// sum stay float32 and dpx / dph / dh0 / dprez / dW_emb / db_hh are
+// written in float32, as the Pallas kernels keep dpre_x, dpre_h and their
+// accumulators in f32 scratch (pallas_gru.py:596-603); the caller rounds
+// what the Pallas kernels return in the input's dtype. The backward thus
+// recomputes from the bf16-rounded h_seq and gate stash, as the Pallas
+// backward does (:566-570), while the forward ran on the float32 carry.
 #include <type_traits>
 
 #include "gru_tile.cuh"
@@ -86,15 +96,16 @@ constexpr int kChainGPad = 64;    // the weights' k is zero-padded to this
 // ring | transpose buffer | partial tiles share these floats of a block
 constexpr int kChainBuf = kWarps * kChainStages * kWarpK * kWarpRows;
 
+template <typename S>
 struct ChainParams {
   int L, T, B, H, Bp;
   const float* g;
   long long g_ls, g_ts;
   int g_every_step;
-  const float* stash;
-  const float* h_seq;
-  const float* h0;
-  const float* w_hhT;
+  const S* stash;
+  const S* h_seq;
+  const S* h0;
+  const S* w_hhT;
   float* dpx;
   float* dph;
   float* dh0;
@@ -113,10 +124,11 @@ constexpr int kSeqClasses = 16;   // most class rows it sums in registers
 constexpr int kStageK = 64;
 constexpr int kStageBufs = 3;
 
-struct SeqChainParams : ChainParams {
+template <typename S>
+struct SeqChainParams : ChainParams<S> {
   const int* ids;       // (L, T, B) class ids; rows outside [0, V) add nothing
   int V;                // class rows, at most kSeqClasses
-  const float* w_hh;    // (L, H, 3H), read in place of w_hhT
+  const S* w_hh;        // (L, H, 3H), read in place of w_hhT
   float* dprez;         // (L, B, 3H)
   float* dw_emb;        // (L, V, 3H)
   float* db_hh;         // (L, 3H)
@@ -125,9 +137,9 @@ struct SeqChainParams : ChainParams {
   unsigned* done;       // one per (direction, unit block), kCtrStride apart
 };
 
-template <bool kSeq>
+template <bool kSeq, typename S>
 using ChainParamsOf =
-    typename std::conditional<kSeq, SeqChainParams, ChainParams>::type;
+    typename std::conditional<kSeq, SeqChainParams<S>, ChainParams<S>>::type;
 
 // What a thread keeps over all steps: the classes of its rows at the step
 // to come, its rows' dprez, and its unit's db_hh and dW_emb rows over its
@@ -158,9 +170,9 @@ __device__ __forceinline__ void add_if(bool take, float (&s)[3], float x,
 // c0+31 transposed through a ring of staging tiles in `buf`, cp.async
 // copies of the rows, coalesced, two tiles ahead; both shared-memory passes
 // free of bank conflicts.
-__device__ __forceinline__ void seq_stage_w_hh(const SeqChainParams& p,
-                                               float* sW, float* buf, int l,
-                                               int c0, int Gp) {
+__device__ __forceinline__ void seq_stage_w_hh(
+    const SeqChainParams<float>& p, float* sW, float* buf, int l, int c0,
+    int Gp) {
   constexpr int kRow = kStageK + 1;
   constexpr int kPer = kChainCols * kStageK / kThreads;
   static_assert(kStageBufs * kChainCols * kRow <= kChainBuf, "ring fits");
@@ -201,10 +213,25 @@ __device__ __forceinline__ void seq_stage_w_hh(const SeqChainParams& p,
   }
 }
 
+// The same from a bf16 w_hh, read and widened directly (a cp.async moves 4
+// bytes at least): coalesced reads, strided stores.
+__device__ __forceinline__ void seq_stage_w_hh(const SeqChainParams<bf16>& p,
+                                               float* sW, float*, int l,
+                                               int c0, int Gp) {
+  const int H = p.H, G = 3 * H;
+  const bf16* wl = p.w_hh + (size_t)l * H * G;
+  for (int idx = threadIdx.x; idx < kChainCols * Gp; idx += kThreads) {
+    const int c = idx / Gp, k = idx % Gp;
+    sW[(size_t)k * kChainCols + c] =
+        (k < G && c0 + c < H) ? to_f32(wl[(size_t)(c0 + c) * G + k]) : 0.f;
+  }
+  __syncthreads();
+}
+
 // s.id = the classes of the thread's rows at step t (-1 for a pad row or
 // an id outside [0, V)); a row's class is the same for every lane.
-template <int RB>
-__device__ __forceinline__ void seq_load_ids(const SeqChainParams& p,
+template <int RB, typename S>
+__device__ __forceinline__ void seq_load_ids(const SeqChainParams<S>& p,
                                              SeqSums<RB / 8>& s, int l,
                                              int t, int b0, int warp) {
 #pragma unroll
@@ -245,8 +272,8 @@ __device__ __forceinline__ void seq_add(SeqSums<RT>& s, const float (&dar)[RT],
 // at a time, row V of a tile's partials being the bias; then the last of
 // the unit block's row tiles to arrive adds the tiles' partials in tile
 // order: the same bits whichever block is last.
-template <int RB>
-__device__ __forceinline__ void seq_finish(const SeqChainParams& p,
+template <int RB, typename S>
+__device__ __forceinline__ void seq_finish(const SeqChainParams<S>& p,
                                            const SeqSums<RB / 8>& s,
                                            float* buf, int l, int b0,
                                            int c0) {
@@ -319,9 +346,9 @@ inline size_t chain_smem_bytes(int H) {
   return (Gp * kChainCols + kChainBuf) * sizeof(float);
 }
 
-template <int RB, bool kSeq>
+template <int RB, bool kSeq, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-    gru_bwd_chain(ChainParamsOf<kSeq> p) {
+    gru_bwd_chain(ChainParamsOf<kSeq, S> p) {
   static_assert(RB == 16 || RB == 32 || RB == 64, "row tiles of 16-64");
   constexpr int RT = RB / 8;      // rows a thread owns (gate phase, epilogue)
   constexpr int NQ = RB / 4;      // row quads of the tile
@@ -344,20 +371,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool col_ok = j < H;
   const size_t BH = (size_t)B * H;
 
-  const float* wl = p.w_hhT + (size_t)l * G * H;
+  const S* wl = p.w_hhT + (size_t)l * G * H;
   if constexpr (kSeq) {
     seq_stage_w_hh(p, sW, buf, l, c0, Gp);
   } else {
     for (int idx = tid; idx < Gp * kChainCols; idx += kThreads) {
       const int k = idx / kChainCols, c = idx % kChainCols;
-      sW[idx] = (k < G && c0 + c < H) ? wl[(size_t)k * H + c0 + c] : 0.f;
+      sW[idx] =
+          (k < G && c0 + c < H) ? to_f32(wl[(size_t)k * H + c0 + c]) : 0.f;
     }
   }
 
   // gate inputs of the step to come, loaded a step ahead
   float in_r[RT], in_z[RT], in_n[RT], in_hn[RT], in_hp[RT], in_g[RT];
   auto prefetch = [&](int t) {
-    const float* hp =
+    const S* hp =
         t == 0 ? p.h0 + l * BH : p.h_seq + ((size_t)l * T + t - 1) * BH;
     const bool add_g = p.g_every_step || t == T - 1;
     const float* gt = p.g + l * p.g_ls + (p.g_every_step ? t * p.g_ts : 0);
@@ -366,12 +394,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int b = b0 + chain_row<RB>(warp, i);
       in_r[i] = in_z[i] = in_n[i] = in_hn[i] = in_hp[i] = in_g[i] = 0.f;
       if (col_ok && b < B) {
-        const float* st = p.stash + (((size_t)l * T + t) * B + b) * 4 * H;
-        in_r[i] = st[j];
-        in_z[i] = st[H + j];
-        in_n[i] = st[2 * H + j];
-        in_hn[i] = st[3 * H + j];
-        in_hp[i] = hp[(size_t)b * H + j];
+        const S* st = p.stash + (((size_t)l * T + t) * B + b) * 4 * H;
+        in_r[i] = to_f32(st[j]);
+        in_z[i] = to_f32(st[H + j]);
+        in_n[i] = to_f32(st[2 * H + j]);
+        in_hn[i] = to_f32(st[3 * H + j]);
+        in_hp[i] = to_f32(hp[(size_t)b * H + j]);
         if (add_g) in_g[i] = gt[(size_t)b * H + j];
       }
     }
@@ -390,7 +418,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float dh[RT] = {};
   typename std::conditional<kSeq, SeqSums<RT>, NoSums>::type seq;
   prefetch(T - 1);
-  if constexpr (kSeq) seq_load_ids<RB>(p, seq, l, T - 1, b0, warp);
+  if constexpr (kSeq) seq_load_ids<RB, S>(p, seq, l, T - 1, b0, warp);
   __syncthreads();
   for (int t = T - 1, step = 1; t >= 0; --t, ++step) {
     // ---- gate backward of the block's own units
@@ -468,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if constexpr (kSeq) {
       seq_add(seq, dar, daz, dan, dhn);
-      if (t > 0) seq_load_ids<RB>(p, seq, l, t - 1, b0, warp);
+      if (t > 0) seq_load_ids<RB, S>(p, seq, l, t - 1, b0, warp);
     }
     if (t > 0) prefetch(t - 1);
     if (tid == 0) {
@@ -560,30 +588,30 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int b = b0 + chain_row<RB>(warp, i);
     if (col_ok && b < B) p.dh0[l * BH + (size_t)b * H + j] = dh[i];
   }
-  if constexpr (kSeq) seq_finish<RB>(p, seq, buf, l, b0, c0);
+  if constexpr (kSeq) seq_finish<RB, S>(p, seq, buf, l, b0, c0);
 }
 
 namespace {
 
-template <int RB, bool kSeq>
-cudaError_t try_chain(const ChainParamsOf<kSeq>& p, bool* fits,
+template <int RB, bool kSeq, typename S>
+cudaError_t try_chain(const ChainParamsOf<kSeq, S>& p, bool* fits,
                       cudaStream_t s) {
   const dim3 grid((p.H + kChainCols - 1) / kChainCols, (p.B + RB - 1) / RB,
                   p.L);
-  return try_cooperative(gru_bwd_chain<RB, kSeq>, grid,
+  return try_cooperative(gru_bwd_chain<RB, kSeq, S>, grid,
                          chain_smem_bytes(p.H), p, fits, s);
 }
 
 // the smallest row tile whose whole grid is resident at once
-template <bool kSeq>
-cudaError_t launch_chain(const ChainParamsOf<kSeq>& p, cudaStream_t s) {
+template <bool kSeq, typename S>
+cudaError_t launch_chain(const ChainParamsOf<kSeq, S>& p, cudaStream_t s) {
   bool fits = false;
   cudaError_t err;
-  if ((err = try_chain<16, kSeq>(p, &fits, s)) != cudaSuccess || fits)
+  if ((err = try_chain<16, kSeq, S>(p, &fits, s)) != cudaSuccess || fits)
     return err;
-  if ((err = try_chain<32, kSeq>(p, &fits, s)) != cudaSuccess || fits)
+  if ((err = try_chain<32, kSeq, S>(p, &fits, s)) != cudaSuccess || fits)
     return err;
-  if ((err = try_chain<64, kSeq>(p, &fits, s)) != cudaSuccess || fits)
+  if ((err = try_chain<64, kSeq, S>(p, &fits, s)) != cudaSuccess || fits)
     return err;
   return cudaErrorCooperativeLaunchTooLarge;
 }
@@ -606,20 +634,32 @@ long long chain_scratch_floats(int L, int B, int H) {
   return chain_counter_floats(L, B) + 2LL * L * 3 * H * chain_bp(B);
 }
 
+template <typename S>
 cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
                                  long long g_ls, long long g_ts,
-                                 int g_every_step, const float* stash,
-                                 const float* h_seq, const float* h0,
-                                 const float* w_hhT, float* dpx, float* dph,
+                                 int g_every_step, const S* stash,
+                                 const S* h_seq, const S* h0,
+                                 const S* w_hhT, float* dpx, float* dph,
                                  float* dh0, float* scratch, cudaStream_t s) {
   const long long nctr = chain_counter_floats(L, B);
   cudaError_t err = cudaMemsetAsync(scratch, 0, nctr * sizeof(float), s);
   if (err != cudaSuccess) return err;
-  const ChainParams p{L, T, B, H, chain_bp(B), g, g_ls, g_ts, g_every_step,
-                      stash, h_seq, h0, w_hhT, dpx, dph, dh0, scratch + nctr,
-                      reinterpret_cast<unsigned*>(scratch)};
-  return launch_chain<false>(p, s);
+  const ChainParams<S> p{L,     T,     B,     H,   chain_bp(B),
+                         g,     g_ls,  g_ts,  g_every_step,
+                         stash, h_seq, h0,    w_hhT,
+                         dpx,   dph,   dh0,   scratch + nctr,
+                         reinterpret_cast<unsigned*>(scratch)};
+  return launch_chain<false, S>(p, s);
 }
+
+template cudaError_t launch_gru_bwd_chain<float>(
+    int, int, int, int, const float*, long long, long long, int,
+    const float*, const float*, const float*, const float*, float*, float*,
+    float*, float*, cudaStream_t);
+template cudaError_t launch_gru_bwd_chain<bf16>(
+    int, int, int, int, const float*, long long, long long, int, const bf16*,
+    const bf16*, const bf16*, const bf16*, float*, float*, float*, float*,
+    cudaStream_t);
 
 }  // namespace fader
 
@@ -632,6 +672,76 @@ extern "C" long long fader_gru_bwd_scratch_floats(int L, int T, int B,
   return fader::chain_scratch_floats(L, B, H) +
          fader::reduce_scratch_floats(L, H, 3 * H, T * B);
 }
+
+namespace fader {
+namespace {
+
+template <typename S>
+cudaError_t embed_gru_bwd_impl(int L, int T, int B, int H, int V,
+                               int seq_grad, const int* ids, const float* g,
+                               const S* stash, const S* h_seq, const S* h0,
+                               const S* w_hhT, float* dpx, float* dph,
+                               float* dw_in, float* db_in, float* dprez,
+                               float* dw_hh, float* db_hh, float* dh0,
+                               float* scratch, cudaStream_t s) {
+  const long long BH = (long long)B * H, G = 3LL * H;
+  cudaError_t err = launch_gru_bwd_chain<S>(
+      L, T, B, H, g, seq_grad ? T * BH : BH, BH, seq_grad, stash, h_seq, h0,
+      w_hhT, dpx, dph, dh0, scratch, s);
+  if (err != cudaSuccess) return err;
+  float* red = scratch + chain_scratch_floats(L, B, H);
+  const int R = T * B;
+  if ((err = segment_rows(L, R, (int)G, V, ids, dpx, dw_in, s)) != cudaSuccess)
+    return err;
+  if (db_in && (err = colsum(L, R, (int)G, dpx, db_in, red, s)) != cudaSuccess)
+    return err;
+  if (dprez &&
+      (err = sum_over_t(L, T, (int)(BH * 3), dpx, dprez, s)) != cudaSuccess)
+    return err;
+  SplitRowsT<S> hp{h0, BH, B, h_seq, T * BH, H};
+  if ((err = gemm_tn(L, H, (int)G, R, hp, dph, R * G, dw_hh, H * G, red,
+                     s)) != cudaSuccess)
+    return err;
+  return colsum(L, R, (int)G, dph, db_hh, red, s);
+}
+
+template <typename S>
+cudaError_t embed_seq_bwd_impl(int L, int T, int B, int H, int V,
+                               const int* ids, const float* g,
+                               const S* stash, const S* h_seq, const S* h0,
+                               const S* w_hh, float* dw_emb, float* dprez,
+                               float* dw_hh, float* db_hh, float* dh0,
+                               float* scratch, cudaStream_t s) {
+  const long long BH = (long long)B * H, G = 3LL * H, R = (long long)T * B;
+  const long long nctr = chain_counter_floats(L, B);
+  const long long ndone = seq_done_floats(L, H);
+  float* dphT = scratch + nctr + ndone;
+  float* dph = dphT + (chain_scratch_floats(L, B, H) - nctr);
+  float* part = dph + L * R * G;
+  float* red = part + seq_part_floats(L, B, H);
+  cudaError_t err =
+      cudaMemsetAsync(scratch, 0, (nctr + ndone) * sizeof(float), s);
+  if (err != cudaSuccess) return err;
+  SeqChainParams<S> p;
+  static_cast<ChainParams<S>&>(p) = ChainParams<S>{
+      L,       T,       B,   H,  chain_bp(B), g,   T * BH, BH,  1,
+      stash,   h_seq,   h0,  nullptr, nullptr, dph, dh0,   dphT,
+      reinterpret_cast<unsigned*>(scratch)};
+  p.ids = ids;
+  p.V = V;
+  p.w_hh = w_hh;
+  p.dprez = dprez;
+  p.dw_emb = dw_emb;
+  p.db_hh = db_hh;
+  p.part = part;
+  p.done = reinterpret_cast<unsigned*>(scratch + nctr);
+  if ((err = launch_chain<true, S>(p, s)) != cudaSuccess) return err;
+  SplitRowsT<S> hp{h0, BH, B, h_seq, T * BH, H};
+  return gemm_tn(L, H, (int)G, (int)R, hp, dph, R * G, dw_hh, H * G, red, s);
+}
+
+}  // namespace
+}  // namespace fader
 
 // ids (L,T,B) int32; g: (L,B,H) final-state cotangent (seq_grad = 0) or
 // (L,T,B,H) per-step cotangent (seq_grad = 1); stash (L,T,B,4H), h_seq
@@ -650,29 +760,29 @@ extern "C" int fader_embed_gru_bwd(int L, int T, int B, int H, int V,
                                    float* dw_hh, float* db_hh, float* dh0,
                                    float* scratch, long long scratch_floats,
                                    void* stream) {
-  using namespace fader;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (scratch_floats < fader_gru_bwd_scratch_floats(L, T, B, H))
     return (int)cudaErrorInvalidValue;
-  const long long BH = (long long)B * H, G = 3LL * H;
-  cudaError_t err = launch_gru_bwd_chain(
-      L, T, B, H, g, seq_grad ? T * BH : BH, BH, seq_grad, stash, h_seq, h0,
-      w_hhT, dpx, dph, dh0, scratch, s);
-  if (err != cudaSuccess) return (int)err;
-  float* red = scratch + chain_scratch_floats(L, B, H);
-  const int R = T * B;
-  if ((err = segment_rows(L, R, (int)G, V, ids, dpx, dw_in, s)) != cudaSuccess)
-    return (int)err;
-  if (db_in && (err = colsum(L, R, (int)G, dpx, db_in, red, s)) != cudaSuccess)
-    return (int)err;
-  if (dprez &&
-      (err = sum_over_t(L, T, (int)(BH * 3), dpx, dprez, s)) != cudaSuccess)
-    return (int)err;
-  SplitRows hp{h0, BH, B, h_seq, T * BH, H};
-  if ((err = gemm_tn(L, H, (int)G, R, hp, dph, R * G, dw_hh, H * G, red,
-                     s)) != cudaSuccess)
-    return (int)err;
-  return (int)colsum(L, R, (int)G, dph, db_hh, red, s);
+  return (int)fader::embed_gru_bwd_impl<float>(
+      L, T, B, H, V, seq_grad, ids, g, stash, h_seq, h0, w_hhT, dpx, dph,
+      dw_in, db_in, dprez, dw_hh, db_hh, dh0, scratch,
+      static_cast<cudaStream_t>(stream));
+}
+
+// As fader_embed_gru_bwd with bf16 stash, h_seq, h0 and w_hhT; g, the
+// scratch and every output stay float32 (the caller rounds the gradients
+// to bf16, as the Pallas backward's wrapper does, pallas_gru.py:654-658).
+extern "C" int fader_embed_gru_bwd_bf16(
+    int L, int T, int B, int H, int V, int seq_grad, const int* ids,
+    const float* g, const fader::bf16* stash, const fader::bf16* h_seq,
+    const fader::bf16* h0, const fader::bf16* w_hhT, float* dpx, float* dph,
+    float* dw_in, float* db_in, float* dprez, float* dw_hh, float* db_hh,
+    float* dh0, float* scratch, long long scratch_floats, void* stream) {
+  if (scratch_floats < fader_gru_bwd_scratch_floats(L, T, B, H))
+    return (int)cudaErrorInvalidValue;
+  return (int)fader::embed_gru_bwd_impl<fader::bf16>(
+      L, T, B, H, V, seq_grad, ids, g, stash, h_seq, h0, w_hhT, dpx, dph,
+      dw_in, db_in, dprez, dw_hh, db_hh, dh0, scratch,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Floats of scratch fader_embed_seq_bwd needs at these sizes on the current
@@ -701,36 +811,26 @@ extern "C" int fader_embed_seq_bwd(int L, int T, int B, int H, int V,
                                    float* dw_emb, float* dprez, float* dw_hh,
                                    float* db_hh, float* dh0, float* scratch,
                                    long long scratch_floats, void* stream) {
-  using namespace fader;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (V < 0 || V > kSeqClasses ||
+  if (V < 0 || V > fader::kSeqClasses ||
       scratch_floats < fader_embed_seq_bwd_scratch_floats(L, T, B, H))
     return (int)cudaErrorInvalidValue;
-  const long long BH = (long long)B * H, G = 3LL * H, R = (long long)T * B;
-  const long long nctr = chain_counter_floats(L, B);
-  const long long ndone = seq_done_floats(L, H);
-  float* dphT = scratch + nctr + ndone;
-  float* dph = dphT + (chain_scratch_floats(L, B, H) - nctr);
-  float* part = dph + L * R * G;
-  float* red = part + seq_part_floats(L, B, H);
-  cudaError_t err =
-      cudaMemsetAsync(scratch, 0, (nctr + ndone) * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  SeqChainParams p;
-  static_cast<ChainParams&>(p) =
-      ChainParams{L, T, B, H, chain_bp(B), g, T * BH, BH, 1, stash, h_seq, h0,
-                  nullptr, nullptr, dph, dh0, dphT,
-                  reinterpret_cast<unsigned*>(scratch)};
-  p.ids = ids;
-  p.V = V;
-  p.w_hh = w_hh;
-  p.dprez = dprez;
-  p.dw_emb = dw_emb;
-  p.db_hh = db_hh;
-  p.part = part;
-  p.done = reinterpret_cast<unsigned*>(scratch + nctr);
-  if ((err = launch_chain<true>(p, s)) != cudaSuccess) return (int)err;
-  SplitRows hp{h0, BH, B, h_seq, T * BH, H};
-  return (int)gemm_tn(L, H, (int)G, (int)R, hp, dph, R * G, dw_hh, H * G,
-                      red, s);
+  return (int)fader::embed_seq_bwd_impl<float>(
+      L, T, B, H, V, ids, g, stash, h_seq, h0, w_hh, dw_emb, dprez, dw_hh,
+      db_hh, dh0, scratch, static_cast<cudaStream_t>(stream));
+}
+
+// As fader_embed_seq_bwd with bf16 stash, h_seq, h0 and w_hh; g, the
+// scratch and every output stay float32.
+extern "C" int fader_embed_seq_bwd_bf16(
+    int L, int T, int B, int H, int V, const int* ids, const float* g,
+    const fader::bf16* stash, const fader::bf16* h_seq, const fader::bf16* h0,
+    const fader::bf16* w_hh, float* dw_emb, float* dprez, float* dw_hh,
+    float* db_hh, float* dh0, float* scratch, long long scratch_floats,
+    void* stream) {
+  if (V < 0 || V > fader::kSeqClasses ||
+      scratch_floats < fader_embed_seq_bwd_scratch_floats(L, T, B, H))
+    return (int)cudaErrorInvalidValue;
+  return (int)fader::embed_seq_bwd_impl<fader::bf16>(
+      L, T, B, H, V, ids, g, stash, h_seq, h0, w_hh, dw_emb, dprez, dw_hh,
+      db_hh, dh0, scratch, static_cast<cudaStream_t>(stream));
 }

@@ -36,6 +36,15 @@
 // 16 contiguous k, so it lands row-major (rows padded to 20 floats) and a
 // thread reads its 8 rows 4 k at a time as float4s. No split of K: M = T*B
 // has 100-400 row tiles.
+//
+// bf16 operands (mixed-precision training): gemm_tn's A (the h_prev rows,
+// from the bf16 h_seq) and gemm_nn's B (a bf16 weight) may be bf16. Those
+// are not copied by cp.async but loaded into registers a ring stage ahead
+// (8 bf16, 16 bytes, a load on the vector path: M or N a multiple of 8 and
+// 16-byte aligned rows; else one element a load, which takes any shape),
+// widened and stored into the same float32 slab after the stage in hand is
+// multiplied; everything else, the float32 accumulation and the sums, is
+// the float path's. The dpre operands and all results stay float32.
 #include <stdint.h>
 
 #include "gru_tile.cuh"
@@ -52,13 +61,25 @@ constexpr int kMinSplitK = 256;   // least k rows worth a split of their own
 constexpr size_t kGemmSmem =
     (size_t)kStages * kBK * (kBM + kBN) * sizeof(float);
 
+// Widen 8 bf16 held in a uint4 into 8 floats at dst (16-byte aligned).
+__device__ __forceinline__ void widen8(float* dst, const uint4& v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
 // C_part[l, sp] (M, N) = sum over k in [sp*kchunk, (sp+1)*kchunk) of
 // A(k, m) B[l](k, n); blockIdx.z = l * S + sp. VEC: 16-byte copies (M, N,
-// the strides and the base addresses are multiples of 4 floats), else
-// 4-byte copies.
-template <bool VEC>
+// the strides and the base addresses are multiples of 4 floats; for a bf16
+// A, M, lda and the strides multiples of 8), else 4-byte copies.
+template <bool VEC, typename AT>
 __global__ void __launch_bounds__(256, 2)
-    gemm_tn_kernel(int M, int N, int K, int S, int kchunk, SplitRows a,
+    gemm_tn_kernel(int M, int N, int K, int S, int kchunk, SplitRowsT<AT> a,
                    const float* __restrict__ b, long long b_ls,
                    float* __restrict__ c, long long c_ls, long long c_ss) {
   extern __shared__ float4 smem4[];
@@ -72,12 +93,20 @@ __global__ void __launch_bounds__(256, 2)
   const int kend = min(K, kbeg + kchunk);
   const int nslab = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
   const float* bl = b + l * b_ls;
-  const float* a0l = a.a0 + l * a.a0_ls;
-  const float* a1l = a.a1 + l * a.a1_ls;
+  const AT* a0l = a.a0 + l * a.a0_ls;
+  const AT* a1l = a.a1 + l * a.a1_ls;
 
   constexpr int W = VEC ? 4 : 1;              // floats a copy
   constexpr int kPerRow = kBM / W;            // copies a k-row (kBM == kBN)
   constexpr int kCopies = kBK * kPerRow / 256;
+  // a bf16 A: elements a register load, loads a thread and slab
+  constexpr int WA = VEC ? 8 : 1;
+  constexpr int kALoads = kBK * kBM / WA / 256;
+  float areg[kALoads * WA];   // a stage of it, from its load to its store
+  auto a_row = [&](int k) {
+    return (k < a.n0) ? a0l + (long long)k * a.lda
+                      : a1l + (long long)(k - a.n0) * a.lda;
+  };
   auto fill_slab = [&](int sl) {
     float* as = As + (sl % kStages) * kBK * kBM;
     float* bs = Bs + (sl % kStages) * kBK * kBN;
@@ -87,22 +116,52 @@ __global__ void __launch_bounds__(256, 2)
       const int idx = tid + i * 256;
       const int kk = idx / kPerRow, col = (idx % kPerRow) * W;
       const int k = k0 + kk;
-      const bool a_ok = k < kend && m0 + col < M;
-      const float* arow = (k < a.n0) ? a0l + (long long)k * a.lda
-                                     : a1l + (long long)(k - a.n0) * a.lda;
-      cp_async<4 * W>(as + kk * kBM + col, a_ok ? arow + m0 + col : bl,
-                      a_ok ? 4 * W : 0);
+      if constexpr (is_f32<AT>) {
+        const bool a_ok = k < kend && m0 + col < M;
+        cp_async<4 * W>(as + kk * kBM + col, a_ok ? a_row(k) + m0 + col : bl,
+                        a_ok ? 4 * W : 0);
+      }
       const bool b_ok = k < kend && n0 + col < N;
       cp_async<4 * W>(bs + kk * kBN + col,
                       b_ok ? bl + (long long)k * N + n0 + col : bl,
                       b_ok ? 4 * W : 0);
+    }
+    if constexpr (!is_f32<AT>) {
+#pragma unroll
+      for (int i = 0; i < kALoads; ++i) {
+        const int idx = tid + i * 256;
+        const int kk = idx / (kBM / WA), col = (idx % (kBM / WA)) * WA;
+        const int k = k0 + kk;
+        const bool a_ok = k < kend && m0 + col < M;
+        if constexpr (VEC) {
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (a_ok) v = *reinterpret_cast<const uint4*>(a_row(k) + m0 + col);
+          widen8(areg + i * WA, v);
+        } else {
+          areg[i] = a_ok ? to_f32(a_row(k)[m0 + col]) : 0.f;
+        }
+      }
+    }
+  };
+  // a bf16 A's registers into stage sl's slab
+  auto store_a = [&](int sl) {
+    float* as = As + (sl % kStages) * kBK * kBM;
+#pragma unroll
+    for (int i = 0; i < kALoads; ++i) {
+      const int idx = tid + i * 256;
+      const int kk = idx / (kBM / WA), col = (idx % (kBM / WA)) * WA;
+#pragma unroll
+      for (int e = 0; e < WA; ++e) as[kk * kBM + col + e] = areg[i * WA + e];
     }
   };
 
   float acc[8][8] = {};
 #pragma unroll
   for (int sl = 0; sl < kStages - 1; ++sl) {
-    if (sl < nslab) fill_slab(sl);
+    if (sl < nslab) {
+      fill_slab(sl);
+      if constexpr (!is_f32<AT>) store_a(sl);
+    }
     cp_async_commit();
   }
   for (int sl = 0; sl < nslab; ++sl) {
@@ -110,7 +169,8 @@ __global__ void __launch_bounds__(256, 2)
     __syncthreads();
     // the stage refilled here was read in iteration sl - 1, which every
     // thread has left
-    if (sl + kStages - 1 < nslab) fill_slab(sl + kStages - 1);
+    const bool refill = sl + kStages - 1 < nslab;
+    if (refill) fill_slab(sl + kStages - 1);
     cp_async_commit();
     const float* as = As + (sl % kStages) * kBK * kBM + ty * 4;
     const float* bs = Bs + (sl % kStages) * kBK * kBN + tx * 4;
@@ -128,6 +188,10 @@ __global__ void __launch_bounds__(256, 2)
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    // (a bf16 A: that stage was read in iteration sl - 1 too)
+    if constexpr (!is_f32<AT>) {
+      if (refill) store_a(sl + kStages - 1);
     }
   }
   cp_async_wait<0>();
@@ -170,11 +234,12 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
 
 // C (M, N) = A (M, K) @ B (K, N), and + add[m, :] on rows m < add_rows; all
 // row-major and contiguous. VEC: 16-byte copies and stores (K, N and the
-// base addresses are multiples of 4 floats), else 4-byte ones.
-template <bool VEC>
+// base addresses are multiples of 4 floats; for a bf16 B, N a multiple of
+// 8), else 4-byte ones.
+template <bool VEC, typename BT>
 __global__ void __launch_bounds__(256, 2)
     gemm_nn_kernel(int M, int N, int K, const float* __restrict__ a,
-                   const float* __restrict__ b, float* __restrict__ c,
+                   const BT* __restrict__ b, float* __restrict__ c,
                    const float* __restrict__ add, int add_rows) {
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);     // [stage][kBM][kAPad]
@@ -187,6 +252,10 @@ __global__ void __launch_bounds__(256, 2)
   constexpr int W = VEC ? 4 : 1;              // floats a copy
   constexpr int kACopies = kBM * kBK / W / 256;
   constexpr int kBCopies = kBK * kBN / W / 256;
+  // a bf16 B: elements a register load, loads a thread and slab
+  constexpr int WB = VEC ? 8 : 1;
+  constexpr int kBLoads = kBK * kBN / WB / 256;
+  float breg[kBLoads * WB];   // a stage of it, from its load to its store
   auto fill_slab = [&](int sl) {
     float* as = As + (sl % kStages) * kBM * kAPad;
     float* bs = Bs + (sl % kStages) * kBK * kBN;
@@ -200,21 +269,52 @@ __global__ void __launch_bounds__(256, 2)
                       ok ? a + (long long)(m0 + row) * K + k0 + kc : a,
                       ok ? 4 * W : 0);
     }
+    if constexpr (is_f32<BT>) {
 #pragma unroll
-    for (int i = 0; i < kBCopies; ++i) {
+      for (int i = 0; i < kBCopies; ++i) {
+        const int idx = tid + i * 256;
+        const int kk = idx / (kBN / W), col = (idx % (kBN / W)) * W;
+        const bool ok = k0 + kk < K && n0 + col < N;
+        cp_async<4 * W>(bs + kk * kBN + col,
+                        ok ? b + (long long)(k0 + kk) * N + n0 + col : b,
+                        ok ? 4 * W : 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBLoads; ++i) {
+        const int idx = tid + i * 256;
+        const int kk = idx / (kBN / WB), col = (idx % (kBN / WB)) * WB;
+        const bool ok = k0 + kk < K && n0 + col < N;
+        const BT* src = b + (long long)(k0 + kk) * N + n0 + col;
+        if constexpr (VEC) {
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (ok) v = *reinterpret_cast<const uint4*>(src);
+          widen8(breg + i * WB, v);
+        } else {
+          breg[i] = ok ? to_f32(*src) : 0.f;
+        }
+      }
+    }
+  };
+  // a bf16 B's registers into stage sl's slab
+  auto store_b = [&](int sl) {
+    float* bs = Bs + (sl % kStages) * kBK * kBN;
+#pragma unroll
+    for (int i = 0; i < kBLoads; ++i) {
       const int idx = tid + i * 256;
-      const int kk = idx / (kBN / W), col = (idx % (kBN / W)) * W;
-      const bool ok = k0 + kk < K && n0 + col < N;
-      cp_async<4 * W>(bs + kk * kBN + col,
-                      ok ? b + (long long)(k0 + kk) * N + n0 + col : b,
-                      ok ? 4 * W : 0);
+      const int kk = idx / (kBN / WB), col = (idx % (kBN / WB)) * WB;
+#pragma unroll
+      for (int e = 0; e < WB; ++e) bs[kk * kBN + col + e] = breg[i * WB + e];
     }
   };
 
   float acc[8][8] = {};
 #pragma unroll
   for (int sl = 0; sl < kStages - 1; ++sl) {
-    if (sl < nslab) fill_slab(sl);
+    if (sl < nslab) {
+      fill_slab(sl);
+      if constexpr (!is_f32<BT>) store_b(sl);
+    }
     cp_async_commit();
   }
   // thread (ty, tx) holds rows m0 + {0, 64} + ty*4 + 0..3 and columns
@@ -222,7 +322,8 @@ __global__ void __launch_bounds__(256, 2)
   for (int sl = 0; sl < nslab; ++sl) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
-    if (sl + kStages - 1 < nslab) fill_slab(sl + kStages - 1);
+    const bool refill = sl + kStages - 1 < nslab;
+    if (refill) fill_slab(sl + kStages - 1);
     cp_async_commit();
     const float* as = As + (sl % kStages) * kBM * kAPad + ty * 4 * kAPad;
     const float* bs = Bs + (sl % kStages) * kBK * kBN + tx * 4;
@@ -248,6 +349,10 @@ __global__ void __launch_bounds__(256, 2)
           for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai, br[j], acc[i][j]);
         }
       }
+    }
+    // (a bf16 B: that stage was read in iteration sl - 1 too)
+    if constexpr (!is_f32<BT>) {
+      if (refill) store_b(sl + kStages - 1);
     }
   }
   cp_async_wait<0>();
@@ -450,15 +555,17 @@ long long reduce_scratch_floats(int L, int M, int N, int K) {
   return max(gemm, sums);
 }
 
-cudaError_t gemm_tn(int L, int M, int N, int K, SplitRows a, const float* b,
-                    long long b_ls, float* c, long long c_ls, float* scratch,
-                    cudaStream_t s) {
+template <typename AT>
+cudaError_t gemm_tn(int L, int M, int N, int K, SplitRowsT<AT> a,
+                    const float* b, long long b_ls, float* c, long long c_ls,
+                    float* scratch, cudaStream_t s) {
   const GemmPlan p = gemm_plan(L, M, N, K);
   if (p.S > 1 && scratch == nullptr) return cudaErrorInvalidValue;
-  const bool vec = M % 4 == 0 && N % 4 == 0 && a.lda % 4 == 0 &&
-                   a.a0_ls % 4 == 0 && a.a1_ls % 4 == 0 && b_ls % 4 == 0 &&
+  constexpr int av = is_f32<AT> ? 4 : 8;     // A elements a 16-byte copy
+  const bool vec = M % av == 0 && N % 4 == 0 && a.lda % av == 0 &&
+                   a.a0_ls % av == 0 && a.a1_ls % av == 0 && b_ls % 4 == 0 &&
                    aligned16(a.a0) && aligned16(a.a1) && aligned16(b);
-  auto kernel = vec ? gemm_tn_kernel<true> : gemm_tn_kernel<false>;
+  auto kernel = vec ? gemm_tn_kernel<true, AT> : gemm_tn_kernel<false, AT>;
   cudaError_t err = allow_smem(kernel, kGemmSmem);
   if (err != cudaSuccess) return err;
   const long long mn = (long long)M * N;
@@ -476,13 +583,15 @@ cudaError_t gemm_tn(int L, int M, int N, int K, SplitRows a, const float* b,
   return cudaGetLastError();
 }
 
-cudaError_t gemm_nn(int M, int N, int K, const float* a, const float* b,
+template <typename BT>
+cudaError_t gemm_nn(int M, int N, int K, const float* a, const BT* b,
                     float* c, const float* add, int add_rows,
                     cudaStream_t s) {
-  const bool vec = K % 4 == 0 && N % 4 == 0 && aligned16(a) &&
+  constexpr int bv = is_f32<BT> ? 4 : 8;     // B elements a 16-byte copy
+  const bool vec = K % 4 == 0 && N % bv == 0 && aligned16(a) &&
                    aligned16(b) && aligned16(c) &&
                    (add == nullptr || aligned16(add));
-  auto kernel = vec ? gemm_nn_kernel<true> : gemm_nn_kernel<false>;
+  auto kernel = vec ? gemm_nn_kernel<true, BT> : gemm_nn_kernel<false, BT>;
   cudaError_t err = allow_smem(kernel, kGemmNNSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1);
@@ -490,6 +599,17 @@ cudaError_t gemm_nn(int M, int N, int K, const float* a, const float* b,
                                         add == nullptr ? 0 : add_rows);
   return cudaGetLastError();
 }
+
+template cudaError_t gemm_tn<float>(int, int, int, int, SplitRowsT<float>,
+                                    const float*, long long, float*,
+                                    long long, float*, cudaStream_t);
+template cudaError_t gemm_tn<bf16>(int, int, int, int, SplitRowsT<bf16>,
+                                   const float*, long long, float*, long long,
+                                   float*, cudaStream_t);
+template cudaError_t gemm_nn<float>(int, int, int, const float*, const float*,
+                                    float*, const float*, int, cudaStream_t);
+template cudaError_t gemm_nn<bf16>(int, int, int, const float*, const bf16*,
+                                   float*, const float*, int, cudaStream_t);
 
 cudaError_t segment_rows(int L, int R, int N, int V, const int* ids,
                          const float* x, float* out, cudaStream_t s) {

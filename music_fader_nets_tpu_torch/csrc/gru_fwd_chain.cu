@@ -49,6 +49,19 @@
 // L=4, B=32; 32 at L=2, B=128 and at L=4, B=64; 64 at L=1 with 512 rows
 // and at L=4, B=128). If none is, or the weights do not fit, the
 // launch fails and the error is returned: there is no other path.
+//
+// bf16 storage (the mixed-precision training of the JAX package, where the
+// Pallas kernels get bf16 operands): the chain is instantiated on XT, the
+// type of x and h0, and S, that of add, w_hh, b_hh and of what it writes.
+// Loads widen to float; the carry h, the k-major rows hT the blocks
+// exchange, the products and the gates stay float32, as the kernels' f32
+// scratch does (pallas_gru.py:162); h_seq, finals and the stash are rounded
+// to S where they are stored (:163, :455). The weights' shared-memory slab
+// stays float. With S = bf16 the chain can also write the float h of every
+// step (h32), for a caller that reads it on in float32 as the Pallas
+// decoder does inside its kernel (layer 2's input and the CE head,
+// :1518-1535). XT = float, S = bf16 is the decoder's layer 2, whose x is
+// its float32 input product and whose h0 is layer 1's float32 first state.
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
@@ -63,21 +76,23 @@ constexpr int kFwdKPad = 64;               // the weights' k is padded to this
 // ring | transpose buffer | partial tiles share these floats of a block
 constexpr int kFwdBuf = kWarps * kFwdStages * kFwdWarpK * kFwdWarpRows;
 
+template <typename XT, typename S>
 struct FwdChainParams {
   int L, T, B, H, Bp, V;
   const int* ids;        // (L, T, B) rows of x, or null: x holds the rows
-  const float* x;        // (L, V, 3H) with ids, else (L, T, B, 3H)
-  const float* add;      // null, or add + l*add_ls + b*add_bs (3H floats)
+  const XT* x;           // (L, V, 3H) with ids, else (L, T, B, 3H)
+  const S* add;          // null, or add + l*add_ls + b*add_bs (3H values)
   long long add_ls;
   int add_bs;
-  const float* w_hh;     // (L, H, 3H)
-  const float* b_hh;     // (L, 3H)
-  const float* h0;       // (L, B, H)
-  float* h_seq;          // (L, T, B, H) or null
-  float* finals;         // (L, B, H) h[T-1], or null
-  float* stash;          // (L, T, B, 4H) or null
+  const S* w_hh;         // (L, H, 3H)
+  const S* b_hh;         // (L, 3H)
+  const XT* h0;          // (L, B, H)
+  S* h_seq;              // (L, T, B, H) or null
+  S* finals;             // (L, B, H) h[T-1], or null
+  S* stash;              // (L, T, B, 4H) or null
   float* hT;             // (2, L, H, Bp): h of step parity t & 1, k-major
   unsigned* counters;    // one per (chain, row tile), kCtrStride apart
+  float* h32;            // (L, T, B, H) float h, or null; read if S is bf16
 };
 
 __host__ __device__ inline int fwd_kp(int H) {
@@ -88,9 +103,9 @@ inline size_t fwd_smem_bytes(int H) {
   return ((size_t)fwd_kp(H) * kFwdN + kFwdBuf) * sizeof(float);
 }
 
-template <int RB>
+template <int RB, typename XT, typename S>
 __global__ void __launch_bounds__(kThreads, 1)
-    gru_fwd_chain(FwdChainParams p) {
+    gru_fwd_chain(FwdChainParams<XT, S> p) {
   static_assert(RB == 16 || RB == 32 || RB == 64, "row tiles of 16-64");
   constexpr int RT = RB / 8;      // rows a thread owns (gates, epilogue)
   constexpr int NQ = RB / 4;      // row quads of the tile
@@ -113,17 +128,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t BH = (size_t)B * H;
 
   // sW[k][g*32 + c] = w_hh[l][k][g*H + c0 + c]
-  const float* wl = p.w_hh + (size_t)l * H * G;
+  const S* wl = p.w_hh + (size_t)l * H * G;
   for (int idx = tid; idx < Kp * kFwdN; idx += kThreads) {
     const int k = idx / kFwdN, n = idx % kFwdN;
     const int g = n / kFwdCols, c = n % kFwdCols;
-    sW[idx] = (k < H && c0 + c < H) ? wl[(size_t)k * G + g * H + c0 + c]
-                                    : 0.f;
+    sW[idx] = (k < H && c0 + c < H)
+                  ? to_f32(wl[(size_t)k * G + g * H + c0 + c])
+                  : 0.f;
   }
-  const float* bl = p.b_hh + (size_t)l * G;
-  const float bhr = col_ok ? bl[j] : 0.f;
-  const float bhz = col_ok ? bl[H + j] : 0.f;
-  const float bhn = col_ok ? bl[2 * H + j] : 0.f;
+  const S* bl = p.b_hh + (size_t)l * G;
+  const float bhr = col_ok ? to_f32(bl[j]) : 0.f;
+  const float bhz = col_ok ? to_f32(bl[H + j]) : 0.f;
+  const float bhn = col_ok ? to_f32(bl[2 * H + j]) : 0.f;
 
   // xpre of a step for the thread's rows at unit j
   auto load_x = [&](int t, float (&xr)[RT], float (&xz)[RT],
@@ -134,7 +150,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       xr[i] = xz[i] = xn[i] = 0.f;
       if (!(col_ok && b < B)) continue;
       const size_t lt = ((size_t)l * T + t) * B + b;
-      const float* row = nullptr;
+      const XT* row = nullptr;
       if (p.ids == nullptr) {
         row = p.x + lt * G;
       } else {
@@ -142,19 +158,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (id >= 0 && id < p.V) row = p.x + ((size_t)l * p.V + id) * G;
       }
       if (p.add != nullptr) {
-        const float* ad = p.add + l * p.add_ls + (size_t)b * p.add_bs;
-        xr[i] = ad[j];
-        xz[i] = ad[H + j];
-        xn[i] = ad[2 * H + j];
+        const S* ad = p.add + l * p.add_ls + (size_t)b * p.add_bs;
+        xr[i] = to_f32(ad[j]);
+        xz[i] = to_f32(ad[H + j]);
+        xn[i] = to_f32(ad[2 * H + j]);
         if (row != nullptr) {
-          xr[i] = __fadd_rn(row[j], xr[i]);
-          xz[i] = __fadd_rn(row[H + j], xz[i]);
-          xn[i] = __fadd_rn(row[2 * H + j], xn[i]);
+          xr[i] = __fadd_rn(to_f32(row[j]), xr[i]);
+          xz[i] = __fadd_rn(to_f32(row[H + j]), xz[i]);
+          xn[i] = __fadd_rn(to_f32(row[2 * H + j]), xn[i]);
         }
       } else if (row != nullptr) {
-        xr[i] = row[j];
-        xz[i] = row[H + j];
-        xn[i] = row[2 * H + j];
+        xr[i] = to_f32(row[j]);
+        xz[i] = to_f32(row[H + j]);
+        xn[i] = to_f32(row[2 * H + j]);
       }
     }
   };
@@ -212,7 +228,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     const int b = b0 + chain_row<RB>(warp, i);
-    h[i] = (col_ok && b < B) ? p.h0[l * BH + (size_t)b * H + j] : 0.f;
+    h[i] = (col_ok && b < B) ? to_f32(p.h0[l * BH + (size_t)b * H + j])
+                             : 0.f;
   }
   load_x(0, xr, xz, xn);
   publish(h, 1);            // h[-1] = h0 in parity (-1) & 1
@@ -349,15 +366,18 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int b = b0 + chain_row<RB>(warp, i);
       if (!(col_ok && b < B)) continue;
       const size_t lt = ((size_t)l * T + t) * B + b;
-      if (p.h_seq != nullptr) p.h_seq[lt * H + j] = h[i];
+      if (p.h_seq != nullptr) p.h_seq[lt * H + j] = from_f32<S>(h[i]);
+      if constexpr (!is_f32<S>) {
+        if (p.h32 != nullptr) p.h32[lt * H + j] = h[i];
+      }
       if (last && p.finals != nullptr)
-        p.finals[l * BH + (size_t)b * H + j] = h[i];
+        p.finals[l * BH + (size_t)b * H + j] = from_f32<S>(h[i]);
       if (p.stash != nullptr) {
-        float* st = p.stash + lt * 4 * H;
-        st[j] = rg[i];
-        st[H + j] = zg[i];
-        st[2 * H + j] = ng[i];
-        st[3 * H + j] = hn[i];
+        S* st = p.stash + lt * 4 * H;
+        st[j] = from_f32<S>(rg[i]);
+        st[H + j] = from_f32<S>(zg[i]);
+        st[2 * H + j] = from_f32<S>(ng[i]);
+        st[3 * H + j] = from_f32<S>(hn[i]);
       }
     }
     if (!last) {
@@ -374,13 +394,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 namespace {
 
-template <int RB>
-cudaError_t try_fwd_chain(const FwdChainParams& p, bool* fits,
+template <int RB, typename XT, typename S>
+cudaError_t try_fwd_chain(const FwdChainParams<XT, S>& p, bool* fits,
                           cudaStream_t s) {
   const dim3 grid((p.H + kFwdCols - 1) / kFwdCols, (p.B + RB - 1) / RB,
                   p.L);
-  return try_cooperative(gru_fwd_chain<RB>, grid, fwd_smem_bytes(p.H), p,
-                         fits, s);
+  return try_cooperative(gru_fwd_chain<RB, XT, S>, grid, fwd_smem_bytes(p.H),
+                         p, fits, s);
 }
 
 }  // namespace
@@ -389,21 +409,22 @@ long long fwd_chain_scratch_floats(int L, int B, int H) {
   return chain_counter_floats(L, B) + 2LL * L * H * chain_bp(B);
 }
 
+template <typename XT, typename S>
 cudaError_t launch_gru_fwd_chain(int L, int T, int B, int H, const int* ids,
-                                 const float* x, int V, const float* add,
+                                 const XT* x, int V, const S* add,
                                  long long add_ls, int add_bs,
-                                 const float* w_hh, const float* b_hh,
-                                 const float* h0, float* h_seq,
-                                 float* finals, float* stash,
-                                 float* scratch, cudaStream_t s) {
+                                 const S* w_hh, const S* b_hh, const XT* h0,
+                                 S* h_seq, S* finals, S* stash,
+                                 float* scratch, cudaStream_t s,
+                                 float* h32) {
   const long long nctr = chain_counter_floats(L, B);
   cudaError_t err = cudaMemsetAsync(scratch, 0, nctr * sizeof(float), s);
   if (err != cudaSuccess) return err;
-  const FwdChainParams p{L,      T,      B,     H,     chain_bp(B),
-                         V,      ids,    x,     add,   add_ls,
-                         add_bs, w_hh,   b_hh,  h0,    h_seq,
-                         finals, stash,  scratch + nctr,
-                         reinterpret_cast<unsigned*>(scratch)};
+  const FwdChainParams<XT, S> p{L,      T,      B,     H,     chain_bp(B),
+                                V,      ids,    x,     add,   add_ls,
+                                add_bs, w_hh,   b_hh,  h0,    h_seq,
+                                finals, stash,  scratch + nctr,
+                                reinterpret_cast<unsigned*>(scratch), h32};
   // the smallest row tile whose whole grid is resident at once
   bool fits = false;
   if ((err = try_fwd_chain<16>(p, &fits, s)) != cudaSuccess || fits)
@@ -414,6 +435,19 @@ cudaError_t launch_gru_fwd_chain(int L, int T, int B, int H, const int* ids,
     return err;
   return cudaErrorCooperativeLaunchTooLarge;
 }
+
+template cudaError_t launch_gru_fwd_chain<float, float>(
+    int, int, int, int, const int*, const float*, int, const float*,
+    long long, int, const float*, const float*, const float*, float*,
+    float*, float*, float*, cudaStream_t, float*);
+template cudaError_t launch_gru_fwd_chain<bf16, bf16>(
+    int, int, int, int, const int*, const bf16*, int, const bf16*, long long,
+    int, const bf16*, const bf16*, const bf16*, bf16*, bf16*, bf16*, float*,
+    cudaStream_t, float*);
+template cudaError_t launch_gru_fwd_chain<float, bf16>(
+    int, int, int, int, const int*, const float*, int, const bf16*,
+    long long, int, const bf16*, const bf16*, const float*, bf16*, bf16*,
+    bf16*, float*, cudaStream_t, float*);
 
 }  // namespace fader
 

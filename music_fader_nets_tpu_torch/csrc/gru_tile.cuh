@@ -14,12 +14,45 @@
 // warps' partial tiles through shared memory in warp order
 // (deterministic), leaving warp w with rows w, w+8, ... of its lane's
 // column. Accumulation is plain float32 FMA on the CUDA cores.
+//
+// Storage types: the training kernels are instantiated for float and for
+// bf16 (__nv_bfloat16) operands. A bf16 value is widened to float when it
+// is loaded (to_f32), every product, sum and gate runs in float32, and a
+// value is rounded to the storage type (nearest even) only where it is
+// stored (from_f32) — the rounding points of the Pallas kernels, whose
+// output refs take the input's dtype and whose scratch is float32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace fader {
+
+using bf16 = __nv_bfloat16;
+
+template <typename S>
+constexpr bool is_f32 = std::is_same<S, float>::value;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename S>
+__device__ __forceinline__ S from_f32(float v) {
+  if constexpr (is_f32<S>)
+    return v;
+  else
+    return __float2bfloat16_rn(v);
+}
+
+// A read-only load through the texture path for float; bf16 loads are
+// plain and widened.
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const bf16* p) {
+  return __bfloat162float(*p);
+}
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -34,16 +67,16 @@ constexpr size_t smem_bytes(int na, int K) {
 }
 
 // sA[k * (TB + 4) + r] = A[b0 + r, k], zero for rows past `rows`.
-template <int TB>
+template <int TB, typename AT = float>
 __device__ __forceinline__ void load_a_tile(float* sA,
-                                            const float* __restrict__ A,
+                                            const AT* __restrict__ A,
                                             int lda, int rows, int b0,
                                             int K) {
 #pragma unroll 8
   for (int idx = threadIdx.x; idx < TB * K; idx += kThreads) {
     const int r = idx / K, k = idx - r * K;
     sA[k * (TB + 4) + r] =
-        (b0 + r < rows) ? __ldg(A + (size_t)(b0 + r) * lda + k) : 0.f;
+        (b0 + r < rows) ? ldg_f32(A + (size_t)(b0 + r) * lda + k) : 0.f;
   }
 }
 
@@ -51,10 +84,10 @@ __device__ __forceinline__ void load_a_tile(float* sA,
 // weights of the warp's next U k-steps are loaded before their FMAs, so U
 // L2 reads per gate are in flight at once: the phases wait on L2 latency,
 // not on arithmetic.
-template <int TB, int NG>
+template <int TB, int NG, typename WT = float>
 __device__ __forceinline__ void splitk_gemm(float (&acc)[TB][NG],
                                             const float* sA, int K,
-                                            const float* __restrict__ W,
+                                            const WT* __restrict__ W,
                                             int ldw, int gs, bool col_ok,
                                             int j) {
   static_assert(TB % kWarps == 0, "TB must be a multiple of 8");
@@ -69,7 +102,7 @@ __device__ __forceinline__ void splitk_gemm(float (&acc)[TB][NG],
 #pragma unroll
       for (int g = 0; g < NG; ++g)
         w[u][g] = (col_ok && k < K)
-                      ? __ldg(W + (size_t)k * ldw + g * gs + j) : 0.f;
+                      ? ldg_f32(W + (size_t)k * ldw + g * gs + j) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {

@@ -27,6 +27,7 @@ from music_fader_nets_tpu_torch.models.vae import (
 )
 from music_fader_nets_tpu_torch.ops import cuda_decode
 from music_fader_nets_tpu_torch.ops.gru import bigru_init, linear_init
+from music_fader_nets_tpu_torch.ops.sampling import reparameterize
 from music_fader_nets_tpu_torch.utils.checkpoint import tree_to
 
 
@@ -58,6 +59,41 @@ def init_reg_gmvae(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     return p
 
 
+class _SoftmaxBf16(torch.autograd.Function):
+    """softmax over the last axis of a bf16 tensor with the JAX package's
+    rounding points (its softmax differentiated by JAX): s = exp(x - max)
+    and the quotient s / w rounded to bf16, w = the float32 sum of s
+    rounded once; the backward (g / w - sum(g * w^-2 * s)) * s, every
+    operation rounded, the sum accumulated in bf16 in order, as XLA
+    reduces bf16 on the CPU. torch.softmax rounds elsewhere, and under
+    mixed precision a one-ulp move of q(y|x) swings the GM-VAE KL's
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+        w = s.float().sum(dim=-1, keepdim=True).to(x.dtype)
+        ctx.save_for_backward(s, w)
+        return s / w
+
+    @staticmethod
+    def backward(ctx, g):
+        s, w = ctx.saved_tensors
+        z = (g * (1.0 / (w * w))) * s
+        acc = z[..., :1]
+        for k in range(1, z.shape[-1]):
+            acc = acc + z[..., k:k + 1]
+        return (g / w - acc) * s
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """softmax over the last axis; bf16 with the JAX package's rounding
+    (`_SoftmaxBf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _SoftmaxBf16.apply(x)
+    return torch.softmax(x, dim=-1)
+
+
 def approx_qy_x(z: torch.Tensor, mu_lookup: torch.Tensor,
                 logvar_lookup: torch.Tensor):
     """q(y|x) ~= p(y|z) over the mixture components (reference
@@ -68,7 +104,7 @@ def approx_qy_x(z: torch.Tensor, mu_lookup: torch.Tensor,
     diff2 = (z[:, None, :] - mu_lookup[None]) ** 2                 # (B, K, D)
     llh = -0.5 * (diff2 / torch.exp(logvar)[None] + logvar[None] + LOG_2PI)
     log_logit = llh.sum(-1) + math.log(1.0 / mu_lookup.shape[0])
-    return log_logit, torch.softmax(log_logit, dim=-1)
+    return log_logit, softmax(log_logit)
 
 
 def reg_gmvae_forward(params, eps_r: torch.Tensor, eps_n: torch.Tensor,
@@ -151,7 +187,7 @@ def single_gmvae_forward(params, eps: torch.Tensor, x_oh, cfg: ModelConfig,
     the embedded-token encoder and the fused teacher decoder with `tokens`
     (x_oh may then be None); greedy otherwise."""
     mu, std = single_vae_encode(params, x_oh, tokens=tokens)
-    z = mu + std * eps
+    z = reparameterize(mu, std, eps)
     log_logit, qy_x = approx_qy_x(z, params["mu_lookup"],
                                   params["logvar_lookup"])
     gview = _global_view(params)

@@ -82,6 +82,15 @@ def encode_streams_fused(views: list, x_oh: Optional[torch.Tensor],
     return _heads(finals, [(v["mu"], v["var"]) for v in views])
 
 
+def log_softmax32(logits: torch.Tensor, dim: int) -> torch.Tensor:
+    """log_softmax of bf16 logits upcast to float32 first, as the JAX
+    package does before every log_softmax (models/modules.py:144, 171-172,
+    225-227, 248-249, 289-290, 324, 364); other dtypes as they are."""
+    if logits.dtype == torch.bfloat16:
+        logits = logits.float()
+    return torch.log_softmax(logits, dim=dim)
+
+
 def _sub_heads(outs, out_r, out_n, faithful_softmax_axis: bool):
     """Log-probs of both tracks from h_seq (2, T, B, H). With
     `faithful_softmax_axis` the log-softmax runs over the TIME axis (dim 1
@@ -90,8 +99,7 @@ def _sub_heads(outs, out_r, out_n, faithful_softmax_axis: bool):
     dim = 1 if faithful_softmax_axis else -1
     r_logits = linear_apply(out_r, outs[0].transpose(0, 1))
     n_logits = linear_apply(out_n, outs[1].transpose(0, 1))
-    return (torch.log_softmax(r_logits, dim=dim),
-            torch.log_softmax(n_logits, dim=dim))
+    return log_softmax32(r_logits, dim), log_softmax32(n_logits, dim)
 
 
 def sub_decoder_init(gen: torch.Generator, z_dims: int, track_dims: int,
@@ -157,10 +165,14 @@ def sub_decoder_pair_apply_packed(sub: dict, init_r, init_n, out_r, out_n,
     dm = sub["w_ih"].shape[1] - Z
     h0 = torch.stack([linear_apply(init_r, z_r), linear_apply(init_n, z_n)])
     if track_ids is not None:
+        # z_l, prez and h0 in the one-hots' dtype (JAX models/modules.py:
+        # 202-221): bf16 under mixed precision
+        dt = r_oh.dtype
         w_emb = sub["w_ih"][:, :dm]                            # (2, Dm, 3H)
         w_z = sub["w_ih"][:, dm:]                              # (2, Z, 3H)
-        prez = (torch.bmm(torch.stack([z_r, z_n]), w_z)
-                + sub["b_ih"][:, None, :])                     # (2, B, 3H)
+        prez = (torch.bmm(torch.stack([z_r, z_n]).to(dt), w_z)
+                + sub["b_ih"][:, None, :]).to(dt)              # (2, B, 3H)
+        h0 = h0.to(dt)
         cls_lt = torch.stack([ids.to(torch.int32).t()
                               for ids in track_ids])           # (2, T, B)
         outs = cuda_gru.stacked_gru_embed_seq(cls_lt, w_emb, prez,
@@ -211,7 +223,7 @@ def _decoder_step(p: dict, pre_x: torch.Tensor, h1: torch.Tensor,
     g2 = p["grucell_g_2"]
     pre2 = h1_new @ g2["w_ih"] + g2["b_ih"]
     h2_new = gru_cell_from_pre(g2, pre2, h2_prev)
-    logp = torch.log_softmax(linear_apply(p["linear_out_g"], h2_new), dim=-1)
+    logp = log_softmax32(linear_apply(p["linear_out_g"], h2_new), -1)
     return h1_new, h2_new, logp
 
 
@@ -264,8 +276,7 @@ def global_decoder_teacher(p: dict, z: torch.Tensor,
     if tokens is not None:
         V = p["linear_out_g"]["w"].shape[-1]
         h2_bt = cuda_decoder.decoder_teacher_fused(p, z, tokens, V)
-        return torch.log_softmax(linear_apply(p["linear_out_g"], h2_bt),
-                                 dim=-1)
+        return log_softmax32(linear_apply(p["linear_out_g"], h2_bt), -1)
     B, T, V = x_oh.shape
     w_tok, w_z = _split_w_ih(p, V)
     start = x_oh.new_zeros((B, 1, V))
@@ -281,7 +292,7 @@ def global_decoder_teacher(p: dict, z: torch.Tensor,
     h2_seq = stacked_gru_seq(pre2[None], cell2["w_hh"][None],
                              cell2["b_hh"][None], h1_seq[:1])[0]
     logits = linear_apply(p["linear_out_g"], h2_seq.transpose(0, 1))
-    return torch.log_softmax(logits, dim=-1)
+    return log_softmax32(logits, -1)
 
 
 def global_decoder_scheduled(p: dict, z: torch.Tensor, x_oh: torch.Tensor,

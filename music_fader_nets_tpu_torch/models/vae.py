@@ -35,7 +35,7 @@ from music_fader_nets_tpu_torch.ops.gru import (
     linear_apply,
     linear_init,
 )
-from music_fader_nets_tpu_torch.ops.sampling import grad_reverse
+from music_fader_nets_tpu_torch.ops.sampling import grad_reverse, reparameterize
 
 Params = Dict
 
@@ -154,8 +154,8 @@ def reg_vae_forward(params, eps_r: torch.Tensor, eps_n: torch.Tensor, x_oh,
     then be None."""
     (mu_r, std_r), (mu_n, std_n) = reg_vae_encode(params, x_oh,
                                                   tokens=tokens)
-    z_r = mu_r + std_r * eps_r
-    z_n = mu_n + std_n * eps_n
+    z_r = reparameterize(mu_r, std_r, eps_r)
+    z_n = reparameterize(mu_n, std_n, eps_n)
     r_out, n_out = _sub_pair_apply(
         params, r_oh, n_oh, z_r, z_n, cfg.faithful_subdecoder_softmax_axis,
         track_ids=track_ids)
@@ -216,7 +216,7 @@ def single_vae_forward(params, eps: torch.Tensor, x_oh, chroma,
                        nll_targets=None) -> Dict:
     """reference model_v2.py:264-285; eps (B, 2z)."""
     mu, std = single_vae_encode(params, x_oh, tokens=tokens)
-    z = mu + std * eps
+    z = reparameterize(mu, std, eps)
     z_full = torch.cat([z, chroma], dim=-1)
     return {**_decode(params, z_full, x_oh, tokens, nll_targets, train),
             "mu": mu, "std": std, "z": z, "z_full": z_full}
@@ -263,7 +263,7 @@ def cvae_forward(params, eps: torch.Tensor, x_oh, chroma, r_density,
     ids: the encoder's input is [one-hot, conditions]. `chroma` is unused,
     as in the reference."""
     mu, std = cvae_encode(params, x_oh, r_density, n_density)
-    z = mu + std * eps
+    z = reparameterize(mu, std, eps)
     z_full = torch.cat([z, r_density.to(z.dtype), n_density.to(z.dtype)],
                        dim=-1)
     return {**_decode(params, z_full, x_oh, tokens, nll_targets, train),
@@ -311,13 +311,13 @@ def fader_forward(params, eps: torch.Tensor, keep_r: torch.Tensor,
     encoder's input is the pure one-hot, so `tokens` routes both the
     encoder and the decoder + CE to their kernels."""
     mu, std = fader_encode(params, x_oh, tokens=tokens)
-    z = mu + std * eps
+    z = reparameterize(mu, std, eps)
     r_z = grad_reverse(z)
     disc_r = torch.relu(linear_apply(params["discriminator_r"], r_z))
     disc_n = torch.relu(linear_apply(params["discriminator_n"], r_z))
     if train:
-        disc_r = disc_r * keep_r / FADER_KEEP
-        disc_n = disc_n * keep_n / FADER_KEEP
+        disc_r = disc_r * keep_r.to(disc_r.dtype) / FADER_KEEP
+        disc_n = disc_n * keep_n.to(disc_n.dtype) / FADER_KEEP
     z_full = torch.cat([z, r_density.to(z.dtype), n_density.to(z.dtype)],
                        dim=-1)
     return {**_decode(params, z_full, x_oh, tokens, nll_targets, train),

@@ -129,6 +129,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_stacked_gru.restype = I
     lib.fader_stacked_gru_bwd.argtypes = [I] * 4 + [P] * 10 + tail
     lib.fader_stacked_gru_bwd.restype = I
+    # the bf16 entries of the training kernels take the arguments of their
+    # float32 entries (the decoder's forward two more: its float32 states)
+    for name in ("fader_embed_gru_finals", "fader_embed_gru_train",
+                 "fader_embed_gru_bwd", "fader_embed_seq_bwd",
+                 "fader_decoder_ce_bwd", "fader_stacked_gru",
+                 "fader_stacked_gru_bwd"):
+        fn = getattr(lib, name + "_bf16")
+        fn.argtypes = getattr(lib, name).argtypes
+        fn.restype = I
+    lib.fader_decoder_ce_bf16.argtypes = [I] * 4 + [P] * 20 + tail
+    lib.fader_decoder_ce_bf16.restype = I
     lib.fader_launch_probe.argtypes = [I, I, P]
     lib.fader_launch_probe.restype = I
     lib.fader_decode_scratch_floats.argtypes = [I] * 2

@@ -173,7 +173,9 @@ def _launch(args: DecodeArgs, V: int, Vp: int, steps: int,
     for a in args:
         if a.device != dev or a.dtype != torch.float32:
             raise ValueError("decode kernel arguments must be float32 "
-                             f"tensors on {dev}")
+                             f"tensors on {dev} (the decode kernels take "
+                             "float32 only: serving stays float32 under "
+                             "bf16 mixed precision, ROADMAP.md)")
     B, H = args[-1].shape
     G = 3 * H
     want = [(Vp, G), (H, G), (G,), (H, G), (G,), (H, G), (G,), (H, Vp),

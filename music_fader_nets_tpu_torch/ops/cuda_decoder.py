@@ -25,6 +25,15 @@ Each wrapper runs the plain version for tensors on the CPU and the kernels
 for tensors on a GPU; there is no fallback between the two. On a GPU, a
 call whose float inputs want a gradient goes through `DecoderTeacher`,
 `DecoderNLL` or `DecoderMasses`.
+
+bfloat16: the CE decode (kernels 9/10) takes all-bf16 float inputs, the
+kernels' bf16 instantiations on a GPU and the plain version's bf16 branch
+on the CPU, with the rounding rule of `ops/cuda_gru.py` (h1_seq, h2_seq
+and the stashes bf16; layer 2's input and the forward head read the
+float32 states, as inside the Pallas kernel; the NLL float32). The decode
+without a head (7/8) and the masses head (9/10-masses) are float32 only:
+no bf16 caller reaches them in the JAX package (the single GM-VAE and
+GLSR stay float32), and a bf16 call raises.
 """
 from __future__ import annotations
 
@@ -42,7 +51,9 @@ from music_fader_nets_tpu_torch.ops.gru import _gates, vocab_pad
 # chains)
 LAUNCHES = {"decoder_teacher": 0, "decoder_teacher_bwd": 0, "decoder_ce": 0,
             "decoder_ce_bwd": 0, "decoder_masses": 0,
-            "decoder_masses_bwd": 0}
+            "decoder_masses_bwd": 0,
+            # the bf16 instantiations of the CE decode
+            "decoder_ce_bf16": 0, "decoder_ce_bwd_bf16": 0}
 # which path served the last call: "kernel" or "plain-cpu"
 LAST_TRAIN_PATH = None
 
@@ -82,7 +93,10 @@ def decoder_teacher_nll_plain(tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2,
     """Plain PyTorch version: a Python loop over steps of torch ops.
     tok_t, tgt_t (T, B) int; w_tok (Vp, 3H); pre_z (B, 3H); whh1, wih2,
     whh2 (H, 3H); biases (3H); h1_0 (B, H); w_out (H, Vp); b_out (Vp).
-    Returns nll (T, B)."""
+    Returns nll (T, B). bf16 inputs take `_nll_bf16`."""
+    if h1_0.dtype == cuda_gru.BF16:
+        return _nll_bf16(tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2,
+                         whh2, bhh2, h1_0, w_out, b_out)
     T, B = tok_t.shape
     out = []
     for t, h2 in enumerate(_teacher_h2_plain(tok_t, w_tok, pre_z, whh1,
@@ -115,6 +129,113 @@ def decoder_teacher_masses_plain(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2,
     return torch.stack(out)
 
 
+def _teacher_states32(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
+                      bhh2, h1_0):
+    """Both layers of the teacher decode in float32 (float32 inputs):
+    (h1_seq, h2_seq, g41, g42), the states and gate stashes, float32."""
+    h1, h2, out = h1_0, None, ([], [], [], [])
+    for t in range(tok_t.shape[0]):
+        pre1 = _rows_of(w_tok, tok_t[t]) + pre_z
+        h1, g41 = cuda_gru.gates_stash(pre1, h1 @ whh1 + bhh1, h1)
+        h2p = h1 if t == 0 else h2
+        h2, g42 = cuda_gru.gates_stash(h1 @ wih2 + bih2, h2p @ whh2 + bhh2,
+                                       h2p)
+        for acc, v in zip(out, (h1, h2, g41, g42)):
+            acc.append(v)
+    return tuple(torch.stack(v) for v in out)
+
+
+def _rows_of(w, tok):
+    """w[tok], zero rows for ids outside w (a one-hot of them is 0)."""
+    return cuda_gru._rows(w[None], tok[None])[0]
+
+
+def _ce_head32(h2, w_out, b_out, tgt_t):
+    """(logits, lse, nll) of the CE head over (T, B, H) float32 states."""
+    logits = h2 @ w_out + b_out
+    lse = torch.logsumexp(logits, dim=-1)
+    pick = torch.where((tgt_t >= 0) & (tgt_t < logits.shape[-1]),
+                       tgt_t.long(), 0)
+    logit_t = logits.gather(-1, pick[..., None])[..., 0]
+    return logits, lse, lse - logit_t
+
+
+class _DecoderNLLBf16Plain(torch.autograd.Function):
+    """The bf16 plain version of kernels 9/10 (CE head)."""
+
+    @staticmethod
+    def forward(ctx, tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2,
+                whh2, bhh2, h1_0, w_out, b_out):
+        f32 = [t.float() for t in (w_tok, pre_z, whh1, bhh1, wih2, bih2,
+                                   whh2, bhh2, h1_0)]
+        h1_seq, h2_seq, g41, g42 = _teacher_states32(tok_t, *f32)
+        nll = _ce_head32(h2_seq, w_out.float(), b_out.float(), tgt_t)[2]
+        saved = [v.to(cuda_gru.BF16) for v in (h1_seq, h2_seq, g41, g42)]
+        ctx.save_for_backward(tok_t, tgt_t, *saved, whh1, wih2, whh2, h1_0,
+                              w_out, b_out)
+        ctx.Vp = w_tok.shape[0]
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        (tok_t, tgt_t, h1_seq, h2_seq, g41, g42, whh1, wih2, whh2, h1_0,
+         w_out, b_out) = (t.float() if t.is_floating_point() else t
+                          for t in ctx.saved_tensors)
+        T, B, H = h1_seq.shape
+        logits, lse, _ = _ce_head32(h2_seq, w_out, b_out, tgt_t)
+        tgt_oh = (tgt_t.long()[..., None]
+                  == torch.arange(logits.shape[-1], device=tgt_t.device))
+        dlogits = ((torch.exp(logits - lse[..., None]) - tgt_oh.float())
+                   * g.float()[..., None])
+        dw_out = torch.einsum("tbh,tbv->hv", h2_seq, dlogits)
+        db_out = dlogits.sum(dim=(0, 1))
+        dh2_head = dlogits @ w_out.t()
+        # layer 2 from h1_seq[0] (the step-0 rule), then layer 1 with the
+        # cotangent layer 2 sends it every step (+ the dh2 that leaves step 0)
+        s2x, s2h, dh2_0 = cuda_gru.chain_bwd32(
+            dh2_head[None], True, g42[None], h2_seq[None], h1_seq[:1], whh2[None])
+        inject = s2x[0] @ wih2.t()
+        inject[0] = inject[0] + dh2_0[0]
+        s1x, s1h, dh1_0 = cuda_gru.chain_bwd32(
+            inject[None], True, g41[None], h1_seq[None], h1_0[None], whh1[None])
+        dw_tok = cuda_gru.scatter_rows(tok_t[None], s1x, ctx.Vp)[0]
+        dpre_z = s1x[0].sum(dim=0)
+        dwhh1, dbhh1 = cuda_gru.w_hh_grads(h1_seq[None], h1_0[None], s1h)
+        dwih2 = torch.einsum("tbh,tbg->hg", h1_seq, s2x[0])
+        dbih2 = s2x[0].sum(dim=(0, 1))
+        dwhh2, dbhh2 = cuda_gru.w_hh_grads(h2_seq[None], h1_seq[:1], s2h)
+        return (None, None) + cuda_gru.round_bf16((
+            dw_tok, dpre_z, dwhh1[0], dbhh1[0], dwih2, dbih2, dwhh2[0],
+            dbhh2[0], dh1_0[0], dw_out, db_out))
+
+
+def _nll_bf16(tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
+              bhh2, h1_0, w_out, b_out):
+    """bf16 plain version of `decoder_teacher_nll`: nll (T, B) float32."""
+    if tok_t.shape[0] * tok_t.shape[1] == 0:
+        return h1_0.new_zeros(tok_t.shape, dtype=torch.float32)
+    return _DecoderNLLBf16Plain.apply(tok_t, tgt_t, w_tok, pre_z, whh1,
+                                      bhh1, wih2, bih2, whh2, bhh2, h1_0,
+                                      w_out, b_out)
+
+
+F32_ONLY = ("{} takes float32 only: no bf16 caller reaches it in the JAX "
+            "package (ROADMAP.md, queue 2: the f32-only kernels)")
+
+
+def _float_dtype(names, tensors, kernel: bool, f32_only: str = ""):
+    """The float inputs' one dtype (`ops/cuda_gru.py::float_dtype`);
+    `f32_only` names a decode that refuses bfloat16."""
+    dt = cuda_gru.float_dtype(dict(zip(names, tensors)), kernel)
+    if f32_only and dt == cuda_gru.BF16:
+        raise ValueError(F32_ONLY.format(f32_only))
+    return dt
+
+
+_REC_NAMES = ("w_tok", "pre_z", "whh1", "bhh1", "wih2", "bih2", "whh2",
+              "bhh2", "h1_0")
+
+
 def _check(tok_t, B: int, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
            bhh2, h1_0, w_out=None, b_out=None, tgt_t=None):
     """Shapes and types of a call over B rows (tok_t (T, B / n_rep));
@@ -136,10 +257,10 @@ def _check(tok_t, B: int, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
         if tuple(got[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(got[name].shape)}, "
                              f"expected {shape}")
-    for name, t in got.items():
-        want_dt = torch.int32 if name == "tgt_t" else torch.float32
-        if t.dtype != want_dt:
-            raise ValueError(f"{name} must be {want_dt}, got {t.dtype}")
+    if tgt_t is not None and tgt_t.dtype != torch.int32:
+        raise ValueError(f"tgt_t must be int32, got {tgt_t.dtype}")
+    cuda_gru.float_dtype({n: t for n, t in got.items() if n != "tgt_t"},
+                         kernel=True)
     if tok_t.dtype != torch.int32:
         raise ValueError(f"tok_t must be int32, got {tok_t.dtype}")
 
@@ -163,12 +284,12 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_buffers(T, B, H, dev, stash: bool):
-    """(h1_seq, h2_seq, g41, g42) for a forward; the stashes are None
-    without `stash`."""
-    f32 = dict(dtype=torch.float32, device=dev)
-    g4 = (lambda: torch.empty((T, B, 4 * H), **f32) if stash else None)
-    return (torch.empty((T, B, H), **f32), torch.empty((T, B, H), **f32),
+def _fwd_buffers(T, B, H, dev, stash: bool, dtype=torch.float32):
+    """(h1_seq, h2_seq, g41, g42) for a forward, in `dtype`; the stashes
+    are None without `stash`."""
+    kw = dict(dtype=dtype, device=dev)
+    g4 = (lambda: torch.empty((T, B, 4 * H), **kw) if stash else None)
+    return (torch.empty((T, B, H), **kw), torch.empty((T, B, H), **kw),
             g4(), g4())
 
 
@@ -202,16 +323,22 @@ def _launch_teacher_fwd(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
 
 def _launch_fwd(tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
                 bhh2, h1_0, w_out, b_out, stash: bool):
-    """fader_decoder_ce: (nll (T, B), h1_seq, h2_seq, g41, g42); the
-    stashes are None without `stash`."""
+    """fader_decoder_ce(_bf16): (nll (T, B) float32, h1_seq, h2_seq, g41,
+    g42) in h1_0's dtype; the stashes are None without `stash`. The bf16
+    entry also takes layer 1's and layer 2's float32 states (scratch)."""
     T, B = tok_t.shape
     H = h1_0.shape[-1]
     dev = h1_0.device
-    bufs = _fwd_buffers(T, B, H, dev, stash)
+    dt = h1_0.dtype
+    bufs = _fwd_buffers(T, B, H, dev, stash, dt)
     nll = torch.empty((T, B), dtype=torch.float32, device=dev)
-    _fwd_call("fader_decoder_ce", (T, B, H, w_tok.shape[0]),
+    states32 = (() if dt == torch.float32 else tuple(
+        torch.empty((T, B, H), dtype=torch.float32, device=dev)
+        for _ in range(2)))
+    _fwd_call(cuda_gru.key("fader_decoder_ce", dt), (T, B, H, w_tok.shape[0]),
               (tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2,
-               bhh2, h1_0, w_out, b_out, *bufs, nll), T, B, H, dev)
+               bhh2, h1_0, w_out, b_out, *bufs, nll, *states32), T, B, H,
+              dev)
     return (nll, *bufs)
 
 
@@ -274,8 +401,9 @@ def _launch_teacher_bwd(g2, tok_t, h1_seq, h2_seq, g41, g42, whh1, wih2,
 
 def _launch_bwd(g, tok_t, tgt_t, h1_seq, h2_seq, g41, g42, whh1, wih2, whh2,
                 h1_0, w_out, b_out):
-    """fader_decoder_ce_bwd: (dw_tok, dpre_z, dwhh1, dbhh1, dwih2, dbih2,
-    dwhh2, dbhh2, dh1_0, dw_out, db_out)."""
+    """fader_decoder_ce_bwd(_bf16): (dw_tok, dpre_z, dwhh1, dbhh1, dwih2,
+    dbih2, dwhh2, dbhh2, dh1_0, dw_out, db_out), float32; g float32, the
+    forward's tensors and the weights in h1_0's dtype."""
     T, B, H = h1_seq.shape
     Vp = w_out.shape[1]
     dev = h1_0.device
@@ -284,12 +412,13 @@ def _launch_bwd(g, tok_t, tgt_t, h1_seq, h2_seq, g41, g42, whh1, wih2, whh2,
     with torch.cuda.device(dev):
         red, n_red = _build.entry_scratch(
             lib.fader_decoder_bwd_scratch_floats, (T, B, H, Vp), dev)
-        err = lib.fader_decoder_ce_bwd(
+        name = cuda_gru.key("fader_decoder_ce_bwd", h1_0.dtype)
+        err = getattr(lib, name)(
             T, B, H, Vp, *(t.data_ptr() for t in (
                 tok_t, tgt_t, g, h1_seq, h2_seq, g41, g42, h1_0, tr(whh1),
                 tr(wih2), tr(whh2), w_out, b_out, tr(w_out), *scratch,
                 *outs, red)), n_red, cuda_gru._stream(dev))
-    _build.check(err, "fader_decoder_ce_bwd")
+    _build.check(err, name)
     del scratch, red
     return tuple(outs)
 
@@ -358,7 +487,7 @@ class DecoderNLL(torch.autograd.Function):
         nll, h1_seq, h2_seq, g41, g42 = _launch_fwd(
             tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2,
             h1_0, w_out, b_out, stash=True)
-        LAUNCHES["decoder_ce"] += 1
+        LAUNCHES[cuda_gru.key("decoder_ce", h1_0.dtype)] += 1
         ctx.save_for_backward(tok_t, tgt_t, h1_seq, h2_seq, g41, g42, whh1,
                               wih2, whh2, h1_0, w_out, b_out)
         return nll
@@ -366,10 +495,12 @@ class DecoderNLL(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        grads = _launch_bwd(g.contiguous(), *saved)
-        LAUNCHES["decoder_ce_bwd"] += 1
+        dt = saved[9].dtype
+        grads = _launch_bwd(g.float().contiguous(), *saved)
+        LAUNCHES[cuda_gru.key("decoder_ce_bwd", dt)] += 1
         del saved
-        return cuda_gru._mask(ctx, (None, None) + grads)
+        return cuda_gru._mask(ctx, (None, None)
+                              + cuda_gru._returned(grads, dt))
 
 
 class DecoderMasses(torch.autograd.Function):
@@ -406,7 +537,9 @@ def decoder_teacher(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2,
     through `DecoderTeacher` when a gradient is wanted."""
     global LAST_TRAIN_PATH
     args = (tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0)
-    if cuda_gru.kernel_device(args) is None:
+    kernel = cuda_gru.kernel_device(args) is not None
+    _float_dtype(_REC_NAMES, args[1:], kernel, "decoder_teacher (kernels 7/8)")
+    if not kernel:
         LAST_TRAIN_PATH = "plain-cpu"
         return decoder_teacher_plain(*args)
     T, B = tok_t.shape
@@ -431,6 +564,7 @@ def decoder_teacher_nll(tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2,
     args = (tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2,
             h1_0, w_out, b_out)
     if cuda_gru.kernel_device(args) is None:
+        _float_dtype(_REC_NAMES + ("w_out", "b_out"), args[2:], False)
         LAST_TRAIN_PATH = "plain-cpu"
         return decoder_teacher_nll_plain(*args)
     T, B = tok_t.shape
@@ -442,7 +576,7 @@ def decoder_teacher_nll(tok_t, tgt_t, w_tok, pre_z, whh1, bhh1, wih2, bih2,
     if cuda_gru.wants_grad(*args[2:]):
         return DecoderNLL.apply(*args)
     nll = _launch_fwd(*args, stash=False)[0]
-    LAUNCHES["decoder_ce"] += 1
+    LAUNCHES[cuda_gru.key("decoder_ce", h1_0.dtype)] += 1
     return nll
 
 
@@ -458,7 +592,10 @@ def decoder_teacher_masses(tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2,
     ranges = tuple((int(lo), int(hi)) for lo, hi in ranges)
     args = (tok_t, w_tok, pre_z, whh1, bhh1, wih2, bih2, whh2, bhh2, h1_0,
             w_out, b_out)
-    if cuda_gru.kernel_device(args) is None:
+    kernel = cuda_gru.kernel_device(args) is not None
+    _float_dtype(_REC_NAMES + ("w_out", "b_out"), args[1:], kernel,
+                 "decoder_teacher_masses (kernels 9/10, masses head)")
+    if not kernel:
         LAST_TRAIN_PATH = "plain-cpu"
         return decoder_teacher_masses_plain(*args, ranges, n_rep)
     T, B0 = tok_t.shape

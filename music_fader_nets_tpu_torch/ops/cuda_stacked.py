@@ -17,6 +17,15 @@ for tensors on a GPU; there is no fallback between the two. On a GPU, a
 call whose float inputs want a gradient goes through `StackedGRU`
 (forward with the gate stash, backward kernel); otherwise the forward runs
 without the stash.
+
+bfloat16 inputs (all of pre, w_hh, b_hh, h0) take the kernels' bf16
+instantiations on a GPU and the plain version's bf16 branch on the CPU,
+with the
+rounding rule of `ops/cuda_gru.py`: h_seq and the stash bf16, the carry
+and every product float32, dpre and the gradients rounded once. One
+difference from the Pallas kernel 2, which recomputes its gates in float32
+from the rounded h_seq (pallas_gru.py:254-260): here, as for kernels
+4/6/10, the backward reads the forward's bf16 gate stash.
 """
 from __future__ import annotations
 
@@ -28,7 +37,9 @@ from music_fader_nets_tpu_torch.ops.gru import _gates
 # wrapper calls that launched each kernel (forward: one cooperative launch
 # of the whole recurrence; backward: one of the whole chain, then the
 # split-K GEMM with its sum and the column sums with theirs)
-LAUNCHES = {"stacked_gru": 0, "stacked_gru_bwd": 0}
+LAUNCHES = {"stacked_gru": 0, "stacked_gru_bwd": 0,
+            # the bf16 instantiations
+            "stacked_gru_bf16": 0, "stacked_gru_bwd_bf16": 0}
 # which path served the last call: "kernel" or "plain-cpu"
 LAST_TRAIN_PATH = None
 
@@ -36,7 +47,9 @@ LAST_TRAIN_PATH = None
 def stacked_gru_plain(pre, w_hh, b_hh, h0):
     """Plain PyTorch version: a Python loop over steps of torch ops.
     pre (L, T, B, 3H); w_hh (L, H, 3H); b_hh (L, 3H); h0 (L, B, H).
-    Returns h_seq (L, T, B, H)."""
+    Returns h_seq (L, T, B, H). bf16 inputs take `_stacked_bf16`."""
+    if h0.dtype == cuda_gru.BF16:
+        return _stacked_bf16(pre, w_hh, b_hh, h0)
     h, outs = h0, []
     for t in range(pre.shape[1]):
         pre_h = torch.bmm(h, w_hh) + b_hh[:, None, :]
@@ -45,6 +58,37 @@ def stacked_gru_plain(pre, w_hh, b_hh, h0):
     if not outs:
         return h0.new_zeros((h0.shape[0], 0) + tuple(h0.shape[1:]))
     return torch.stack(outs, dim=1)
+
+
+class _StackedBf16Plain(torch.autograd.Function):
+    """The bf16 plain version of kernels 1/2."""
+
+    @staticmethod
+    def forward(ctx, pre, w_hh, b_hh, h0):
+        pre32 = pre.float()
+        h_seq32, stash32 = cuda_gru.chain_fwd32(
+            lambda t: pre32[:, t], w_hh.float(), b_hh.float(), h0.float(),
+            pre.shape[1])
+        h_seq, stash = h_seq32.to(cuda_gru.BF16), stash32.to(cuda_gru.BF16)
+        ctx.save_for_backward(w_hh, h0, h_seq, stash)
+        return h_seq
+
+    @staticmethod
+    def backward(ctx, g_seq):
+        w_hh, h0, h_seq, stash = ctx.saved_tensors
+        h_seq32, h032 = h_seq.float(), h0.float()
+        dpx, dph, dh0 = cuda_gru.chain_bwd32(
+            g_seq.to(cuda_gru.BF16).float(), True, stash.float(), h_seq32,
+            h032, w_hh.float())
+        dw_hh, db_hh = cuda_gru.w_hh_grads(h_seq32, h032, dph)
+        return cuda_gru.round_bf16((dpx, dw_hh, db_hh, dh0))
+
+
+def _stacked_bf16(pre, w_hh, b_hh, h0):
+    """bf16 plain version of `stacked_gru`: h_seq (L, T, B, H) bf16."""
+    if pre.shape[1] == 0:
+        return h0.new_zeros((h0.shape[0], 0) + tuple(h0.shape[1:]))
+    return _StackedBf16Plain.apply(pre, w_hh, b_hh, h0)
 
 
 def _check(pre, w_hh, b_hh, h0):
@@ -57,35 +101,34 @@ def _check(pre, w_hh, b_hh, h0):
         if tuple(got[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(got[name].shape)}, "
                              f"expected {shape}")
-        if got[name].dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got "
-                             f"{got[name].dtype}")
+    cuda_gru.float_dtype(got, kernel=True)
 
 
 def _launch_fwd(pre, w_hh, b_hh, h0, stash: bool):
-    """fader_stacked_gru: h_seq (L, T, B, H) and, when `stash`, the gate
-    stash (L, T, B, 4H); T >= 1."""
+    """fader_stacked_gru(_bf16): h_seq (L, T, B, H) and, when `stash`, the
+    gate stash (L, T, B, 4H), in h0's dtype; T >= 1."""
     L, T, B, _ = pre.shape
     H = h0.shape[-1]
     dev = h0.device
     lib = _build.load_library()
-    h_seq = torch.empty((L, T, B, H), dtype=torch.float32, device=dev)
-    st = (torch.empty((L, T, B, 4 * H), dtype=torch.float32, device=dev)
+    h_seq = torch.empty((L, T, B, H), dtype=h0.dtype, device=dev)
+    st = (torch.empty((L, T, B, 4 * H), dtype=h0.dtype, device=dev)
           if stash else None)
     with torch.cuda.device(dev):
         scratch, n_scratch = _build.entry_scratch(
             lib.fader_gru_fwd_scratch_floats, (L, B, H), dev)
-        err = lib.fader_stacked_gru(
+        err = cuda_gru.entry(lib, "fader_stacked_gru", h0.dtype)(
             L, T, B, H, pre.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             h0.data_ptr(), h_seq.data_ptr(),
             None if st is None else st.data_ptr(), scratch.data_ptr(),
             n_scratch, cuda_gru._stream(dev))
-    _build.check(err, "fader_stacked_gru")
+    _build.check(err, cuda_gru.key("fader_stacked_gru", h0.dtype))
     return h_seq, st
 
 
 def _launch_bwd(g, stash, h_seq, h0, w_hh):
-    """fader_stacked_gru_bwd: (dpre (L,T,B,3H), dw_hh, db_hh, dh0)."""
+    """fader_stacked_gru_bwd(_bf16): (dpre (L,T,B,3H), dw_hh, db_hh, dh0),
+    float32; g float32, the forward's tensors and w_hh in h0's dtype."""
     L, T, B, H = h_seq.shape
     G = 3 * H
     dev = h0.device
@@ -100,11 +143,11 @@ def _launch_bwd(g, stash, h_seq, h0, w_hh):
     with torch.cuda.device(dev):
         scratch, n_scratch = _build.entry_scratch(
             lib.fader_gru_bwd_scratch_floats, (L, T, B, H), dev)
-        err = lib.fader_stacked_gru_bwd(
+        err = cuda_gru.entry(lib, "fader_stacked_gru_bwd", h0.dtype)(
             L, T, B, H, *(t.data_ptr() for t in (
                 g, stash, h_seq, h0, w_hhT, dph, dpre, dw_hh, db_hh, dh0,
                 scratch)), n_scratch, cuda_gru._stream(dev))
-    _build.check(err, "fader_stacked_gru_bwd")
+    _build.check(err, cuda_gru.key("fader_stacked_gru_bwd", h0.dtype))
     return dpre, dw_hh, db_hh, dh0
 
 
@@ -117,17 +160,20 @@ class StackedGRU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pre, w_hh, b_hh, h0):
         h_seq, stash = _launch_fwd(pre, w_hh, b_hh, h0, True)
-        LAUNCHES["stacked_gru"] += 1
+        LAUNCHES[cuda_gru.key("stacked_gru", h0.dtype)] += 1
         ctx.save_for_backward(w_hh, h0, h_seq, stash)
         return h_seq
 
     @staticmethod
     def backward(ctx, g_seq):
         w_hh, h0, h_seq, stash = ctx.saved_tensors
-        grads = _launch_bwd(g_seq.contiguous(), stash, h_seq, h0, w_hh)
-        LAUNCHES["stacked_gru_bwd"] += 1
+        # the cotangent in the forward's dtype (pallas_gru.py:351), read in
+        # float32
+        g = g_seq.to(h0.dtype).float().contiguous()
+        grads = _launch_bwd(g, stash, h_seq, h0, w_hh)
+        LAUNCHES[cuda_gru.key("stacked_gru_bwd", h0.dtype)] += 1
         del h_seq, stash
-        return cuda_gru._mask(ctx, grads)
+        return cuda_gru._mask(ctx, cuda_gru._returned(grads, h0.dtype))
 
 
 def stacked_gru(pre, w_hh, b_hh, h0):
@@ -137,6 +183,8 @@ def stacked_gru(pre, w_hh, b_hh, h0):
     global LAST_TRAIN_PATH
     tensors = (pre, w_hh, b_hh, h0)
     if cuda_gru.kernel_device(tensors) is None:
+        cuda_gru.float_dtype(dict(zip(("pre", "w_hh", "b_hh", "h0"),
+                                      tensors)), kernel=False)
         LAST_TRAIN_PATH = "plain-cpu"
         return stacked_gru_plain(*tensors)
     _check(*tensors)
@@ -148,5 +196,5 @@ def stacked_gru(pre, w_hh, b_hh, h0):
     if cuda_gru.wants_grad(*tensors):
         return StackedGRU.apply(pre, w_hh, b_hh, h0)
     h_seq, _ = _launch_fwd(pre, w_hh, b_hh, h0, False)
-    LAUNCHES["stacked_gru"] += 1
+    LAUNCHES[cuda_gru.key("stacked_gru", h0.dtype)] += 1
     return h_seq

@@ -23,8 +23,10 @@ def argmax_one_hot(logits: torch.Tensor) -> torch.Tensor:
 def reparameterize(mu: torch.Tensor, std: torch.Tensor,
                    eps: torch.Tensor) -> torch.Tensor:
     """z = mu + std * eps (reference model_v2.py:152-158); `std` is
-    exp(logsig), eps ~ N(0, 1) supplied by the caller."""
-    return mu + std * eps
+    exp(logsig), eps ~ N(0, 1) supplied by the caller and taken in std's
+    dtype, as the JAX package draws it (ops/sampling.py:26): under bf16
+    mixed precision the noise and z are bf16."""
+    return mu + std * eps.to(std.dtype)
 
 
 class _GradReverse(torch.autograd.Function):

@@ -125,8 +125,10 @@ def build_argparser(description: str) -> argparse.ArgumentParser:
                          "versions")
     ap.add_argument("--dtype", default=None,
                     choices=["float32", "bfloat16"],
-                    help="compute dtype: float32; bfloat16 is not ported "
-                         "and raises")
+                    help="compute dtype: float32 (default) or bfloat16 "
+                         "mixed precision (the five objectives other than "
+                         "GLSR run their forward in bf16; master weights, "
+                         "Adam state and checkpoints stay float32)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kl-warmup", type=int, default=None,
                     help="replace the reference KL anneal with a linear "

@@ -19,6 +19,14 @@ draws inside from its rng and the port takes from the caller
 `batch` holds tensors on one device: x (B, T) tokens, r / n (B, attr_len)
 track ids, c (B, 24) chroma, r_density / n_density (B,), and `a` (B,)
 arousal labels for the supervised branch.
+
+Mixed precision (`cfg.dtype == "bfloat16"`, JAX `_mixed_precision`): the
+five objectives other than GLSR cast every float param and the chroma to
+bf16 at the forward's entry (the one-hots follow the chroma's dtype) and
+cast the forward's outputs back to float32, so every loss term runs in
+float32 and the gradients reach the float32 master params through the
+casts. GLSR stays float32: its central-difference estimate is
+precision-sensitive (JAX objectives.py:173-174).
 """
 from __future__ import annotations
 
@@ -50,8 +58,34 @@ from music_fader_nets_tpu_torch.models.modules import (
 Metrics = Dict[str, torch.Tensor]
 
 
+def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _cast_tree(tree, dtype: torch.dtype):
+    """Every float tensor of a nested dict / list / tuple in `dtype`."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_tree(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def _mixed_precision(params, batch, cfg: ModelConfig):
+    """(params, batch, compute dtype): with cfg.dtype "bfloat16" the float
+    params and the chroma cast to bf16 (JAX objectives.py:49-58); the
+    casts carry the gradients back to the float32 masters."""
+    dt = _compute_dtype(cfg)
+    if dt == torch.float32:
+        return params, batch, dt
+    return _cast_tree(params, dt), dict(batch, c=batch["c"].to(dt)), dt
+
+
 def _one_hots(batch, cfg: ModelConfig):
     """One-hots in the batch's float dtype (chroma's): float32 in training,
+    bf16 under mixed precision (`_mixed_precision` casts the chroma),
     float64 for a float64 witness of the plain path."""
     oh = (lambda ids, n: F.one_hot(ids.long(), n).to(batch["c"].dtype))
     return (oh(batch["x"], cfg.roll_dims), oh(batch["r"], cfg.rhythm_dims),
@@ -74,11 +108,13 @@ def _recon_ce(fwd, batch):
 def vanilla_loss(params, eps, batch, step: int, cfg: ModelConfig,
                  train: bool = True) -> Tuple[torch.Tensor, Metrics]:
     """ELBO + Pati attribute regularization (reference trainer.py:87-132)."""
+    params, batch, dt = _mixed_precision(params, batch, cfg)
     x_oh, r_oh, n_oh = _one_hots(batch, cfg)
     fwd = vae.reg_vae_forward(
         params, eps[0], eps[1], x_oh, r_oh, n_oh, batch["c"], cfg,
         train=train, tokens=batch["x"], nll_targets=batch["x"],
         track_ids=(batch["r"], batch["n"]))
+    fwd = _cast_tree(fwd, torch.float32) if dt != torch.float32 else fwd
     ce_x, ce_r, ce_n = _recon_ce(fwd, batch)
     ce = cfg.ce_x_weight * ce_x + ce_r + ce_n
     kld = (kl_std_normal(fwd["mu_r"], fwd["std_r"], cfg.free_bits)
@@ -97,12 +133,15 @@ def gmm_loss(params, eps, batch, step: int, cfg: ModelConfig,
              ) -> Tuple[torch.Tensor, Metrics]:
     """GM-VAE loss, unsupervised (Yamaha) or supervised (VGMIDI arousal)
     branch (reference trainer_gmm.py:109-196), plus the Pati
-    regularization."""
+    regularization. Under mixed precision the KL terms read the bf16-cast
+    lookups (JAX objectives.py:129-136)."""
+    params, batch, dt = _mixed_precision(params, batch, cfg)
     x_oh, r_oh, n_oh = _one_hots(batch, cfg)
     fwd = gmvae.reg_gmvae_forward(
         params, eps[0], eps[1], x_oh, r_oh, n_oh, batch["c"], cfg,
         train=train, tokens=batch["x"], nll_targets=batch["x"],
         track_ids=(batch["r"], batch["n"]))
+    fwd = _cast_tree(fwd, torch.float32) if dt != torch.float32 else fwd
     ce_x, ce_r, ce_n = _recon_ce(fwd, batch)
     ce = cfg.ce_x_weight * ce_x + ce_r + ce_n
     beta0 = anneal_beta(step, cfg.beta, cfg.faithful_negative_beta,
@@ -148,7 +187,8 @@ def glsr_loss(params, eps, batch, step: int, cfg: ModelConfig,
     (the reference model is in training mode then), one batch of 4B rows
     through the fused decoder's masses head, and the regularizer counts
     only at step > 20 (trainer_glsr.py:253): before that it is computed and
-    multiplied by 0, as the JAX package does."""
+    multiplied by 0, as the JAX package does. It ignores cfg.dtype: GLSR
+    stays float32 under mixed precision (JAX objectives.py:173-174)."""
     x_oh, r_oh, n_oh = _one_hots(batch, cfg)
     fwd = vae.reg_vae_forward(
         params, eps[0], eps[1], x_oh, r_oh, n_oh, batch["c"], cfg,
@@ -179,18 +219,25 @@ def glsr_loss(params, eps, batch, step: int, cfg: ModelConfig,
                   "l_r": gate * l_r, "l_n": gate * l_n, "KLD": kld}
 
 
-def _densities(batch):
-    return batch["r_density"][:, None], batch["n_density"][:, None]
+def _densities(batch, dt):
+    """(B, 1) densities, in the compute dtype under mixed precision (JAX
+    objectives.py:226-227)."""
+    rd, nd = batch["r_density"][:, None], batch["n_density"][:, None]
+    if dt != torch.float32:
+        rd, nd = rd.to(dt), nd.to(dt)
+    return rd, nd
 
 
 def cvae_loss(params, eps, batch, step: int, cfg: ModelConfig,
               train: bool = True) -> Tuple[torch.Tensor, Metrics]:
     """CE_X + annealed KLD only (reference trainer_cvae.py:84-102)."""
+    params, batch, dt = _mixed_precision(params, batch, cfg)
     x_oh = _one_hots(batch, cfg)[0]
-    rd, nd = _densities(batch)
+    rd, nd = _densities(batch, dt)
     fwd = vae.cvae_forward(params, eps[0], x_oh, batch["c"], rd, nd, cfg,
                            train=train, tokens=batch["x"],
                            nll_targets=batch["x"])
+    fwd = _cast_tree(fwd, torch.float32) if dt != torch.float32 else fwd
     ce_x = _ce_x(fwd, batch)
     kld = kl_std_normal(fwd["mu"], fwd["std"], cfg.free_bits)
     beta0 = anneal_beta(step, cfg.beta, cfg.faithful_negative_beta,
@@ -202,16 +249,22 @@ def cvae_loss(params, eps, batch, step: int, cfg: ModelConfig,
 def fader_loss(params, eps, batch, step: int, cfg: ModelConfig,
                train: bool = True) -> Tuple[torch.Tensor, Metrics]:
     """CVAE loss + the ramped adversarial MSE through the gradient-reversed
-    discriminators (reference trainer_fader.py:84-135)."""
+    discriminators (reference trainer_fader.py:84-135). Under mixed
+    precision the densities are bf16 in the forward, and the adversarial
+    targets are those bf16 values widened (JAX objectives.py:256-259)."""
+    params, batch, dt = _mixed_precision(params, batch, cfg)
     x_oh = _one_hots(batch, cfg)[0]
-    rd, nd = _densities(batch)
+    rd, nd = _densities(batch, dt)
     fwd = vae.fader_forward(params, eps[0], eps[1], eps[2], x_oh,
                             batch["c"], rd, nd, cfg, train=train,
                             tokens=batch["x"], nll_targets=batch["x"])
+    fwd = _cast_tree(fwd, torch.float32) if dt != torch.float32 else fwd
     ce_x = _ce_x(fwd, batch)
     kld = kl_std_normal(fwd["mu"], fwd["std"], cfg.free_bits)
     beta0 = anneal_beta(step, cfg.beta, cfg.faithful_negative_beta,
                         cfg.kl_warmup_steps)
+    if dt != torch.float32:
+        rd, nd = rd.float(), nd.float()
     l_adv_r = adversarial_fader_loss(step, fwd["disc_r"], rd)
     l_adv_n = adversarial_fader_loss(step, fwd["disc_n"], nd)
     loss = ce_x + beta0 * kld + l_adv_r + l_adv_n
@@ -226,10 +279,12 @@ def singlevae_loss(params, eps, batch, step: int, cfg: ModelConfig,
     and z[:, 1] (note) of the one latent (trainer_singlevae.py:110-123).
     kl_warmup_steps > 0 (an extension) still replaces that constant with
     the linear warmup, as in the JAX package."""
+    params, batch, dt = _mixed_precision(params, batch, cfg)
     x_oh = _one_hots(batch, cfg)[0]
     fwd = vae.single_vae_forward(params, eps[0], x_oh, batch["c"], cfg,
                                  train=train, tokens=batch["x"],
                                  nll_targets=batch["x"])
+    fwd = _cast_tree(fwd, torch.float32) if dt != torch.float32 else fwd
     ce_x = _ce_x(fwd, batch)
     kld = kl_std_normal(fwd["mu"], fwd["std"], cfg.free_bits)
     l_r = pati_regularizer(fwd["z"][:, 0], batch["r_density"])

@@ -336,18 +336,23 @@ def test_run_evaluation_prints_the_report(tmp_path, capsys, kind):
     assert ("condition-sweep std normalizers" in out) == (kind == "fader")
 
 
-def test_cli_refuses_checkpoints_and_bfloat16(tmp_path):
+def test_cli_refuses_checkpoints_and_bfloat16(tmp_path, capsys):
     """A checkpoint that was asked for and cannot be read raises instead of
     evaluating a random init (the readable layouts are held in
-    tests/test_torch_checkpoint.py)."""
+    tests/test_torch_checkpoint.py). `--dtype bfloat16` is no longer
+    refused: evaluation ignores the compute dtype, as the JAX package's
+    does, so it prints the float32 report."""
     argv = _tiny_argv(tmp_path)
+    reports = []
+    for dtype in ("float32", "bfloat16"):
+        eval_cli.run_evaluation("cvae", "t", argv + ["--dtype", dtype])
+        reports.append(capsys.readouterr().out)
+    assert "Consistency:" in reports[0] and reports[1] == reports[0]
     with pytest.raises(FileNotFoundError, match="x.pt"):
         eval_cli.run_evaluation("gmm", "t", argv + ["--from-pt", "x.pt"])
     (tmp_path / "params" / "music_attr_vae_reg_gmm").mkdir(parents=True)
     with pytest.raises(FileNotFoundError, match="checkpoint"):
         eval_cli.run_evaluation("gmm", "t", argv)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        eval_cli.run_evaluation("cvae", "t", argv + ["--dtype", "bfloat16"])
     with pytest.raises(SystemExit):            # the JAX CLI's TPU flags
         eval_cli.run_evaluation("cvae", "t", argv + ["--pallas-gru"])
 

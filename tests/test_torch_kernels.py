@@ -526,3 +526,101 @@ def test_teacher_decode_without_tokens_runs_stacked_kernels(dev):
                                      x_oh.to(dev))
     assert cuda_stacked.LAUNCHES["stacked_gru"] == before + 2
     torch.testing.assert_close(got.cpu(), want.detach(), rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------- bf16
+# The bf16 instantiations of the training kernels against the bf16
+# branches of their plain versions at ragged shapes: outputs to 1e-2 and
+# each gradient to 2e-2 of its tensor's largest entry (the rounding points
+# are the same; a float32 sum in another order can move a value across a
+# bf16 rounding, 2^-8 relative, and that propagates), the gradients bf16,
+# two backward calls bit-equal, the bf16 launch counts moving and the
+# float32 ones not.
+BF16 = torch.bfloat16
+BF16_RAGGED = [(37, 9, 2, 136), (128, 5, 4, 512)]
+
+
+def _bf16_check(fn, plain, ids, floats, dev, seed, counts, keys):
+    gen = torch.Generator().manual_seed(seed)
+    floats = [t.to(dev, BF16) for t in floats]
+    ids = ids.to(dev)
+    before = dict(counts)
+
+    def run(f):
+        ts = [t.detach().clone().requires_grad_(True) for t in floats]
+        out = f(ids, *ts)
+        return ts, out
+
+    ts, out = run(fn)
+    cot = torch.randn(out.shape, generator=gen).to(dev, out.dtype)
+    g1 = torch.autograd.grad(out, ts, cot, retain_graph=True)
+    g2 = torch.autograd.grad(out, ts, cot)
+    pts, pout = run(plain)
+    gp = torch.autograd.grad(pout, pts, cot)
+    torch.cuda.synchronize()
+    assert all(g.dtype == BF16 for g in g1)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert float((out.float() - pout.float()).abs().max()) <= 1e-2
+    for a, b in zip(g1, gp):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 2e-2 * max(float(b.float().abs().max()), 1e-3)
+    for k in keys:
+        assert counts[k + "_bf16"] > before[k + "_bf16"]
+        assert counts[k] == before[k]
+
+
+@pytest.mark.parametrize("B,T,L,H", BF16_RAGGED)
+def test_bf16_embed_kernels_match_plain(dev, B, T, L, H):
+    gen = torch.Generator().manual_seed(B + T)
+    V, G = 342, 3 * H
+    w = stack_directions([gru_init(gen, V, H) for _ in range(L)])
+    tok = direction_tokens(torch.randint(0, V, (B, T), generator=gen),
+                           [False, True] * (L // 2))
+    h0 = torch.randn((L, B, H), generator=gen) * 0.5
+    _bf16_check(cuda_gru.stacked_gru_embed_finals,
+                cuda_gru.stacked_gru_embed_finals_plain, tok, [*w, h0], dev,
+                1, cuda_gru.LAUNCHES, ("embed_gru_train", "embed_gru_bwd"))
+    cls = torch.randint(0, 16, (L, T, B), generator=gen, dtype=torch.int32)
+    seq = [torch.randn((L, 16, G), generator=gen) * 0.1,
+           torch.randn((L, B, G), generator=gen) * 0.3, w[2], w[3], h0]
+    _bf16_check(cuda_gru.stacked_gru_embed_seq,
+                cuda_gru.stacked_gru_embed_seq_plain, cls, seq, dev, 2,
+                cuda_gru.LAUNCHES, ("embed_seq", "embed_seq_bwd"))
+    with torch.no_grad():
+        args = [t.to(dev, BF16) for t in (*w, h0)]
+        before = cuda_gru.LAUNCHES["embed_gru_bf16"]
+        got = cuda_gru.stacked_gru_embed_finals(tok.to(dev), *args)
+        want = cuda_gru.stacked_gru_embed_finals_plain(tok.to(dev), *args)
+        assert got.dtype == BF16
+        assert float((got.float() - want.float()).abs().max()) <= 1e-2
+        assert cuda_gru.LAUNCHES["embed_gru_bf16"] == before + 1
+
+
+@pytest.mark.parametrize("B,T,L,H", BF16_RAGGED)
+def test_bf16_stacked_gru_kernels_match_plain(dev, B, T, L, H):
+    gen = torch.Generator().manual_seed(B * 3 + T)
+    G = 3 * H
+    floats = [torch.randn((L, T, B, G), generator=gen) * 0.5,
+              torch.randn((L, H, G), generator=gen) * 0.1,
+              torch.randn((L, G), generator=gen) * 0.1,
+              torch.randn((L, B, H), generator=gen) * 0.5]
+    _bf16_check(lambda _, *fl: cuda_stacked.stacked_gru(*fl),
+                lambda _, *fl: cuda_stacked.stacked_gru_plain(*fl),
+                torch.empty(0), floats, dev, 3, cuda_stacked.LAUNCHES,
+                ("stacked_gru", "stacked_gru_bwd"))
+
+
+@pytest.mark.parametrize("B,T,H", [(37, 7, 136), (128, 6, 512)])
+def test_bf16_decoder_ce_kernels_match_plain(dev, B, T, H):
+    gen = torch.Generator().manual_seed(B + 7 * T)
+    V = 342
+    gd = global_decoder_init(gen, 24, V, H)
+    z = torch.randn((B, 24), generator=gen)
+    tokens = torch.randint(0, V, (B, T), generator=gen, dtype=torch.int32)
+    gd = {k: {n: t.to(BF16) for n, t in v.items()} for k, v in gd.items()}
+    tok_t, w = cuda_decoder._fused_args(gd, z.to(BF16), tokens, V)
+    tgt = tokens.t().contiguous().to(dev)
+    _bf16_check(lambda i, *fl: cuda_decoder.decoder_teacher_nll(i, tgt, *fl),
+                lambda i, *fl: cuda_decoder.decoder_teacher_nll_plain(
+                    i, tgt, *fl), tok_t, [t.float() for t in w], dev, 4,
+                cuda_decoder.LAUNCHES, ("decoder_ce", "decoder_ce_bwd"))

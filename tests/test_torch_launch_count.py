@@ -2,7 +2,9 @@
 to (`device_launches`) and that the split tools print (`train/bwd_split.py::
 kernel_split`), on the CPU under a scripted profiler: a call counts only
 the device events between two launches of the library's empty
-`launch_probe` kernel, and a profile that lost a probe is taken again."""
+`launch_probe` kernel, and a profile that lost a probe is taken again
+(`device_launches` opens with a lead probe pair, so the loss of one lead
+probe alone costs nothing)."""
 from __future__ import annotations
 
 import importlib.util
@@ -77,17 +79,24 @@ def _call(*names):
     return lambda: [launch(n) for n in names]
 
 
-# device_launches(calls=3) records P m K P m K P m K P (indices 0-9)
+# device_launches(calls=3) records P P m K P m K P m K P (indices 0-10):
+# a lead probe pair, then each call closed by a probe
 LAUNCH_CASES = {
     "complete": (("Memset", "gru_fwd_chain"), [set()], (1, 1, []), 1),
     "lost_first_probe": (("Memset", "gru_fwd_chain"), [{0}, set()],
-                         (1, 1, []), 2),
+                         (1, 1, []), 1),
+    "lost_second_lead_probe": (("Memset", "gru_fwd_chain"), [{1}, set()],
+                               (1, 1, []), 1),
+    "lost_both_lead_probes": (("Memset", "gru_fwd_chain"), [{0, 1}, set()],
+                              (1, 1, []), 2),
     "lost_leading_events": (("Memset", "gru_fwd_chain"), [{0, 1, 2}, set()],
                             (1, 1, []), 2),
-    "lost_a_calls_kernel": (("Memset", "gru_fwd_chain"), [{5}],
+    "lost_a_calls_kernel": (("Memset", "gru_fwd_chain"), [{6}],
                             (1, 1, []), 1),
-    "lost_middle_probe": (("Memset", "gru_fwd_chain"), [{3}, set()],
+    "lost_middle_probe": (("Memset", "gru_fwd_chain"), [{4}, set()],
                           (1, 1, []), 2),
+    "lost_first_calls_events": (("Memset", "gru_fwd_chain"),
+                                [{0, 2, 3}, set()], (1, 1, []), 2),
     "kernel_a_step": (("stacked_gru_step",) * 4, [set()],
                       (4, 0, ["stacked_gru_step"]), 1),
 }
@@ -102,7 +111,8 @@ def test_device_launches_counts_between_probes(profiler, case):
 
 
 def test_device_launches_raises_when_every_profile_loses_a_probe(profiler):
-    profiler.script = [{0}] * 5
+    # P P K P K P K P: each profile loses the probe after the first call
+    profiler.script = [{3}] * 5
     with pytest.raises(RuntimeError, match="lost a probe"):
         _chip_smoke().device_launches(_call("gru_fwd_chain"))
     assert profiler.sessions == 5
