@@ -83,7 +83,12 @@ path (`entry`). Last, data parallelism: the GM-VAE `Trainer` on a mesh of
 one NCCL rank, bit-equal to the Trainer without one, and on two ranks
 sharing the card over gloo, 64 + 64 rows against one process at 128
 (`data_parallel`), then `entry.dryrun_multichip(2)` on the card
-(`dryrun_multichip`). Every phase prints one JSON line; the kernels line
+(`dryrun_multichip`). Then bf16 mixed precision (`mixed_precision`): each
+bf16 kernel pair against its bf16 plain version, timed in turns with its
+float32 kernels; rows 2, 4, 6 and 10 bf16 (their products on the tensor
+cores) at ragged shapes; the GM-VAE's bf16 steps, timed in turns with
+float32; the other casting families; GLSR; the training CLI in bf16.
+Every phase prints one JSON line; the kernels line
 follows, then the card's name and power limit as nvidia-smi reports
 them, then the final status line. Any failed
 check exits non-zero without the status line. Needs one CUDA device;
@@ -121,9 +126,11 @@ TOL_TRAIN_OUT = 1e-4
 TOL_TRAIN_GRAD_REL = 1e-4
 GRAD_SCALE_FLOOR = 1e-3
 # bf16 mixed precision (the `mixed_precision` phase): a bf16 kernel against
-# its bf16 plain version rounds the same values at the same points, but a
-# float32 sum in another order can land a value on the other side of a
-# bf16 rounding (one ulp, 2^-8 relative) and the flip propagates: outputs
+# its bf16 plain version rounds the same values at the same points (its
+# tensor-core products split a float32 operand into three bf16 pieces, so
+# they keep float32 products), but a float32 sum in another order can land
+# a value on the other side of a bf16 rounding (one ulp, 2^-8 relative)
+# and the flip propagates: outputs
 # to 1e-2 (the CPU tests' bound against the Pallas kernels), each kernel
 # gradient to 2e-2 of its tensor's largest entry; an objective's first
 # step, through the bf16 torch ops around the kernels, its loss to 1e-3
@@ -3002,7 +3009,9 @@ def main() -> int:
         """One bf16 kernel pair against its bf16 plain version (see
         train_kernel_phase): values to MP_TOL_OUT, gradients to
         MP_TOL_GRAD_REL of each tensor's largest entry, two calls of the
-        forward and of the backward bit-equal."""
+        forward and of the backward bit-equal; timed in turns with the
+        float32 kernels on the same inputs widened (bf16, float32, float32,
+        bf16)."""
         ts, out, grads = fwd_bwd(fn, ids, floats, cot)
         _, out_p, grads_p = fwd_bwd(plain, ids, floats, cot)
         again = fn(ids, *ts)
@@ -3015,6 +3024,14 @@ def main() -> int:
         g_abs, g_rel = grad_errors([g.float() for g in grads],
                                    [g.float() for g in grads_p])
         k_f, k_b = time_fwd_bwd(fn, ids, ts, cot, 10)
+        ts32 = [t.detach().float().requires_grad_(True) for t in floats]
+        cot32 = cot.float()
+        turns = [("bfloat16", k_f, k_b)]
+        for dt_, ts_, cot_ in (("float32", ts32, cot32),
+                               ("float32", ts32, cot32),
+                               ("bfloat16", ts, cot)):
+            turns.append((dt_,) + time_fwd_bwd(fn, ids, ts_, cot_, 10))
+        del ts32
         p_ts = [t.detach().clone().requires_grad_(True) for t in floats]
         p_f, p_b = time_fwd_bwd(plain, ids, p_ts, cot, 3, warm=1)
         l_f = l_b = None
@@ -3034,7 +3051,10 @@ def main() -> int:
               "fwd_ms": k_f, "bwd_ms": k_b, "plain_fwd_ms": p_f,
               "plain_bwd_ms": p_b, "library_fwd_ms": l_f,
               "library_bwd_ms": l_b, "bound_fwd_ms": f_bound,
-              "bound_bwd_ms": b_bound, "determinism": same})
+              "bound_bwd_ms": b_bound, "determinism": same,
+              "in_turns_with_float32": [
+                  {"dtype": d_, "fwd_ms": f_, "bwd_ms": b_}
+                  for d_, f_, b_ in turns]})
         if dtypes != ["torch.bfloat16"] and not (
                 names[0] == "decoder_ce_bf16"
                 and dtypes == ["torch.bfloat16", "torch.float32"]):
@@ -3256,6 +3276,80 @@ def main() -> int:
     if rc:
         return rc
     del gd, d_w
+
+    # ragged bf16 backward: rows 2, 4, 6 and 10 at B = 37 (no multiple of
+    # the MMA tiles' 16 rows), T odd, T*B no multiple of the GEMMs'
+    # 128-row tile, H = 136 (a partial 32-unit column tile) and H = 30 (no
+    # multiple of 8: the GEMMs' element-load paths), against their bf16
+    # plain versions, two backward calls bit-equal
+    mr_gen = torch.Generator().manual_seed(SEED + 15)
+
+    def mr_rand(shape, scale):
+        return (torch.randn(shape, generator=mr_gen) * scale).to(dev, BF)
+
+    ragged_bf16 = {}
+    for mT, mB, mH in ((21, 37, 136), (9, 37, 30)):
+        mG = 3 * mH
+        m_w = bf(*stack_directions([gru_init(mr_gen, V, mH)
+                                    for _ in range(2)]))
+        m_h0 = mr_rand((2, mB, mH), 0.5)
+        m_tok = direction_tokens(torch.randint(
+            0, V, (mB, mT), generator=mr_gen).to(dev), [False, True])
+        m_cls = torch.randint(0, 16, (2, mT, mB), generator=mr_gen,
+                              dtype=torch.int32).to(dev)
+        m_tgt = torch.randint(0, V, (mT, mB), generator=mr_gen,
+                              dtype=torch.int32).to(dev)
+        m_dtok = torch.cat([torch.full((1, mB), V - 1, dtype=torch.int32,
+                                       device=dev), m_tgt[:-1]])
+        m_dec = [mr_rand((Vp, mG), 0.05), mr_rand((mB, mG), 0.5)]
+        for _ in range(3):
+            m_dec += [mr_rand((mH, mG), 0.05), mr_rand((mG,), 0.05)]
+        m_dec += [mr_rand((mB, mH), 0.5),
+                  torch.nn.functional.pad(mr_rand((mH, V), 0.05),
+                                          (0, Vp - V)),
+                  torch.nn.functional.pad(
+                      mr_rand((V,), 0.05), (0, Vp - V),
+                      value=cuda_decoder.PAD_LOGIT).to(BF)]
+        cases = (
+            ("stacked_gru_bwd_bf16", skip_ids(cuda_stacked.stacked_gru),
+             skip_ids(cuda_stacked.stacked_gru_plain), no_ids,
+             [mr_rand((2, mT, mB, mG), 0.5), m_w[2], m_w[3], m_h0],
+             mr_rand((2, mT, mB, mH), 1.0)),
+            ("embed_gru_bwd_bf16", cuda_gru.stacked_gru_embed_finals,
+             cuda_gru.stacked_gru_embed_finals_plain, m_tok,
+             [*m_w, m_h0], mr_rand((2, mB, mH), 1.0)),
+            ("embed_seq_bwd_bf16", cuda_gru.stacked_gru_embed_seq,
+             cuda_gru.stacked_gru_embed_seq_plain, m_cls,
+             [mr_rand((2, 16, mG), 0.2), mr_rand((2, mB, mG), 0.2), m_w[2],
+              m_w[3], m_h0], mr_rand((2, mT, mB, mH), 1.0)),
+            ("decoder_ce_bwd_bf16",
+             lambda ids, *fl: cuda_decoder.decoder_teacher_nll(
+                 ids, m_tgt, *fl),
+             lambda ids, *fl: cuda_decoder.decoder_teacher_nll_plain(
+                 ids, m_tgt, *fl), m_dtok, m_dec,
+             (torch.randn((mT, mB), generator=mr_gen) / (mT * mB)).to(dev)))
+        for name, fn, plain, ids, floats, cot in cases:
+            ts, m_out, m_grads = fwd_bwd(fn, ids, floats, cot)
+            m_again = torch.autograd.grad(m_out, ts, cot)
+            _, m_out_p, m_grads_p = fwd_bwd(plain, ids, floats, cot)
+            torch.cuda.synchronize()
+            m_abs, m_rel = grad_errors([g.float() for g in m_grads],
+                                       [g.float() for g in m_grads_p])
+            ragged_bf16[f"{name}@T{mT}_B{mB}_H{mH}"] = {
+                "out_max_abs_err": float(
+                    (m_out.float() - m_out_p.float()).detach().abs().max()),
+                "grad_max_abs_err": m_abs, "grad_max_rel_err": m_rel,
+                "determinism": all(torch.equal(a, b_)
+                                   for a, b_ in zip(m_grads, m_again))}
+    emit({"phase": "mixed_precision", "part": "ragged_backward",
+          "tol_out": MP_TOL_OUT, "tol_grad_rel": MP_TOL_GRAD_REL,
+          **ragged_bf16})
+    for name, e in ragged_bf16.items():
+        if not (e["out_max_abs_err"] <= MP_TOL_OUT
+                and e["grad_max_rel_err"] <= MP_TOL_GRAD_REL
+                and e["determinism"]):
+            return fail(f"mixed_precision ragged_backward, {name}: {e}")
+    del m_w, m_dec, cases
 
     # (b) the GM-VAE in bf16: the first step against the plain path, then
     # 3 + 3 steps on the kernels

@@ -58,46 +58,25 @@
 // layer 2 writes its float32 h (h2_32) for the head. h1_seq, h2_seq and
 // the stashes are bf16, the NLL float32 (:1576).
 #include "gru_tile.cuh"
+#include "mma_bf16.cuh"
 #include "train_ops.cuh"
 
 namespace fader {
 
 constexpr int kHeadTB = 16;
+constexpr int kHeadNT = 6;   // ce_head_tc: 8-column tiles a warp a pass
 
-// The CE head over R rows of h2 (16 a block). Forward (g null): nll[row] =
-// lse - logit[tgt]. Backward (g given): dlogits[row, :] = (softmax - onehot
-// (tgt)) * g[row] (pad lanes give exactly 0: exp(-1e30 - max) is 0).
-template <int TB, typename AT, typename WT>
-__global__ void __launch_bounds__(kThreads)
-    ce_head(int R, int H, int Vp, const AT* __restrict__ h2,
-            const WT* __restrict__ w_out, const WT* __restrict__ b_out,
-            const int* __restrict__ tgt, const float* __restrict__ g,
-            float* __restrict__ nll, float* __restrict__ dlogits) {
-  extern __shared__ float4 smem4[];
-  float* sA = reinterpret_cast<float*>(smem4);
-  float* red = sA + (size_t)H * (TB + 4);
-  float* sL = red + (size_t)kWarps * TB * 32;
+// The CE head's reduction of TB rows of logits sL (TB, Vp) in shared
+// memory (bias added): warp w takes rows w, w + 8, ... Forward (g null):
+// nll[row] = lse - logit[tgt]. Backward: dlogits[row, :] = (softmax -
+// onehot(tgt)) * g[row] (pad lanes give exactly 0: exp(-1e30 - max) is 0).
+template <int TB>
+__device__ __forceinline__ void ce_rows(const float* sL, int R, int Vp,
+                                        int r0, const int* __restrict__ tgt,
+                                        const float* __restrict__ g,
+                                        float* __restrict__ nll,
+                                        float* __restrict__ dlogits) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * TB;
-
-  load_a_tile<TB, AT>(sA, h2, H, R, r0, H);
-  __syncthreads();
-  for (int c0 = 0; c0 < Vp; c0 += kTileN) {
-    const int j = c0 + lane;
-    float out[TB / kWarps][1];
-    {
-      float acc[TB][1] = {};
-      splitk_gemm<TB, 1, WT>(acc, sA, H, w_out, Vp, 0, j < Vp, j);
-      splitk_reduce<TB, 1>(acc, out, red);
-    }
-    if (j < Vp) {
-#pragma unroll
-      for (int i = 0; i < TB / kWarps; ++i)
-        sL[(size_t)(warp + kWarps * i) * Vp + j] =
-            __fadd_rn(out[i][0], to_f32(b_out[j]));
-    }
-  }
-  __syncthreads();
 #pragma unroll
   for (int i = 0; i < TB / kWarps; ++i) {
     const int r = warp + kWarps * i;
@@ -128,35 +107,152 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The CE head over R rows of float32 h2 (16 a block): the logits by the
+// split-K tile (float32 FMA), then ce_rows.
+template <int TB, typename WT>
+__global__ void __launch_bounds__(kThreads)
+    ce_head(int R, int H, int Vp, const float* __restrict__ h2,
+            const WT* __restrict__ w_out, const WT* __restrict__ b_out,
+            const int* __restrict__ tgt, const float* __restrict__ g,
+            float* __restrict__ nll, float* __restrict__ dlogits) {
+  extern __shared__ float4 smem4[];
+  float* sA = reinterpret_cast<float*>(smem4);
+  float* red = sA + (size_t)H * (TB + 4);
+  float* sL = red + (size_t)kWarps * TB * 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * TB;
+
+  load_a_tile<TB>(sA, h2, H, R, r0, H);
+  __syncthreads();
+  for (int c0 = 0; c0 < Vp; c0 += kTileN) {
+    const int j = c0 + lane;
+    float out[TB / kWarps][1];
+    {
+      float acc[TB][1] = {};
+      splitk_gemm<TB, 1, WT>(acc, sA, H, w_out, Vp, 0, j < Vp, j);
+      splitk_reduce<TB, 1>(acc, out, red);
+    }
+    if (j < Vp) {
+#pragma unroll
+      for (int i = 0; i < TB / kWarps; ++i)
+        sL[(size_t)(warp + kWarps * i) * Vp + j] =
+            __fadd_rn(out[i][0], to_f32(b_out[j]));
+    }
+  }
+  __syncthreads();
+  ce_rows<TB>(sL, R, Vp, r0, tgt, g, nll, dlogits);
+}
+
+// The CE head with bf16 h2 and weights (the bf16 backward's, from the
+// stored h2_seq): the logits on the tensor cores, one bf16 MMA a product
+// (both operands bf16: exact products, float32 accumulation, as the Pallas
+// kernel's dot at pallas_gru.py:1664), then ce_rows. The block's 16 rows
+// sit in shared memory row-major (H zero-padded to a multiple of 16, rows
+// of HP + 8 bf16: ldmatrix reads); warp w takes the 8-column tiles w, w +
+// 8, ... of the Vp logits (kHeadNT of them at once: 48 tiles at Vp = 384
+// are one pass), its B fragments two bf16 of a row of w_outT (Vp, H) a
+// load, from L2.
+__global__ void __launch_bounds__(kThreads)
+    ce_head_tc(int R, int H, int Vp, const bf16* __restrict__ h2,
+               const bf16* __restrict__ w_outT,
+               const bf16* __restrict__ b_out, const int* __restrict__ tgt,
+               const float* __restrict__ g, float* __restrict__ nll,
+               float* __restrict__ dlogits) {
+  extern __shared__ float4 smem4[];
+  const int HP = (H + 15) / 16 * 16, SA = HP + 8;
+  bf16* sA = reinterpret_cast<bf16*>(smem4);                  // [16][SA]
+  float* sL = reinterpret_cast<float*>(sA + kHeadTB * SA);    // [16][Vp]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, q = lane & 3;
+  const int r0 = blockIdx.x * kHeadTB;
+  for (int idx = threadIdx.x; idx < kHeadTB * HP; idx += kThreads) {
+    const int r = idx / HP, k = idx % HP;
+    sA[r * SA + k] = (r0 + r < R && k < H) ? h2[(size_t)(r0 + r) * H + k]
+                                           : __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+  const bf16* a_row = sA + (lane & 15) * SA + (lane >> 4) * 8;
+  const bool pairs = (H & 1) == 0;     // 4-byte loads of two k
+  // two bf16 of the lane's B column n (a row of w_outT) at k, k + 1
+  auto pair = [&](int n, int k) -> uint32_t {
+    if (n >= Vp || k >= H) return 0u;
+    const bf16* wr = w_outT + (size_t)n * H;
+    if (pairs) return __ldg(reinterpret_cast<const unsigned*>(wr + k));
+    const unsigned lo = __bfloat16_as_ushort(wr[k]);
+    const unsigned hi = k + 1 < H ? __bfloat16_as_ushort(wr[k + 1]) : 0u;
+    return lo | (hi << 16);
+  };
+  // warp w takes the 8-column tiles w + 8u, u < kHeadNT, of each pass:
+  // kHeadNT independent accumulators a k-step
+  const int ntiles = (Vp + 7) / 8;
+  for (int base = warp; base < ntiles; base += kWarps * kHeadNT) {
+    float c[kHeadNT][4] = {};
+    for (int k0 = 0; k0 < HP; k0 += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, a_row + k0);
+#pragma unroll
+      for (int u = 0; u < kHeadNT; ++u) {
+        const int n = (base + kWarps * u) * 8 + gq;   // the lane's B column
+        mma_bf16(c[u], a, pair(n, k0 + 2 * q), pair(n, k0 + 2 * q + 8));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kHeadNT; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = (base + kWarps * u) * 8 + 2 * q + (e & 1);
+        if (col < Vp)
+          sL[(size_t)(gq + 8 * (e >> 1)) * Vp + col] =
+              __fadd_rn(c[u][e], to_f32(b_out[col]));
+      }
+  }
+  __syncthreads();
+  ce_rows<kHeadTB>(sL, R, Vp, r0, tgt, g, nll, dlogits);
+}
+
 template <typename AT, typename WT>
 cudaError_t launch_ce_head(int R, int H, int Vp, const AT* h2,
                            const WT* w_out, const WT* b_out, const int* tgt,
                            const float* g, float* nll, float* dlogits,
-                           cudaStream_t s) {
-  const size_t smem =
-      smem_bytes<kHeadTB>(1, H) + (size_t)kHeadTB * Vp * sizeof(float);
-  cudaError_t err = allow_smem(ce_head<kHeadTB, AT, WT>, smem);
-  if (err != cudaSuccess) return err;
-  ce_head<kHeadTB, AT, WT>
-      <<<(R + kHeadTB - 1) / kHeadTB, kThreads, smem, s>>>(
-          R, H, Vp, h2, w_out, b_out, tgt, g, nll, dlogits);
-  return cudaGetLastError();
+                           cudaStream_t s, const WT* w_outT) {
+  if constexpr (!is_f32<AT> && !is_f32<WT>) {
+    if (w_outT == nullptr) return cudaErrorInvalidValue;
+    const size_t HP = (H + 15) / 16 * 16;
+    const size_t smem = kHeadTB * ((HP + 8) * sizeof(bf16) +
+                                   (size_t)Vp * sizeof(float));
+    cudaError_t err = allow_smem(ce_head_tc, smem);
+    if (err != cudaSuccess) return err;
+    ce_head_tc<<<(R + kHeadTB - 1) / kHeadTB, kThreads, smem, s>>>(
+        R, H, Vp, h2, w_outT, b_out, tgt, g, nll, dlogits);
+    return cudaGetLastError();
+  } else {
+    const size_t smem =
+        smem_bytes<kHeadTB>(1, H) + (size_t)kHeadTB * Vp * sizeof(float);
+    cudaError_t err = allow_smem(ce_head<kHeadTB, WT>, smem);
+    if (err != cudaSuccess) return err;
+    ce_head<kHeadTB, WT>
+        <<<(R + kHeadTB - 1) / kHeadTB, kThreads, smem, s>>>(
+            R, H, Vp, h2, w_out, b_out, tgt, g, nll, dlogits);
+    return cudaGetLastError();
+  }
 }
 
 template cudaError_t launch_ce_head<float, float>(int, int, int,
                                                   const float*, const float*,
                                                   const float*, const int*,
                                                   const float*, float*,
-                                                  float*, cudaStream_t);
+                                                  float*, cudaStream_t,
+                                                  const float*);
 template cudaError_t launch_ce_head<float, bf16>(int, int, int, const float*,
                                                  const bf16*, const bf16*,
                                                  const int*, const float*,
-                                                 float*, float*,
-                                                 cudaStream_t);
+                                                 float*, float*, cudaStream_t,
+                                                 const bf16*);
 template cudaError_t launch_ce_head<bf16, bf16>(int, int, int, const bf16*,
                                                 const bf16*, const bf16*,
                                                 const int*, const float*,
-                                                float*, float*, cudaStream_t);
+                                                float*, float*, cudaStream_t,
+                                                const bf16*);
 
 // The masses head over R = T*B rows of h2 (16 a block), row t*B + b.
 // Forward (g null): masses[t, k, b] = sum over range k of p. Backward (g

@@ -62,7 +62,13 @@
 // backward does from its h2 residual, pallas_gru.py:1652-1664), and
 // dlogits, dh2_head, inject, the dpre rows, the chains' dh and every
 // gradient stay float32; the caller rounds the gradients to bf16
-// (:1822-1828).
+// (:1822-1828). Every product runs on the tensor cores (mma_bf16.cuh): the
+// logits of two bf16 operands on one MMA (ce_head_tc), and the products of
+// a float32 operand with a bf16 one on three, the float32 one split into
+// three bf16 pieces: dh2_head = dlogits w_out^T and inject = dpre2x
+// w_ih2^T (gemm_nn), the chains' dh products (gru_bwd_chain) and the
+// weight gradients (gemm_tn), as the Pallas kernel's dots keep that
+// operand float32 (:1682-1684).
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
@@ -250,7 +256,7 @@ extern "C" int fader_decoder_ce_bwd_bf16(
   if (scratch_floats < fader_decoder_bwd_scratch_floats(T, B, H, Vp))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = launch_ce_head(T * B, H, Vp, h2_seq, w_out, b_out, tgt,
-                                   g, nullptr, dlogits, s);
+                                   g, nullptr, dlogits, s, w_outT);
   if (err != cudaSuccess) return (int)err;
   return (int)decoder_bwd_from_dlogits<bf16>(
       T, B, H, Vp, 1, tok, h1_seq, h2_seq, g41, g42, h1_0, w_hh1T, w_ih2T,

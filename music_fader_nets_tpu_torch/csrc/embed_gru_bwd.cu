@@ -71,16 +71,32 @@
 //
 // bf16 storage (mixed-precision training): the chain is instantiated on S,
 // the type of what it reads from the forward (stash, h_seq, h0) and of
-// w_hh. Loads widen to float; dh, the gate backward, the product and every
-// sum stay float32 and dpx / dph / dh0 / dprez / dW_emb / db_hh are
-// written in float32, as the Pallas kernels keep dpre_x, dpre_h and their
+// w_hh. Loads widen to float; dh, the gate backward and every sum stay
+// float32 and dpx / dph / dh0 / dprez / dW_emb / db_hh are written in
+// float32, as the Pallas kernels keep dpre_x, dpre_h and their
 // accumulators in f32 scratch (pallas_gru.py:596-603); the caller rounds
 // what the Pallas kernels return in the input's dtype. The backward thus
 // recomputes from the bf16-rounded h_seq and gate stash, as the Pallas
 // backward does (:566-570), while the forward ran on the float32 carry.
+// The product dh += dph @ w_hh^T pairs the float32 dph with the bf16
+// weight, as the Pallas kernels' dot does (:589, preferred f32): in bf16 it
+// runs on the tensor cores. The block keeps its 32 columns of w_hh^T as
+// bf16 (3H x 32, 96 KB at H = 512, rows zero-padded to a multiple of 128;
+// 16-byte chunks XOR-swizzled by row so that ldmatrix's 8 rows fall on
+// distinct banks); warp (set, half) takes 16 k rows of each slab (KT =
+// kSets * 16 rows) and rows half*WR .. +WR of the tile, copies its dph rows
+// through its own cp.async ring (rows padded to WR + 4 floats: its
+// fragment reads fall on distinct banks), splits them into three bf16
+// pieces and runs mma.sync.m16n8k16 (three a product, mma_bf16.cuh) over
+// its WR x 32 outputs; the sets' partial tiles are added in set order as
+// in the float path. The gate phase, the barrier and the epilogue are the
+// float path's. Kernel 2's bf16 backward (stacked_gru.cu) reads no stash:
+// with pre_h given, the chain rebuilds r, z, n and hn from pre and pre_h =
+// h_prev @ w_hh + b_hh, as pallas_gru.py::_bwd_kernel does (:254-263).
 #include <type_traits>
 
 #include "gru_tile.cuh"
+#include "mma_bf16.cuh"
 #include "train_ops.cuh"
 
 namespace fader {
@@ -95,6 +111,13 @@ constexpr int kWarpRows = 32;     // most rows of the tile one warp multiplies
 constexpr int kChainGPad = 64;    // the weights' k is zero-padded to this
 // ring | transpose buffer | partial tiles share these floats of a block
 constexpr int kChainBuf = kWarps * kChainStages * kWarpK * kWarpRows;
+// the bf16 chain's product (tensor cores): k rows of a slab one warp
+// multiplies (an MMA's depth), the weights' k padding, and a warp's ring
+// rows (floats), whose buffer the transpose and partial tiles share
+constexpr int kTcK = 16;
+constexpr int kTcGPad = 128;
+constexpr int kTcRow = kWarpRows + 4;
+constexpr int kChainBufTc = kWarps * kChainStages * kTcK * kTcRow;
 
 template <typename S>
 struct ChainParams {
@@ -111,6 +134,8 @@ struct ChainParams {
   float* dh0;
   float* dphT;          // (2, L, 3H, Bp): dph[t] of step parity t & 1, k-major
   unsigned* counters;   // one per (direction, row tile), kCtrStride apart
+  const S* pre;         // bf16 with pre_h: (L, T, B, 3H) read in place of
+  const float* pre_h;   // the stash (kernel 2's recompute), else null
 };
 
 // ----------------------------------------------------------------------
@@ -213,17 +238,27 @@ __device__ __forceinline__ void seq_stage_w_hh(
   }
 }
 
-// The same from a bf16 w_hh, read and widened directly (a cp.async moves 4
-// bytes at least): coalesced reads, strided stores.
-__device__ __forceinline__ void seq_stage_w_hh(const SeqChainParams<bf16>& p,
-                                               float* sW, float*, int l,
-                                               int c0, int Gp) {
-  const int H = p.H, G = 3 * H;
-  const bf16* wl = p.w_hh + (size_t)l * H * G;
+// The bf16 chain's weight slab: element (k, c) of the block's w_hh^T
+// columns at k * 32 + its swizzled column (the 16-byte chunk c / 8 of row
+// k stored at chunk (c / 8) ^ ((k / 2) % 4)).
+__device__ __forceinline__ int swz(int k, int c) {
+  return k * kChainCols + ((((c >> 3) ^ (k >> 1)) & 3) << 3) + (c & 7);
+}
+
+// sWb[k][c] = w_hh[l][c0 + c][k] (zero past G or H), bf16 as stored: from
+// w_hhT (k-major, `k_major`; reads coalesced over c) or w_hh (the
+// sub-decoders' mode; reads coalesced over k).
+__device__ __forceinline__ void stage_w_bf16(const bf16* wl, bool k_major,
+                                             bf16* sWb, int H, int c0,
+                                             int Gp) {
+  const int G = 3 * H;
   for (int idx = threadIdx.x; idx < kChainCols * Gp; idx += kThreads) {
-    const int c = idx / Gp, k = idx % Gp;
-    sW[(size_t)k * kChainCols + c] =
-        (k < G && c0 + c < H) ? to_f32(wl[(size_t)(c0 + c) * G + k]) : 0.f;
+    const int k = k_major ? idx / kChainCols : idx % Gp;
+    const int c = k_major ? idx % kChainCols : idx / Gp;
+    bf16 v = __float2bfloat16_rn(0.f);
+    if (k < G && c0 + c < H)
+      v = k_major ? wl[(size_t)k * H + c0 + c] : wl[(size_t)(c0 + c) * G + k];
+    sWb[swz(k, c)] = v;
   }
   __syncthreads();
 }
@@ -341,9 +376,20 @@ __device__ __forceinline__ void seq_finish(const SeqChainParams<S>& p,
   }
 }
 
+// k rows of the block's weight slab (3H zero-padded)
+template <typename S>
+__host__ __device__ inline int chain_gp(int H) {
+  constexpr int pad = is_f32<S> ? kChainGPad : kTcGPad;
+  return (3 * H + pad - 1) / pad * pad;
+}
+
+template <typename S>
 inline size_t chain_smem_bytes(int H) {
-  const size_t Gp = (size_t)(3 * H + kChainGPad - 1) / kChainGPad * kChainGPad;
-  return (Gp * kChainCols + kChainBuf) * sizeof(float);
+  const size_t Gp = chain_gp<S>(H);
+  if constexpr (is_f32<S>)
+    return (Gp * kChainCols + kChainBuf) * sizeof(float);
+  else
+    return Gp * kChainCols * sizeof(bf16) + kChainBufTc * sizeof(float);
 }
 
 template <int RB, bool kSeq, typename S>
@@ -358,13 +404,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kSets = kWarps / kHalves;     // warps that split a slab's k
   constexpr int KK = kSets * kWarpK;          // k rows of a slab
   constexpr int kTStride = 3 * kChainCols + 1;   // float4s a quad of sT
-  static_assert(NQ * kTStride * 4 <= kChainBuf, "transpose buffer fits");
-  static_assert(kSets * RB * kChainCols <= kChainBuf, "partial tiles fit");
+  constexpr int kBuf = is_f32<S> ? kChainBuf : kChainBufTc;
+  static_assert(NQ * kTStride * 4 <= kBuf, "transpose buffer fits");
+  static_assert(kSets * RB * kChainCols <= kBuf, "partial tiles fit");
   extern __shared__ float4 smem4[];
   const int T = p.T, B = p.B, H = p.H, G = 3 * H, Bp = p.Bp;
-  const int Gp = (G + kChainGPad - 1) / kChainGPad * kChainGPad;
-  float* sW = reinterpret_cast<float*>(smem4);       // [Gp][32]
-  float* buf = sW + (size_t)Gp * kChainCols;         // ring | sT | red
+  const int Gp = chain_gp<S>(H);
+  float* sW = reinterpret_cast<float*>(smem4);       // [Gp][32] (float)
+  bf16* sWb = reinterpret_cast<bf16*>(smem4);        // [Gp][32] (bf16)
+  float* buf;                                        // ring | sT | red
+  if constexpr (is_f32<S>)
+    buf = sW + (size_t)Gp * kChainCols;
+  else
+    buf = reinterpret_cast<float*>(sWb + (size_t)Gp * kChainCols);
   const int l = blockIdx.z, b0 = blockIdx.y * RB, c0 = blockIdx.x * kChainCols;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int j = c0 + lane;
@@ -372,7 +424,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t BH = (size_t)B * H;
 
   const S* wl = p.w_hhT + (size_t)l * G * H;
-  if constexpr (kSeq) {
+  if constexpr (!is_f32<S>) {
+    if constexpr (kSeq)
+      stage_w_bf16(p.w_hh + (size_t)l * H * G, false, sWb, H, c0, Gp);
+    else
+      stage_w_bf16(wl, true, sWb, H, c0, Gp);
+  } else if constexpr (kSeq) {
     seq_stage_w_hh(p, sW, buf, l, c0, Gp);
   } else {
     for (int idx = tid; idx < Gp * kChainCols; idx += kThreads) {
@@ -394,11 +451,26 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int b = b0 + chain_row<RB>(warp, i);
       in_r[i] = in_z[i] = in_n[i] = in_hn[i] = in_hp[i] = in_g[i] = 0.f;
       if (col_ok && b < B) {
-        const S* st = p.stash + (((size_t)l * T + t) * B + b) * 4 * H;
-        in_r[i] = to_f32(st[j]);
-        in_z[i] = to_f32(st[H + j]);
-        in_n[i] = to_f32(st[2 * H + j]);
-        in_hn[i] = to_f32(st[3 * H + j]);
+        bool stashed = true;
+        if constexpr (!is_f32<S>) {
+          if (p.pre_h != nullptr) {   // kernel 2: r, z, n from pre, pre_h
+            const size_t at = (((size_t)l * T + t) * B + b) * G;
+            const S* px = p.pre + at;
+            const float* ph = p.pre_h + at;
+            gru_gates(to_f32(px[j]), to_f32(px[H + j]), to_f32(px[2 * H + j]),
+                      ph[j], ph[H + j], ph[2 * H + j], 0.f, in_r[i],
+                      in_z[i], in_n[i]);
+            in_hn[i] = ph[2 * H + j];
+            stashed = false;
+          }
+        }
+        if (stashed) {
+          const S* st = p.stash + (((size_t)l * T + t) * B + b) * 4 * H;
+          in_r[i] = to_f32(st[j]);
+          in_z[i] = to_f32(st[H + j]);
+          in_n[i] = to_f32(st[2 * H + j]);
+          in_hn[i] = to_f32(st[3 * H + j]);
+        }
         in_hp[i] = to_f32(hp[(size_t)b * H + j]);
         if (add_g) in_g[i] = gt[(size_t)b * H + j];
       }
@@ -408,12 +480,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned* ctr = p.counters + (l * gridDim.y + blockIdx.y) * kCtrStride;
   const unsigned group = gridDim.x;     // blocks that share this row tile
   // product phase: warp (set, half) multiplies k = set*8 .. set*8+7 of each
-  // slab with rows half*WR .. +WR of the tile, which it alone loads into a
-  // ring of its own; lane (ry, cx) holds rows ry*LR .. +LR of those and
-  // columns cx*4 .. +4
+  // slab (bf16: set*16 .. set*16+15) with rows half*WR .. +WR of the tile,
+  // which it alone loads into a ring of its own; lane (ry, cx) holds rows
+  // ry*LR .. +LR of those and columns cx*4 .. +4 (bf16: MMA fragments)
   const int set = warp / kHalves, half = warp % kHalves;
   const int ry = lane >> 3, cx = lane & 7;
-  float* ring = buf + warp * (kChainStages * kWarpK * WR);
+  float* ring = buf + warp * (is_f32<S> ? kChainStages * kWarpK * WR
+                                        : kChainStages * kTcK * kTcRow);
 
   float dh[RT] = {};
   typename std::conditional<kSeq, SeqSums<RT>, NoSums>::type seq;
@@ -506,71 +579,152 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
 
-    // ---- acc = dph[t] (rows of the tile) @ w_hh^T (the block's columns)
-    const float* src = dT + half * WR;
-    auto fill_slab = [&](int sl) {
-      float* dst = ring + (sl % kChainStages) * (kWarpK * WR);
+    // ---- acc = dph[t] (rows of the tile) @ w_hh^T (the block's columns);
+    // the sets' partial tiles into red [set][RB][32]
+    float* red = buf;
+    if constexpr (is_f32<S>) {
+      const float* src = dT + half * WR;
+      auto fill_slab = [&](int sl) {
+        float* dst = ring + (sl % kChainStages) * (kWarpK * WR);
 #pragma unroll
-      for (int n = 0; n < kWarpK * WR / 4 / 32; ++n) {
-        const int idx = lane + n * 32;
-        const int kk = idx / (WR / 4), quad = idx % (WR / 4);
-        const int k = sl * KK + set * kWarpK + kk;
-        cp_async<16>(dst + kk * WR + 4 * quad,
-                     k < G ? src + (size_t)k * Bp + 4 * quad : src,
-                     k < G ? 16 : 0);
-      }
-    };
-    const int nslab = Gp / KK;
-    float acc[LR][4] = {};
-#pragma unroll
-    for (int sl = 0; sl < kChainStages - 1; ++sl) {
-      if (sl < nslab) fill_slab(sl);
-      cp_async_commit();
-    }
-    for (int sl = 0; sl < nslab; ++sl) {
-      cp_async_wait<kChainStages - 2>();
-      // the warp's own copies have landed and its lanes have left the
-      // stage that is refilled next
-      __syncwarp();
-      if (sl + kChainStages - 1 < nslab) fill_slab(sl + kChainStages - 1);
-      cp_async_commit();
-      const float* as =
-          ring + (sl % kChainStages) * (kWarpK * WR) + ry * LR;
-      const float* ws =
-          sW + ((size_t)sl * KK + set * kWarpK) * kChainCols + cx * 4;
-#pragma unroll
-      for (int kk = 0; kk < kWarpK; ++kk) {
-        float a[LR];
-#pragma unroll
-        for (int q = 0; q < LR / 4; ++q) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(as + kk * WR + 4 * q);
-          a[4 * q] = v.x;
-          a[4 * q + 1] = v.y;
-          a[4 * q + 2] = v.z;
-          a[4 * q + 3] = v.w;
+        for (int n = 0; n < kWarpK * WR / 4 / 32; ++n) {
+          const int idx = lane + n * 32;
+          const int kk = idx / (WR / 4), quad = idx % (WR / 4);
+          const int k = sl * KK + set * kWarpK + kk;
+          cp_async<16>(dst + kk * WR + 4 * quad,
+                       k < G ? src + (size_t)k * Bp + 4 * quad : src,
+                       k < G ? 16 : 0);
         }
-        const float4 w =
-            *reinterpret_cast<const float4*>(ws + kk * kChainCols);
+      };
+      const int nslab = Gp / KK;
+      float acc[LR][4] = {};
 #pragma unroll
-        for (int i = 0; i < LR; ++i) {
-          acc[i][0] = fmaf(a[i], w.x, acc[i][0]);
-          acc[i][1] = fmaf(a[i], w.y, acc[i][1]);
-          acc[i][2] = fmaf(a[i], w.z, acc[i][2]);
-          acc[i][3] = fmaf(a[i], w.w, acc[i][3]);
+      for (int sl = 0; sl < kChainStages - 1; ++sl) {
+        if (sl < nslab) fill_slab(sl);
+        cp_async_commit();
+      }
+      for (int sl = 0; sl < nslab; ++sl) {
+        cp_async_wait<kChainStages - 2>();
+        // the warp's own copies have landed and its lanes have left the
+        // stage that is refilled next
+        __syncwarp();
+        if (sl + kChainStages - 1 < nslab) fill_slab(sl + kChainStages - 1);
+        cp_async_commit();
+        const float* as =
+            ring + (sl % kChainStages) * (kWarpK * WR) + ry * LR;
+        const float* ws =
+            sW + ((size_t)sl * KK + set * kWarpK) * kChainCols + cx * 4;
+#pragma unroll
+        for (int kk = 0; kk < kWarpK; ++kk) {
+          float a[LR];
+#pragma unroll
+          for (int q = 0; q < LR / 4; ++q) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(as + kk * WR + 4 * q);
+            a[4 * q] = v.x;
+            a[4 * q + 1] = v.y;
+            a[4 * q + 2] = v.z;
+            a[4 * q + 3] = v.w;
+          }
+          const float4 w =
+              *reinterpret_cast<const float4*>(ws + kk * kChainCols);
+#pragma unroll
+          for (int i = 0; i < LR; ++i) {
+            acc[i][0] = fmaf(a[i], w.x, acc[i][0]);
+            acc[i][1] = fmaf(a[i], w.y, acc[i][1]);
+            acc[i][2] = fmaf(a[i], w.z, acc[i][2]);
+            acc[i][3] = fmaf(a[i], w.w, acc[i][3]);
+          }
         }
       }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    // ---- add the sets' partial tiles in set order; dh = dh*z + sum
-    float* red = buf;                                // [set][RB][32]
+      cp_async_wait<0>();
+      __syncthreads();
 #pragma unroll
-    for (int i = 0; i < LR; ++i)
-      *reinterpret_cast<float4*>(
-          red + ((size_t)set * RB + half * WR + ry * LR + i) * kChainCols +
-          cx * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      for (int i = 0; i < LR; ++i)
+        *reinterpret_cast<float4*>(
+            red + ((size_t)set * RB + half * WR + ry * LR + i) * kChainCols +
+            cx * 4) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+      constexpr int KT = kSets * kTcK;       // k rows of a slab
+      constexpr int RS = WR + 4;             // floats a k-row of the ring
+      constexpr int MT = WR / 16;            // the warp's 16-row MMA tiles
+      const float* src = dT + half * WR;
+      auto fill_slab = [&](int sl) {
+        float* dst = ring + (sl % kChainStages) * (kTcK * RS);
+#pragma unroll
+        for (int n = 0; n < kTcK * WR / 4 / 32; ++n) {
+          const int idx = lane + n * 32;
+          const int kk = idx / (WR / 4), quad = idx % (WR / 4);
+          const int k = sl * KT + set * kTcK + kk;
+          cp_async<16>(dst + kk * RS + 4 * quad,
+                       k < G ? src + (size_t)k * Bp + 4 * quad : src,
+                       k < G ? 16 : 0);
+        }
+      };
+      const int nslab = Gp / KT;
+      float acc[MT][4][4] = {};
+#pragma unroll
+      for (int sl = 0; sl < kChainStages - 1; ++sl) {
+        if (sl < nslab) fill_slab(sl);
+        cp_async_commit();
+      }
+      const int g = lane >> 2, q = lane & 3;
+      // lane's ldmatrix.trans row of the weights: k (lane % 8) + ((lane /
+      // 8) % 2) * 8, columns (lane / 16) * 8 (+ 16 for columns 16 .. 31)
+      const int bk = (lane & 7) + ((lane >> 3) & 1) * 8, bc = (lane >> 4) * 8;
+      for (int sl = 0; sl < nslab; ++sl) {
+        cp_async_wait<kChainStages - 2>();
+        __syncwarp();
+        if (sl + kChainStages - 1 < nslab) fill_slab(sl + kChainStages - 1);
+        cp_async_commit();
+        const int k0 = sl * KT + set * kTcK;
+        uint32_t bw[8];       // B fragments of the 4 column tiles
+        {
+          uint32_t r[4];
+          ldsm_x4_trans(r, sWb + swz(k0 + bk, bc));
+          bw[0] = r[0], bw[1] = r[1], bw[2] = r[2], bw[3] = r[3];
+          ldsm_x4_trans(r, sWb + swz(k0 + bk, bc + 16));
+          bw[4] = r[0], bw[5] = r[1], bw[6] = r[2], bw[7] = r[3];
+        }
+        // the A fragment of rows g (+8), k 2q (+1, +8, +9): ring[k][row]
+        const float* as =
+            ring + (sl % kChainStages) * (kTcK * RS) + 2 * q * RS + g;
+        uint32_t ap[3][MT][4];    // pieces hi, mid, lo of each row tile
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* a = as + 16 * mt;
+          split3(a[0], a[RS], ap[0][mt][0], ap[1][mt][0], ap[2][mt][0]);
+          split3(a[8], a[RS + 8], ap[0][mt][1], ap[1][mt][1], ap[2][mt][1]);
+          split3(a[8 * RS], a[9 * RS], ap[0][mt][2], ap[1][mt][2],
+                 ap[2][mt][2]);
+          split3(a[8 * RS + 8], a[9 * RS + 8], ap[0][mt][3], ap[1][mt][3],
+                 ap[2][mt][3]);
+        }
+        // piece-major (lo, mid, hi): 4 * MT independent MMAs between two
+        // into one accumulator
+#pragma unroll
+        for (int pc = 2; pc >= 0; --pc)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              mma_bf16(acc[mt][nt], ap[pc][mt], bw[2 * nt], bw[2 * nt + 1]);
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float* rp = red + ((size_t)set * RB + half * WR + 16 * mt + g) *
+                                kChainCols + 8 * nt + 2 * q;
+          *reinterpret_cast<float2*>(rp) =
+              make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+          *reinterpret_cast<float2*>(rp + 8 * kChainCols) =
+              make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+        }
+    }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
@@ -599,7 +753,7 @@ cudaError_t try_chain(const ChainParamsOf<kSeq, S>& p, bool* fits,
   const dim3 grid((p.H + kChainCols - 1) / kChainCols, (p.B + RB - 1) / RB,
                   p.L);
   return try_cooperative(gru_bwd_chain<RB, kSeq, S>, grid,
-                         chain_smem_bytes(p.H), p, fits, s);
+                         chain_smem_bytes<S>(p.H), p, fits, s);
 }
 
 // the smallest row tile whose whole grid is resident at once
@@ -640,7 +794,8 @@ cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
                                  int g_every_step, const S* stash,
                                  const S* h_seq, const S* h0,
                                  const S* w_hhT, float* dpx, float* dph,
-                                 float* dh0, float* scratch, cudaStream_t s) {
+                                 float* dh0, float* scratch, cudaStream_t s,
+                                 const S* pre, const float* pre_h) {
   const long long nctr = chain_counter_floats(L, B);
   cudaError_t err = cudaMemsetAsync(scratch, 0, nctr * sizeof(float), s);
   if (err != cudaSuccess) return err;
@@ -648,18 +803,19 @@ cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
                          g,     g_ls,  g_ts,  g_every_step,
                          stash, h_seq, h0,    w_hhT,
                          dpx,   dph,   dh0,   scratch + nctr,
-                         reinterpret_cast<unsigned*>(scratch)};
+                         reinterpret_cast<unsigned*>(scratch),
+                         pre,   pre_h};
   return launch_chain<false, S>(p, s);
 }
 
 template cudaError_t launch_gru_bwd_chain<float>(
     int, int, int, int, const float*, long long, long long, int,
     const float*, const float*, const float*, const float*, float*, float*,
-    float*, float*, cudaStream_t);
+    float*, float*, cudaStream_t, const float*, const float*);
 template cudaError_t launch_gru_bwd_chain<bf16>(
     int, int, int, int, const float*, long long, long long, int, const bf16*,
     const bf16*, const bf16*, const bf16*, float*, float*, float*, float*,
-    cudaStream_t);
+    cudaStream_t, const bf16*, const float*);
 
 }  // namespace fader
 

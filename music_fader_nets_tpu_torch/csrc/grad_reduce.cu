@@ -39,15 +39,25 @@
 //
 // bf16 operands (mixed-precision training): gemm_tn's A (the h_prev rows,
 // from the bf16 h_seq) and gemm_nn's B (a bf16 weight) may be bf16. Those
-// are not copied by cp.async but loaded into registers a ring stage ahead
-// (8 bf16, 16 bytes, a load on the vector path: M or N a multiple of 8 and
-// 16-byte aligned rows; else one element a load, which takes any shape),
-// widened and stored into the same float32 slab after the stage in hand is
-// multiplied; everything else, the float32 accumulation and the sums, is
-// the float path's. The dpre operands and all results stay float32.
+// instantiations run on the tensor cores (gemm_tn_tc_kernel,
+// gemm_nn_tc_kernel; mma.sync.m16n8k16, mma_bf16.cuh): the bf16 operand
+// lands in shared memory by 16-byte cp.async copies (8 bf16) and enters
+// the MMAs unsplit, through ldmatrix; the float32 operand (dpre, dlogits,
+// the float32 h1) lands as it does for the float path and is split into
+// three bf16 pieces as it goes from shared memory into fragments, three
+// MMAs a product, so each product is the float32 one to float32 rounding
+// (the Pallas kernels keep that operand float32). A block owns the same
+// 128 x 128 output tile with the same 16-deep k-slabs and ring, 8 warps of
+// 64 x 32 (gemm_tn) or 32 x 64 (gemm_nn) outputs; the split-K plan, the
+// partial tiles' ordered sum and the column sums are the float path's.
+// gemm_nn_tc_kernel also takes bf16 A rows (one MMA a product) and a bias:
+// the bf16 stacked GRU's backward recomputes pre_h = h_prev @ w_hh + b_hh
+// with it (gemm_nn_bf16). The float32 instantiations are the CUDA-core
+// kernels as they were.
 #include <stdint.h>
 
 #include "gru_tile.cuh"
+#include "mma_bf16.cuh"
 #include "train_ops.cuh"
 
 namespace fader {
@@ -61,25 +71,13 @@ constexpr int kMinSplitK = 256;   // least k rows worth a split of their own
 constexpr size_t kGemmSmem =
     (size_t)kStages * kBK * (kBM + kBN) * sizeof(float);
 
-// Widen 8 bf16 held in a uint4 into 8 floats at dst (16-byte aligned).
-__device__ __forceinline__ void widen8(float* dst, const uint4& v) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 // C_part[l, sp] (M, N) = sum over k in [sp*kchunk, (sp+1)*kchunk) of
 // A(k, m) B[l](k, n); blockIdx.z = l * S + sp. VEC: 16-byte copies (M, N,
-// the strides and the base addresses are multiples of 4 floats; for a bf16
-// A, M, lda and the strides multiples of 8), else 4-byte copies.
-template <bool VEC, typename AT>
+// the strides and the base addresses are multiples of 4 floats), else
+// 4-byte copies.
+template <bool VEC>
 __global__ void __launch_bounds__(256, 2)
-    gemm_tn_kernel(int M, int N, int K, int S, int kchunk, SplitRowsT<AT> a,
+    gemm_tn_kernel(int M, int N, int K, int S, int kchunk, SplitRows a,
                    const float* __restrict__ b, long long b_ls,
                    float* __restrict__ c, long long c_ls, long long c_ss) {
   extern __shared__ float4 smem4[];
@@ -93,16 +91,12 @@ __global__ void __launch_bounds__(256, 2)
   const int kend = min(K, kbeg + kchunk);
   const int nslab = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
   const float* bl = b + l * b_ls;
-  const AT* a0l = a.a0 + l * a.a0_ls;
-  const AT* a1l = a.a1 + l * a.a1_ls;
+  const float* a0l = a.a0 + l * a.a0_ls;
+  const float* a1l = a.a1 + l * a.a1_ls;
 
   constexpr int W = VEC ? 4 : 1;              // floats a copy
   constexpr int kPerRow = kBM / W;            // copies a k-row (kBM == kBN)
   constexpr int kCopies = kBK * kPerRow / 256;
-  // a bf16 A: elements a register load, loads a thread and slab
-  constexpr int WA = VEC ? 8 : 1;
-  constexpr int kALoads = kBK * kBM / WA / 256;
-  float areg[kALoads * WA];   // a stage of it, from its load to its store
   auto a_row = [&](int k) {
     return (k < a.n0) ? a0l + (long long)k * a.lda
                       : a1l + (long long)(k - a.n0) * a.lda;
@@ -116,52 +110,20 @@ __global__ void __launch_bounds__(256, 2)
       const int idx = tid + i * 256;
       const int kk = idx / kPerRow, col = (idx % kPerRow) * W;
       const int k = k0 + kk;
-      if constexpr (is_f32<AT>) {
-        const bool a_ok = k < kend && m0 + col < M;
-        cp_async<4 * W>(as + kk * kBM + col, a_ok ? a_row(k) + m0 + col : bl,
-                        a_ok ? 4 * W : 0);
-      }
+      const bool a_ok = k < kend && m0 + col < M;
+      cp_async<4 * W>(as + kk * kBM + col, a_ok ? a_row(k) + m0 + col : bl,
+                      a_ok ? 4 * W : 0);
       const bool b_ok = k < kend && n0 + col < N;
       cp_async<4 * W>(bs + kk * kBN + col,
                       b_ok ? bl + (long long)k * N + n0 + col : bl,
                       b_ok ? 4 * W : 0);
-    }
-    if constexpr (!is_f32<AT>) {
-#pragma unroll
-      for (int i = 0; i < kALoads; ++i) {
-        const int idx = tid + i * 256;
-        const int kk = idx / (kBM / WA), col = (idx % (kBM / WA)) * WA;
-        const int k = k0 + kk;
-        const bool a_ok = k < kend && m0 + col < M;
-        if constexpr (VEC) {
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (a_ok) v = *reinterpret_cast<const uint4*>(a_row(k) + m0 + col);
-          widen8(areg + i * WA, v);
-        } else {
-          areg[i] = a_ok ? to_f32(a_row(k)[m0 + col]) : 0.f;
-        }
-      }
-    }
-  };
-  // a bf16 A's registers into stage sl's slab
-  auto store_a = [&](int sl) {
-    float* as = As + (sl % kStages) * kBK * kBM;
-#pragma unroll
-    for (int i = 0; i < kALoads; ++i) {
-      const int idx = tid + i * 256;
-      const int kk = idx / (kBM / WA), col = (idx % (kBM / WA)) * WA;
-#pragma unroll
-      for (int e = 0; e < WA; ++e) as[kk * kBM + col + e] = areg[i * WA + e];
     }
   };
 
   float acc[8][8] = {};
 #pragma unroll
   for (int sl = 0; sl < kStages - 1; ++sl) {
-    if (sl < nslab) {
-      fill_slab(sl);
-      if constexpr (!is_f32<AT>) store_a(sl);
-    }
+    if (sl < nslab) fill_slab(sl);
     cp_async_commit();
   }
   for (int sl = 0; sl < nslab; ++sl) {
@@ -169,8 +131,7 @@ __global__ void __launch_bounds__(256, 2)
     __syncthreads();
     // the stage refilled here was read in iteration sl - 1, which every
     // thread has left
-    const bool refill = sl + kStages - 1 < nslab;
-    if (refill) fill_slab(sl + kStages - 1);
+    if (sl + kStages - 1 < nslab) fill_slab(sl + kStages - 1);
     cp_async_commit();
     const float* as = As + (sl % kStages) * kBK * kBM + ty * 4;
     const float* bs = Bs + (sl % kStages) * kBK * kBN + tx * 4;
@@ -189,10 +150,6 @@ __global__ void __launch_bounds__(256, 2)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
     }
-    // (a bf16 A: that stage was read in iteration sl - 1 too)
-    if constexpr (!is_f32<AT>) {
-      if (refill) store_a(sl + kStages - 1);
-    }
   }
   cp_async_wait<0>();
 
@@ -209,6 +166,140 @@ __global__ void __launch_bounds__(256, 2)
       if (n < N) cl[(long long)m * N + n] = acc[i][j];
     }
   }
+}
+
+// gemm_tn_kernel with a bf16 A on the tensor cores (see the header). Slabs:
+// A [kBK][kTcAPad] bf16 (k-major, as stored: ldmatrix.trans gives the
+// row-major fragments; 272-byte rows keep its 8 rows on distinct banks), B
+// [kBK][kTcBPad] floats (132-float rows: a lane's four scalar reads, k =
+// 2q.., column g, fall on distinct banks). Warp w owns rows (w / 4) * 64
+// .. +64 and columns (w % 4) * 32 .. +32 of the tile: 4 x 4 MMA tiles, a B
+// fragment split once a slab and used by the 4 row tiles. VEC: 16-byte
+// copies (M, lda and the A strides multiples of 8 bf16; N, b_ls multiples
+// of 4 floats; 16-byte aligned bases), else element loads of A and 4-byte
+// copies of B.
+constexpr int kTcAPad = kBM + 8;
+constexpr int kTcBPad = kBN + 4;
+constexpr size_t kGemmTcSmem =
+    (size_t)kStages * kBK * (kTcAPad * sizeof(bf16) + kTcBPad * sizeof(float));
+
+template <bool VEC>
+__global__ void __launch_bounds__(256, 2)
+    gemm_tn_tc_kernel(int M, int N, int K, int S, int kchunk,
+                      SplitRowsT<bf16> a, const float* __restrict__ b,
+                      long long b_ls, float* __restrict__ c, long long c_ls,
+                      long long c_ss) {
+  extern __shared__ float4 smem4[];
+  bf16* As = reinterpret_cast<bf16*>(smem4);       // [stage][kBK][kTcAPad]
+  float* Bs = reinterpret_cast<float*>(As + kStages * kBK * kTcAPad);
+  const int l = blockIdx.z / S, sp = blockIdx.z % S;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int kbeg = sp * kchunk;
+  const int kend = min(K, kbeg + kchunk);
+  const int nslab = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
+  const float* bl = b + l * b_ls;
+  const bf16* a0l = a.a0 + l * a.a0_ls;
+  const bf16* a1l = a.a1 + l * a.a1_ls;
+  auto a_row = [&](int k) {
+    return (k < a.n0) ? a0l + (long long)k * a.lda
+                      : a1l + (long long)(k - a.n0) * a.lda;
+  };
+  auto fill_slab = [&](int sl) {
+    bf16* as = As + (sl % kStages) * kBK * kTcAPad;
+    float* bs = Bs + (sl % kStages) * kBK * kTcBPad;
+    const int k0 = kbeg + sl * kBK;
+    if constexpr (VEC) {
+      {   // A: 16 copies of 8 bf16 a k-row, one a thread
+        const int kk = tid / 16, col = (tid % 16) * 8, k = k0 + kk;
+        const bool ok = k < kend && m0 + col < M;
+        cp_async<16>(as + kk * kTcAPad + col, ok ? a_row(k) + m0 + col : a0l,
+                     ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {   // B: 32 copies of 4 floats a k-row
+        const int idx = tid + i * 256;
+        const int kk = idx / 32, col = (idx % 32) * 4, k = k0 + kk;
+        const bool ok = k < kend && n0 + col < N;
+        cp_async<16>(bs + kk * kTcBPad + col,
+                     ok ? bl + (long long)k * N + n0 + col : bl, ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBK * kBM / 256; ++i) {
+        const int idx = tid + i * 256;
+        const int kk = idx / kBM, col = idx % kBM, k = k0 + kk;
+        const bool a_ok = k < kend && m0 + col < M;
+        as[kk * kTcAPad + col] =
+            a_ok ? a_row(k)[m0 + col] : __float2bfloat16_rn(0.f);
+        const bool b_ok = k < kend && n0 + col < N;
+        cp_async<4>(bs + kk * kTcBPad + col,
+                    b_ok ? bl + (long long)k * N + n0 + col : bl,
+                    b_ok ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[4][4][4] = {};
+#pragma unroll
+  for (int sl = 0; sl < kStages - 1; ++sl) {
+    if (sl < nslab) fill_slab(sl);
+    cp_async_commit();
+  }
+  // lane's ldmatrix row: k (lane / 16) * 8 + lane % 8, rows + ((lane / 8)
+  // % 2) * 8 of the warp's 16-row tile
+  const int a_off = ((lane >> 4) * 8 + (lane & 7)) * kTcAPad + wm +
+                    ((lane >> 3) & 1) * 8;
+  for (int sl = 0; sl < nslab; ++sl) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (sl + kStages - 1 < nslab) fill_slab(sl + kStages - 1);
+    cp_async_commit();
+    const bf16* as = As + (sl % kStages) * kBK * kTcAPad + a_off;
+    const float* bs = Bs + (sl % kStages) * kBK * kTcBPad + wn + g;
+    uint32_t bh[4][2], bm[4][2], bo[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* p = bs + (2 * q + 8 * h) * kTcBPad + 8 * j;
+        split3(p[0], p[kTcBPad], bh[j][h], bm[j][h], bo[j][h]);
+      }
+    uint32_t af[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ldsm_x4_trans(af[i], as + 16 * i);
+    // piece-major: 16 independent MMAs between two into one accumulator
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bo[j][0], bo[j][1]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bm[j][0], bm[j][1]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bh[j][0], bh[j][1]);
+  }
+  cp_async_wait<0>();
+
+  float* cl = c + l * c_ls + sp * c_ss;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + 8 * j + 2 * q;
+        if (n < N) cl[(long long)m * N + n] = acc[i][j][2 * h];
+        if (n + 1 < N) cl[(long long)m * N + n + 1] = acc[i][j][2 * h + 1];
+      }
+    }
 }
 
 // c[l, i] = part[l, 0, i] + part[l, 1, i] + ... + part[l, S-1, i], i < n.
@@ -234,12 +325,11 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
 
 // C (M, N) = A (M, K) @ B (K, N), and + add[m, :] on rows m < add_rows; all
 // row-major and contiguous. VEC: 16-byte copies and stores (K, N and the
-// base addresses are multiples of 4 floats; for a bf16 B, N a multiple of
-// 8), else 4-byte ones.
-template <bool VEC, typename BT>
+// base addresses are multiples of 4 floats), else 4-byte ones.
+template <bool VEC>
 __global__ void __launch_bounds__(256, 2)
     gemm_nn_kernel(int M, int N, int K, const float* __restrict__ a,
-                   const BT* __restrict__ b, float* __restrict__ c,
+                   const float* __restrict__ b, float* __restrict__ c,
                    const float* __restrict__ add, int add_rows) {
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);     // [stage][kBM][kAPad]
@@ -252,10 +342,6 @@ __global__ void __launch_bounds__(256, 2)
   constexpr int W = VEC ? 4 : 1;              // floats a copy
   constexpr int kACopies = kBM * kBK / W / 256;
   constexpr int kBCopies = kBK * kBN / W / 256;
-  // a bf16 B: elements a register load, loads a thread and slab
-  constexpr int WB = VEC ? 8 : 1;
-  constexpr int kBLoads = kBK * kBN / WB / 256;
-  float breg[kBLoads * WB];   // a stage of it, from its load to its store
   auto fill_slab = [&](int sl) {
     float* as = As + (sl % kStages) * kBM * kAPad;
     float* bs = Bs + (sl % kStages) * kBK * kBN;
@@ -269,52 +355,21 @@ __global__ void __launch_bounds__(256, 2)
                       ok ? a + (long long)(m0 + row) * K + k0 + kc : a,
                       ok ? 4 * W : 0);
     }
-    if constexpr (is_f32<BT>) {
 #pragma unroll
-      for (int i = 0; i < kBCopies; ++i) {
-        const int idx = tid + i * 256;
-        const int kk = idx / (kBN / W), col = (idx % (kBN / W)) * W;
-        const bool ok = k0 + kk < K && n0 + col < N;
-        cp_async<4 * W>(bs + kk * kBN + col,
-                        ok ? b + (long long)(k0 + kk) * N + n0 + col : b,
-                        ok ? 4 * W : 0);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kBLoads; ++i) {
-        const int idx = tid + i * 256;
-        const int kk = idx / (kBN / WB), col = (idx % (kBN / WB)) * WB;
-        const bool ok = k0 + kk < K && n0 + col < N;
-        const BT* src = b + (long long)(k0 + kk) * N + n0 + col;
-        if constexpr (VEC) {
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (ok) v = *reinterpret_cast<const uint4*>(src);
-          widen8(breg + i * WB, v);
-        } else {
-          breg[i] = ok ? to_f32(*src) : 0.f;
-        }
-      }
-    }
-  };
-  // a bf16 B's registers into stage sl's slab
-  auto store_b = [&](int sl) {
-    float* bs = Bs + (sl % kStages) * kBK * kBN;
-#pragma unroll
-    for (int i = 0; i < kBLoads; ++i) {
+    for (int i = 0; i < kBCopies; ++i) {
       const int idx = tid + i * 256;
-      const int kk = idx / (kBN / WB), col = (idx % (kBN / WB)) * WB;
-#pragma unroll
-      for (int e = 0; e < WB; ++e) bs[kk * kBN + col + e] = breg[i * WB + e];
+      const int kk = idx / (kBN / W), col = (idx % (kBN / W)) * W;
+      const bool ok = k0 + kk < K && n0 + col < N;
+      cp_async<4 * W>(bs + kk * kBN + col,
+                      ok ? b + (long long)(k0 + kk) * N + n0 + col : b,
+                      ok ? 4 * W : 0);
     }
   };
 
   float acc[8][8] = {};
 #pragma unroll
   for (int sl = 0; sl < kStages - 1; ++sl) {
-    if (sl < nslab) {
-      fill_slab(sl);
-      if constexpr (!is_f32<BT>) store_b(sl);
-    }
+    if (sl < nslab) fill_slab(sl);
     cp_async_commit();
   }
   // thread (ty, tx) holds rows m0 + {0, 64} + ty*4 + 0..3 and columns
@@ -322,8 +377,7 @@ __global__ void __launch_bounds__(256, 2)
   for (int sl = 0; sl < nslab; ++sl) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
-    const bool refill = sl + kStages - 1 < nslab;
-    if (refill) fill_slab(sl + kStages - 1);
+    if (sl + kStages - 1 < nslab) fill_slab(sl + kStages - 1);
     cp_async_commit();
     const float* as = As + (sl % kStages) * kBM * kAPad + ty * 4 * kAPad;
     const float* bs = Bs + (sl % kStages) * kBK * kBN + tx * 4;
@@ -349,10 +403,6 @@ __global__ void __launch_bounds__(256, 2)
           for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai, br[j], acc[i][j]);
         }
       }
-    }
-    // (a bf16 B: that stage was read in iteration sl - 1 too)
-    if constexpr (!is_f32<BT>) {
-      if (refill) store_b(sl + kStages - 1);
     }
   }
   cp_async_wait<0>();
@@ -384,6 +434,184 @@ __global__ void __launch_bounds__(256, 2)
       }
     }
   }
+}
+
+// C[l] (M, N) = A[l] (M, K) @ B[l] (K, N) with a bf16 B on the tensor cores
+// (see the header), + add[m, :] on rows m < add_rows, + bias[l] (N) when
+// bias is not null. A's rows are a SplitRows of AT: float32 A is split into
+// three pieces (three MMAs a product), bf16 A enters unsplit (one). Slabs:
+// A [kBM][kTcRowPad] (row-major, as stored: float2 reads for a float32
+// fragment, ldmatrix for a bf16 one; 24-element rows keep both free of
+// bank conflicts), B [kBK][kTcAPad] bf16 (ldmatrix.trans). Warp w owns rows
+// (w / 2) * 32 .. +32 and columns (w % 2) * 64 .. +64 of the tile: 2 x 8
+// MMA tiles, an A fragment split once a slab and used by the 8 column
+// tiles. VEC: 16-byte copies (K, lda and the A strides multiples of 16
+// bytes' elements; N, b_ls multiples of 8; 16-byte aligned bases), else
+// 4-byte copies of a float32 A and element loads of the rest.
+constexpr int kTcRowPad = kBK + 8;
+
+template <typename AT>
+constexpr size_t gemm_nn_tc_smem() {
+  return (size_t)kStages *
+         (kBM * kTcRowPad * sizeof(AT) + kBK * kTcAPad * sizeof(bf16));
+}
+
+template <bool VEC, typename AT>
+__global__ void __launch_bounds__(256, 2)
+    gemm_nn_tc_kernel(int M, int N, int K, SplitRowsT<AT> a,
+                      const bf16* __restrict__ b, long long b_ls,
+                      float* __restrict__ c, long long c_ls,
+                      const float* __restrict__ add, int add_rows,
+                      const bf16* __restrict__ bias, long long bias_ls) {
+  extern __shared__ float4 smem4[];
+  AT* As = reinterpret_cast<AT*>(smem4);           // [stage][kBM][kTcRowPad]
+  bf16* Bs = reinterpret_cast<bf16*>(As + kStages * kBM * kTcRowPad);
+  const int l = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+  const int nslab = (K + kBK - 1) / kBK;
+  const AT* a0l = a.a0 + l * a.a0_ls;
+  const AT* a1l = a.a1 + l * a.a1_ls;
+  const bf16* bl = b + l * b_ls;
+  auto a_row = [&](int m) {
+    return (m < a.n0) ? a0l + (long long)m * a.lda
+                      : a1l + (long long)(m - a.n0) * a.lda;
+  };
+  auto fill_slab = [&](int sl) {
+    AT* as = As + (sl % kStages) * kBM * kTcRowPad;
+    bf16* bs = Bs + (sl % kStages) * kBK * kTcAPad;
+    const int k0 = sl * kBK;
+    if constexpr (VEC) {
+      constexpr int WA = 16 / sizeof(AT);       // A elements a copy
+      constexpr int kPer = kBK / WA;            // copies an A row
+#pragma unroll
+      for (int i = 0; i < kBM * kPer / 256; ++i) {
+        const int idx = tid + i * 256;
+        const int row = idx / kPer, kc = (idx % kPer) * WA;
+        const bool ok = m0 + row < M && k0 + kc < K;
+        cp_async<16>(as + row * kTcRowPad + kc,
+                     ok ? a_row(m0 + row) + k0 + kc : a0l, ok ? 16 : 0);
+      }
+      {   // B: 16 copies of 8 bf16 a k-row, one a thread
+        const int kk = tid / 16, col = (tid % 16) * 8;
+        const bool ok = k0 + kk < K && n0 + col < N;
+        cp_async<16>(bs + kk * kTcAPad + col,
+                     ok ? bl + (long long)(k0 + kk) * N + n0 + col : bl,
+                     ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBM * kBK / 256; ++i) {
+        const int idx = tid + i * 256;
+        const int row = idx / kBK, k = idx % kBK;
+        const bool ok = m0 + row < M && k0 + k < K;
+        if constexpr (is_f32<AT>)
+          cp_async<4>(as + row * kTcRowPad + k,
+                      ok ? a_row(m0 + row) + k0 + k : a0l, ok ? 4 : 0);
+        else
+          as[row * kTcRowPad + k] =
+              ok ? a_row(m0 + row)[k0 + k] : __float2bfloat16_rn(0.f);
+        const int kk = idx / kBN, col = idx % kBN;
+        const bool b_ok = k0 + kk < K && n0 + col < N;
+        bs[kk * kTcAPad + col] = b_ok ? bl[(long long)(k0 + kk) * N + n0 + col]
+                                      : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+
+  float acc[2][8][4] = {};
+#pragma unroll
+  for (int sl = 0; sl < kStages - 1; ++sl) {
+    if (sl < nslab) fill_slab(sl);
+    cp_async_commit();
+  }
+  // lane's ldmatrix.trans row of B: k (lane % 8) + ((lane / 8) % 2) * 8,
+  // columns + (lane / 16) * 8 (two 8-column tiles a call)
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kTcAPad + wn +
+                    (lane >> 4) * 8;
+  for (int sl = 0; sl < nslab; ++sl) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (sl + kStages - 1 < nslab) fill_slab(sl + kStages - 1);
+    cp_async_commit();
+    const AT* as = As + (sl % kStages) * kBM * kTcRowPad;
+    const bf16* bs = Bs + (sl % kStages) * kBK * kTcAPad + b_off;
+    if constexpr (is_f32<AT>) {
+      uint32_t ah[2][4], am[2][4], al[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* p = as + (wm + 16 * i + g) * kTcRowPad + 2 * q;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              p + (r & 1) * 8 * kTcRowPad + (r >> 1) * 8);
+          split3(v.x, v.y, ah[i][r], am[i][r], al[i][r]);
+        }
+      }
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, bs + 16 * jp);
+        // piece-major: 4 independent MMAs between two into one accumulator
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * jp], al[i], bf[0], bf[1]);
+          mma_bf16(acc[i][2 * jp + 1], al[i], bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * jp], am[i], bf[0], bf[1]);
+          mma_bf16(acc[i][2 * jp + 1], am[i], bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * jp], ah[i], bf[0], bf[1]);
+          mma_bf16(acc[i][2 * jp + 1], ah[i], bf[2], bf[3]);
+        }
+      }
+    } else {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4(af[i], as + (wm + 16 * i + (lane & 15)) * kTcRowPad +
+                           (lane >> 4) * 8);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, bs + 16 * jp);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * jp], af[i], bf[0], bf[1]);
+          mma_bf16(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* cl = c + l * c_ls;
+  const bf16* bsl = bias == nullptr ? nullptr : bias + l * bias_ls;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+      const bool plus = m < add_rows;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn + 8 * j + 2 * q + e;
+          if (n >= N) continue;
+          const long long at = (long long)m * N + n;
+          float v = acc[i][j][2 * h + e];
+          if (plus) v += add[at];
+          if (bsl != nullptr) v += to_f32(bsl[n]);
+          cl[at] = v;
+        }
+    }
 }
 
 __global__ void __launch_bounds__(256)
@@ -565,39 +793,85 @@ cudaError_t gemm_tn(int L, int M, int N, int K, SplitRowsT<AT> a,
   const bool vec = M % av == 0 && N % 4 == 0 && a.lda % av == 0 &&
                    a.a0_ls % av == 0 && a.a1_ls % av == 0 && b_ls % 4 == 0 &&
                    aligned16(a.a0) && aligned16(a.a1) && aligned16(b);
-  auto kernel = vec ? gemm_tn_kernel<true, AT> : gemm_tn_kernel<false, AT>;
-  cudaError_t err = allow_smem(kernel, kGemmSmem);
+  void (*kernel)(int, int, int, int, int, SplitRowsT<AT>, const float*,
+                 long long, float*, long long, long long);
+  size_t smem;
+  if constexpr (is_f32<AT>) {
+    kernel = vec ? gemm_tn_kernel<true> : gemm_tn_kernel<false>;
+    smem = kGemmSmem;
+  } else {
+    kernel = vec ? gemm_tn_tc_kernel<true> : gemm_tn_tc_kernel<false>;
+    smem = kGemmTcSmem;
+  }
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long mn = (long long)M * N;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, L * p.S);
   if (p.S == 1) {
-    kernel<<<grid, 256, kGemmSmem, s>>>(M, N, K, 1, p.kchunk, a, b, b_ls, c,
-                                        c_ls, 0);
+    kernel<<<grid, 256, smem, s>>>(M, N, K, 1, p.kchunk, a, b, b_ls, c, c_ls,
+                                   0);
     return cudaGetLastError();
   }
-  kernel<<<grid, 256, kGemmSmem, s>>>(M, N, K, p.S, p.kchunk, a, b, b_ls,
-                                      scratch, p.S * mn, mn);
+  kernel<<<grid, 256, smem, s>>>(M, N, K, p.S, p.kchunk, a, b, b_ls, scratch,
+                                 p.S * mn, mn);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid_sum((unsigned)((mn + 255) / 256), L);
   splitk_sum_kernel<<<grid_sum, 256, 0, s>>>(mn, p.S, scratch, c, c_ls);
   return cudaGetLastError();
 }
 
+namespace {
+
+template <typename AT>
+cudaError_t gemm_nn_tc(int L, int M, int N, int K, SplitRowsT<AT> a,
+                       const bf16* b, long long b_ls, float* c,
+                       long long c_ls, const float* add, int add_rows,
+                       const bf16* bias, long long bias_ls, cudaStream_t s) {
+  constexpr int av = 16 / sizeof(AT);        // A elements a 16-byte copy
+  const bool vec = K % av == 0 && a.lda % av == 0 && a.a0_ls % av == 0 &&
+                   a.a1_ls % av == 0 && N % 8 == 0 && b_ls % 8 == 0 &&
+                   aligned16(a.a0) && aligned16(a.a1) && aligned16(b);
+  auto kernel =
+      vec ? gemm_nn_tc_kernel<true, AT> : gemm_nn_tc_kernel<false, AT>;
+  constexpr size_t smem = gemm_nn_tc_smem<AT>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, L);
+  kernel<<<grid, 256, smem, s>>>(M, N, K, a, b, b_ls, c, c_ls, add,
+                                 add == nullptr ? 0 : add_rows, bias,
+                                 bias_ls);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 template <typename BT>
 cudaError_t gemm_nn(int M, int N, int K, const float* a, const BT* b,
                     float* c, const float* add, int add_rows,
                     cudaStream_t s) {
-  constexpr int bv = is_f32<BT> ? 4 : 8;     // B elements a 16-byte copy
-  const bool vec = K % 4 == 0 && N % bv == 0 && aligned16(a) &&
-                   aligned16(b) && aligned16(c) &&
-                   (add == nullptr || aligned16(add));
-  auto kernel = vec ? gemm_nn_kernel<true, BT> : gemm_nn_kernel<false, BT>;
-  cudaError_t err = allow_smem(kernel, kGemmNNSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1);
-  kernel<<<grid, 256, kGemmNNSmem, s>>>(M, N, K, a, b, c, add,
-                                        add == nullptr ? 0 : add_rows);
-  return cudaGetLastError();
+  if constexpr (!is_f32<BT>) {
+    return gemm_nn_tc<float>(1, M, N, K, SplitRowsT<float>{a, 0, M, a, 0, K},
+                             b, 0, c, 0, add, add_rows, nullptr, 0, s);
+  } else {
+    const bool vec = K % 4 == 0 && N % 4 == 0 && aligned16(a) &&
+                     aligned16(b) && aligned16(c) &&
+                     (add == nullptr || aligned16(add));
+    auto kernel = vec ? gemm_nn_kernel<true> : gemm_nn_kernel<false>;
+    cudaError_t err = allow_smem(kernel, kGemmNNSmem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1);
+    kernel<<<grid, 256, kGemmNNSmem, s>>>(M, N, K, a, b, c, add,
+                                          add == nullptr ? 0 : add_rows);
+    return cudaGetLastError();
+  }
+}
+
+cudaError_t gemm_nn_bf16(int L, int M, int N, int K, SplitRowsT<bf16> a,
+                         const bf16* b, long long b_ls, const bf16* bias,
+                         long long bias_ls, float* c, long long c_ls,
+                         cudaStream_t s) {
+  return gemm_nn_tc<bf16>(L, M, N, K, a, b, b_ls, c, c_ls, nullptr, 0, bias,
+                          bias_ls, s);
 }
 
 template cudaError_t gemm_tn<float>(int, int, int, int, SplitRowsT<float>,

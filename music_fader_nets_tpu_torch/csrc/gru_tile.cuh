@@ -67,9 +67,9 @@ constexpr size_t smem_bytes(int na, int K) {
 }
 
 // sA[k * (TB + 4) + r] = A[b0 + r, k], zero for rows past `rows`.
-template <int TB, typename AT = float>
+template <int TB>
 __device__ __forceinline__ void load_a_tile(float* sA,
-                                            const AT* __restrict__ A,
+                                            const float* __restrict__ A,
                                             int lda, int rows, int b0,
                                             int K) {
 #pragma unroll 8

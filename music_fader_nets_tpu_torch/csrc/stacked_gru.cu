@@ -34,11 +34,18 @@
 // chunked column sums (deterministic, no float atomics).
 //
 // The _bf16 entries are the mixed-precision variants (the JAX package's
-// bf16 objectives hand kernels 1/2 bf16 operands): pre, w_hh, b_hh, h0, the
-// h_seq output and the stash in bf16, the carry and every product and sum
-// float32 (gru_fwd_chain.cu, embed_gru_bwd.cu); the backward's g, dpre and
+// bf16 objectives hand kernels 1/2 bf16 operands): pre, w_hh, b_hh, h0 and
+// the h_seq output in bf16, the carry and every sum float32
+// (gru_fwd_chain.cu, embed_gru_bwd.cu); the backward's g, dpre and
 // gradients are float32, rounded to bf16 by the caller where the Pallas
-// kernel returns the input's dtype.
+// kernel returns the input's dtype. As the Pallas kernel 2 does
+// (pallas_gru.py:254-263), the bf16 backward reads no gate stash (the
+// forward writes none for it): it recomputes pre_h = h_prev @ w_hh + b_hh
+// in float32 over all T*B rows of a direction as one tensor-core GEMM of
+// the two bf16 operands (grad_reduce.cu::gemm_nn_bf16: one MMA a product,
+// exact products), and the chain rebuilds r, z, n and hn from pre and
+// pre_h; its own product and the dW_hh GEMM run on the tensor cores with
+// the float32 dpre_h split into three bf16 pieces.
 #include "gru_tile.cuh"
 #include "train_ops.cuh"
 
@@ -59,13 +66,16 @@ int stacked_gru_impl(int L, int T, int B, int H, const S* pre, const S* w_hh,
       nullptr, stash, scratch, static_cast<cudaStream_t>(stream));
 }
 
+// The backward from the chain on. With pre_h (bf16), the chain rebuilds
+// its gates from pre and pre_h in place of the stash.
 template <typename S>
 int stacked_gru_bwd_impl(int L, int T, int B, int H, const float* g,
                          const S* stash, const S* h_seq, const S* h0,
                          const S* w_hhT, float* dph, float* dpre,
                          float* dw_hh, float* db_hh, float* dh0,
                          float* scratch, long long scratch_floats,
-                         void* stream) {
+                         void* stream, const S* pre = nullptr,
+                         const float* pre_h = nullptr) {
   using namespace fader;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (scratch_floats < fader_gru_bwd_scratch_floats(L, T, B, H))
@@ -73,7 +83,7 @@ int stacked_gru_bwd_impl(int L, int T, int B, int H, const float* g,
   const long long BH = (long long)B * H, G = 3LL * H;
   cudaError_t err =
       launch_gru_bwd_chain<S>(L, T, B, H, g, T * BH, BH, 1, stash, h_seq, h0,
-                              w_hhT, dpre, dph, dh0, scratch, s);
+                              w_hhT, dpre, dph, dh0, scratch, s, pre, pre_h);
   if (err != cudaSuccess) return (int)err;
   float* red = scratch + chain_scratch_floats(L, B, H);
   const int R = T * B;
@@ -128,16 +138,29 @@ extern "C" int fader_stacked_gru_bwd(int L, int T, int B, int H,
                                      scratch_floats, stream);
 }
 
-// As fader_stacked_gru_bwd with bf16 stash, h_seq, h0 and w_hhT; g, the
-// scratch and every output float32.
+// The bf16 backward, without a stash: g (L,T,B,H) float32; pre
+// (L,T,B,3H), w_hh (L,H,3H), b_hh (L,3H), h_seq, h0 and w_hhT (L,3H,H)
+// bf16. Scratch: pre_h, dph (L,T,B,3H) float32; scratch_floats >=
+// fader_gru_bwd_scratch_floats(L,T,B,H). Outputs as fader_stacked_gru_bwd,
+// float32. pre_h = h_prev @ w_hh + b_hh first (one GEMM launch), then the
+// chain, the dW_hh GEMM and the column sums.
 extern "C" int fader_stacked_gru_bwd_bf16(
-    int L, int T, int B, int H, const float* g, const fader::bf16* stash,
+    int L, int T, int B, int H, const float* g, const fader::bf16* pre,
+    const fader::bf16* w_hh, const fader::bf16* b_hh,
     const fader::bf16* h_seq, const fader::bf16* h0,
-    const fader::bf16* w_hhT, float* dph, float* dpre, float* dw_hh,
-    float* db_hh, float* dh0, float* scratch, long long scratch_floats,
-    void* stream) {
-  return stacked_gru_bwd_impl<fader::bf16>(L, T, B, H, g, stash, h_seq, h0,
-                                           w_hhT, dph, dpre, dw_hh, db_hh,
-                                           dh0, scratch, scratch_floats,
-                                           stream);
+    const fader::bf16* w_hhT, float* pre_h, float* dph, float* dpre,
+    float* dw_hh, float* db_hh, float* dh0, float* scratch,
+    long long scratch_floats, void* stream) {
+  using namespace fader;
+  if (scratch_floats < fader_gru_bwd_scratch_floats(L, T, B, H))
+    return (int)cudaErrorInvalidValue;
+  const long long BH = (long long)B * H, G = 3LL * H;
+  const SplitRowsT<bf16> h_prev{h0, BH, B, h_seq, T * BH, H};
+  cudaError_t err = gemm_nn_bf16(L, T * B, (int)G, H, h_prev, w_hh, H * G,
+                                 b_hh, G, pre_h, T * BH * 3,
+                                 static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return stacked_gru_bwd_impl<bf16>(L, T, B, H, g, nullptr, h_seq, h0, w_hhT,
+                                    dph, dpre, dw_hh, db_hh, dh0, scratch,
+                                    scratch_floats, stream, pre, pre_h);
 }

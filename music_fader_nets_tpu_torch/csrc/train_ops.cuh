@@ -41,7 +41,12 @@ using SplitRows = SplitRowsT<float>;
 // holds chain_scratch_floats(L, B, H) floats. Fails (no other path is
 // taken) when the grid cannot be co-resident on the device or the weights
 // of a block do not fit its shared memory. S is the type of stash, h_seq,
-// h0 and w_hhT; g and what it writes are float32 (S = float or bf16).
+// h0 and w_hhT; g and what it writes are float32 (S = float or bf16). With
+// S = bf16 the product dph @ w_hh^T runs on the tensor cores (the float32
+// dph split into three bf16 pieces, mma_bf16.cuh), and with pre_h not null
+// the chain reads no stash: it rebuilds r, z, n and hn from pre (L, T, B,
+// 3H) and the float32 pre_h = h_prev @ w_hh + b_hh (L, T, B, 3H), as the
+// Pallas kernel 2 does (pallas_gru.py:254-263).
 long long chain_scratch_floats(int L, int B, int H);
 template <typename S>
 cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
@@ -49,7 +54,9 @@ cudaError_t launch_gru_bwd_chain(int L, int T, int B, int H, const float* g,
                                  int g_every_step, const S* stash,
                                  const S* h_seq, const S* h0,
                                  const S* w_hhT, float* dpx, float* dph,
-                                 float* dh0, float* scratch, cudaStream_t s);
+                                 float* dh0, float* scratch, cudaStream_t s,
+                                 const S* pre = nullptr,
+                                 const float* pre_h = nullptr);
 
 // The whole GRU forward recurrence of L chains in one persistent,
 // cooperatively launched kernel (gru_fwd_chain.cu): for t = 0 .. T-1, from
@@ -80,12 +87,14 @@ cudaError_t launch_gru_fwd_chain(int L, int T, int B, int H, const int* ids,
 // (softmax(logits) - onehot(tgt)) * g. h2 is AT, w_out and b_out WT:
 // (float, float), and with bf16 weights (float, bf16) for the forward,
 // whose h2 is the chain's float32 state, and (bf16, bf16) for the
-// backward, which reads the stored h2_seq.
+// backward, which reads the stored h2_seq. The (bf16, bf16) head computes
+// its logits on the tensor cores from w_outT (Vp, H), w_out transposed,
+// which it requires; the others read w_out.
 template <typename AT, typename WT>
 cudaError_t launch_ce_head(int R, int H, int Vp, const AT* h2,
                            const WT* w_out, const WT* b_out, const int* tgt,
                            const float* g, float* nll, float* dlogits,
-                           cudaStream_t s);
+                           cudaStream_t s, const WT* w_outT = nullptr);
 
 // Vocabulary ranges [lo, hi) of the masses head, at most kMaxRanges.
 constexpr int kMaxRanges = 4;
@@ -139,10 +148,11 @@ cudaError_t launch_decoder_recurrence_bf16(
 long long reduce_scratch_floats(int L, int M, int N, int K);
 
 // C[l] (M, N) = sum over k < K of A(k, m) B[l](k, n); A a SplitRows (K, M)
-// operand of AT (float or bf16, widened on load), B row-major (K, N) at
-// b + l*b_ls, C row-major at c + l*c_ls, both float32. K is split into
-// parts whose partial products go through `scratch` (reduce_scratch_floats)
-// and are added in a fixed order.
+// operand of AT, B row-major (K, N) at b + l*b_ls, C row-major at c +
+// l*c_ls, both float32. K is split into parts whose partial products go
+// through `scratch` (reduce_scratch_floats) and are added in a fixed
+// order. AT = float: float32 FMA; AT = bf16: the tensor cores, B split into
+// three bf16 pieces (grad_reduce.cu).
 template <typename AT>
 cudaError_t gemm_tn(int L, int M, int N, int K, SplitRowsT<AT> a,
                     const float* b, long long b_ls, float* c, long long c_ls,
@@ -150,12 +160,24 @@ cudaError_t gemm_tn(int L, int M, int N, int K, SplitRowsT<AT> a,
 
 // C (M, N) = A (M, K) @ B (K, N), all row-major and contiguous, and
 // C[m, :] += add[m, :] for m < add_rows when `add` is not null (the same
-// row-major (add_rows, N) layout). No atomics, no split of K. B is BT
-// (float or bf16, widened on load); A, C and add are float32.
+// row-major (add_rows, N) layout). No atomics, no split of K. B is BT; A,
+// C and add are float32. BT = float: float32 FMA; BT = bf16: the tensor
+// cores, A split into three bf16 pieces (grad_reduce.cu).
 template <typename BT>
 cudaError_t gemm_nn(int M, int N, int K, const float* a, const BT* b,
                     float* c, const float* add, int add_rows,
                     cudaStream_t s);
+
+// C[l] (M, N) = A[l] (M, K) @ B[l] (K, N) + bias[l] (N), for l < L: A a
+// SplitRows of bf16 rows (row m at a0 + l*a0_ls + m*lda for m < n0, else
+// a1 + l*a1_ls + (m - n0)*lda), B bf16 row-major at b + l*b_ls, bias bf16
+// at bias + l*bias_ls (or null), C float32 row-major at c + l*c_ls. One
+// bf16 MMA a product, float32 accumulation: the exact products of two bf16
+// operands.
+cudaError_t gemm_nn_bf16(int L, int M, int N, int K, SplitRowsT<bf16> a,
+                         const bf16* b, long long b_ls, const bf16* bias,
+                         long long bias_ls, float* c, long long c_ls,
+                         cudaStream_t s);
 
 // out[l, v, :] = sum over rows r with ids[l, r] == v of x[l, r, :], for
 // v < V, rows in increasing r (deterministic; no atomics). x rows are N

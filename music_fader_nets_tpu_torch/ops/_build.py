@@ -133,11 +133,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     # float32 entries (the decoder's forward two more: its float32 states)
     for name in ("fader_embed_gru_finals", "fader_embed_gru_train",
                  "fader_embed_gru_bwd", "fader_embed_seq_bwd",
-                 "fader_decoder_ce_bwd", "fader_stacked_gru",
-                 "fader_stacked_gru_bwd"):
+                 "fader_decoder_ce_bwd", "fader_stacked_gru"):
         fn = getattr(lib, name + "_bf16")
         fn.argtypes = getattr(lib, name).argtypes
         fn.restype = I
+    # kernel 2 in bf16 takes pre, w_hh, b_hh and a pre_h scratch in place
+    # of the stash
+    lib.fader_stacked_gru_bwd_bf16.argtypes = [I] * 4 + [P] * 13 + tail
+    lib.fader_stacked_gru_bwd_bf16.restype = I
     lib.fader_decoder_ce_bf16.argtypes = [I] * 4 + [P] * 20 + tail
     lib.fader_decoder_ce_bf16.restype = I
     lib.fader_launch_probe.argtypes = [I, I, P]

@@ -20,12 +20,14 @@ without the stash.
 
 bfloat16 inputs (all of pre, w_hh, b_hh, h0) take the kernels' bf16
 instantiations on a GPU and the plain version's bf16 branch on the CPU,
-with the
-rounding rule of `ops/cuda_gru.py`: h_seq and the stash bf16, the carry
-and every product float32, dpre and the gradients rounded once. One
-difference from the Pallas kernel 2, which recomputes its gates in float32
-from the rounded h_seq (pallas_gru.py:254-260): here, as for kernels
-4/6/10, the backward reads the forward's bf16 gate stash.
+with the rounding rule of `ops/cuda_gru.py`: h_seq bf16, the carry and
+every product float32, dpre and the gradients rounded once. As the Pallas
+kernel 2 does (pallas_gru.py:254-263), the bf16 backward keeps no gate
+stash: it recomputes pre_h = h_prev @ w_hh + b_hh in float32 from the
+rounded h_seq (both operands bf16, so every product is exact) and rebuilds
+r, z, n from pre and pre_h (`recompute_stash`); the forward writes no
+stash in bf16. The float32 backward reads the forward's stash, which
+equals the recompute up to summation order.
 """
 from __future__ import annotations
 
@@ -60,26 +62,39 @@ def stacked_gru_plain(pre, w_hh, b_hh, h0):
     return torch.stack(outs, dim=1)
 
 
+def recompute_stash(pre, w_hh, b_hh, h0, h_seq):
+    """The gate stash [r, z, n, hn] (L, T, B, 4H) of the bf16 backward,
+    float32, rebuilt as pallas_gru.py::_bwd_kernel does (:254-263): pre_h =
+    h_prev @ w_hh + b_hh over all T*B rows at once (h_prev: h0, then h_seq
+    a step behind, both bf16), then `_gates_f32(pre, pre_h, h_prev)`."""
+    L, T, B, H = h_seq.shape
+    h_prev = torch.cat([h0[:, None], h_seq[:, :-1]], dim=1).float()
+    pre_h = (torch.bmm(h_prev.reshape(L, T * B, H), w_hh.float())
+             + b_hh.float()[:, None, :]).reshape(L, T, B, 3 * H)
+    return cuda_gru.gates_stash(pre.float(), pre_h, h_prev)[1]
+
+
 class _StackedBf16Plain(torch.autograd.Function):
     """The bf16 plain version of kernels 1/2."""
 
     @staticmethod
     def forward(ctx, pre, w_hh, b_hh, h0):
         pre32 = pre.float()
-        h_seq32, stash32 = cuda_gru.chain_fwd32(
+        h_seq32, _ = cuda_gru.chain_fwd32(
             lambda t: pre32[:, t], w_hh.float(), b_hh.float(), h0.float(),
             pre.shape[1])
-        h_seq, stash = h_seq32.to(cuda_gru.BF16), stash32.to(cuda_gru.BF16)
-        ctx.save_for_backward(w_hh, h0, h_seq, stash)
+        h_seq = h_seq32.to(cuda_gru.BF16)
+        ctx.save_for_backward(pre, w_hh, b_hh, h0, h_seq)
         return h_seq
 
     @staticmethod
     def backward(ctx, g_seq):
-        w_hh, h0, h_seq, stash = ctx.saved_tensors
+        pre, w_hh, b_hh, h0, h_seq = ctx.saved_tensors
         h_seq32, h032 = h_seq.float(), h0.float()
+        stash = recompute_stash(pre, w_hh, b_hh, h0, h_seq)
         dpx, dph, dh0 = cuda_gru.chain_bwd32(
-            g_seq.to(cuda_gru.BF16).float(), True, stash.float(), h_seq32,
-            h032, w_hh.float())
+            g_seq.to(cuda_gru.BF16).float(), True, stash, h_seq32, h032,
+            w_hh.float())
         dw_hh, db_hh = cuda_gru.w_hh_grads(h_seq32, h032, dph)
         return cuda_gru.round_bf16((dpx, dw_hh, db_hh, dh0))
 
@@ -126,9 +141,11 @@ def _launch_fwd(pre, w_hh, b_hh, h0, stash: bool):
     return h_seq, st
 
 
-def _launch_bwd(g, stash, h_seq, h0, w_hh):
+def _launch_bwd(g, saved, h_seq, h0, w_hh):
     """fader_stacked_gru_bwd(_bf16): (dpre (L,T,B,3H), dw_hh, db_hh, dh0),
-    float32; g float32, the forward's tensors and w_hh in h0's dtype."""
+    float32; g float32, the forward's tensors and w_hh in h0's dtype.
+    `saved`: the gate stash (float32), or (pre, b_hh) (bf16: the kernel
+    recomputes pre_h into a float32 scratch and rebuilds the gates)."""
     L, T, B, H = h_seq.shape
     G = 3 * H
     dev = h0.device
@@ -140,39 +157,49 @@ def _launch_bwd(g, stash, h_seq, h0, w_hh):
     dw_hh = torch.empty((L, H, G), **f32)
     db_hh = torch.empty((L, G), **f32)
     dh0 = torch.empty((L, B, H), **f32)
+    if h0.dtype == cuda_gru.BF16:
+        pre, b_hh = saved
+        ins = (g, pre, w_hh, b_hh, h_seq, h0, w_hhT,
+               torch.empty((L, T, B, G), **f32))
+    else:
+        ins = (g, saved, h_seq, h0, w_hhT)
     with torch.cuda.device(dev):
         scratch, n_scratch = _build.entry_scratch(
             lib.fader_gru_bwd_scratch_floats, (L, T, B, H), dev)
         err = cuda_gru.entry(lib, "fader_stacked_gru_bwd", h0.dtype)(
             L, T, B, H, *(t.data_ptr() for t in (
-                g, stash, h_seq, h0, w_hhT, dph, dpre, dw_hh, db_hh, dh0,
-                scratch)), n_scratch, cuda_gru._stream(dev))
+                *ins, dph, dpre, dw_hh, db_hh, dh0, scratch)), n_scratch,
+            cuda_gru._stream(dev))
     _build.check(err, cuda_gru.key("fader_stacked_gru_bwd", h0.dtype))
     return dpre, dw_hh, db_hh, dh0
 
 
 class StackedGRU(torch.autograd.Function):
-    """Kernels 1 (forward with the gate stash) and 2 (backward from the
-    h_seq cotangent) as one differentiable op over (pre, w_hh, b_hh, h0);
-    the backward returns (dpre, dw_hh, db_hh, dh0), as `_vjp_bwd`
-    (pallas_gru.py:347-355) does."""
+    """Kernels 1 (forward, with the gate stash in float32) and 2 (backward
+    from the h_seq cotangent) as one differentiable op over (pre, w_hh,
+    b_hh, h0); the backward returns (dpre, dw_hh, db_hh, dh0), as
+    `_vjp_bwd` (pallas_gru.py:347-355) does. In bf16 the forward keeps no
+    stash: the backward recomputes the gates from pre, w_hh and b_hh."""
 
     @staticmethod
     def forward(ctx, pre, w_hh, b_hh, h0):
-        h_seq, stash = _launch_fwd(pre, w_hh, b_hh, h0, True)
+        bf16 = h0.dtype == cuda_gru.BF16
+        h_seq, stash = _launch_fwd(pre, w_hh, b_hh, h0, not bf16)
         LAUNCHES[cuda_gru.key("stacked_gru", h0.dtype)] += 1
-        ctx.save_for_backward(w_hh, h0, h_seq, stash)
+        saved = (pre, b_hh) if bf16 else (stash,)
+        ctx.save_for_backward(w_hh, h0, h_seq, *saved)
         return h_seq
 
     @staticmethod
     def backward(ctx, g_seq):
-        w_hh, h0, h_seq, stash = ctx.saved_tensors
+        w_hh, h0, h_seq, *saved = ctx.saved_tensors
         # the cotangent in the forward's dtype (pallas_gru.py:351), read in
         # float32
         g = g_seq.to(h0.dtype).float().contiguous()
-        grads = _launch_bwd(g, stash, h_seq, h0, w_hh)
+        grads = _launch_bwd(g, saved if len(saved) == 2 else saved[0],
+                            h_seq, h0, w_hh)
         LAUNCHES[cuda_gru.key("stacked_gru_bwd", h0.dtype)] += 1
-        del h_seq, stash
+        del h_seq, saved
         return cuda_gru._mask(ctx, cuda_gru._returned(grads, h0.dtype))
 
 

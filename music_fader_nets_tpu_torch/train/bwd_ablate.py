@@ -26,7 +26,25 @@ sums as kernels of their own, after a transpose of w_hh). The variants:
   classes (a non-finite value in one class would reach them all).
 
 `no_sums` and `no_class` compute wrong gradients and serve timing only.
-Prints one JSON line a variant and T. Runs on CUDA only.
+Prints one JSON line a variant and T.
+
+    python -m music_fader_nets_tpu_torch.train.bwd_ablate --bf16-chain
+        [--reps 5]
+
+ablates instead the bf16 chain's tensor-core product (`gru_bwd_chain<RB,
+false, bf16>`) at the encoder's backward (row 4 bf16: L=4, T=seq_len,
+B=batch_size, H=hidden_dims), printing the chain's device ms and us a step
+(and, in `tc_base`, the float32 chain's on the same inputs widened):
+
+- `tc_base`: the source as it is;
+- `tc_no_mma`: no MMA (the dph rows still copied into the warps' rings);
+- `tc_no_l2`: the MMAs over whatever the rings hold, no copy of the dph
+  rows from L2;
+- `tc_no_product`: no product phase at all (no copy, no split, no MMA);
+- `tc_no_wait`: the blocks of a row tile do not wait at the step
+  barrier (they still arrive).
+
+All but `tc_base` compute wrong gradients. Runs on CUDA only.
 """
 from __future__ import annotations
 
@@ -102,21 +120,71 @@ for T in map(int, sys.argv[2:]):
 """
 
 
+# the bf16 chain's variants (--bf16-chain)
+TC_EDITS = {
+    "tc_base": [],
+    "tc_no_mma": [(
+        "              mma_bf16(acc[mt][nt], ap[pc][mt], bw[2 * nt], "
+        "bw[2 * nt + 1]);", "              (void)ap, (void)bw;")],
+    "tc_no_l2": [("          cp_async<16>(dst + kk * RS + 4 * quad,",
+                  "          if (false) cp_async<16>(dst + kk * RS + "
+                  "4 * quad,")],
+    "tc_no_product": [("      const int nslab = Gp / KT;",
+                       "      const int nslab = 0;")],
+    "tc_no_wait": [("      while (*reinterpret_cast<volatile unsigned*>(ctr) "
+                    "< group * step) {\n      }\n", "")],
+}
+
+# the bf16 chain's sweep: the encoder's backward entry in bf16 (and, with
+# argv[2] == "1", in float32 on the same inputs widened)
+TC_SWEEP = r"""
+import json, sys, torch
+from music_fader_nets_tpu_torch.config import ModelConfig
+from music_fader_nets_tpu_torch.ops import cuda_gru
+from music_fader_nets_tpu_torch.ops.gru import vocab_pad
+from music_fader_nets_tpu_torch.train.bwd_split import kernel_split
+cfg, dev = ModelConfig(), torch.device("cuda")
+L, T, B, H = 4, cfg.seq_len, cfg.batch_size, cfg.hidden_dims
+G, Vp = 3 * H, vocab_pad(cfg.roll_dims)
+reps, with_f32 = int(sys.argv[1]), sys.argv[2] == "1"
+gen = torch.Generator().manual_seed(0)
+tok = torch.randint(0, cfg.roll_dims, (L, T, B), generator=gen,
+                    dtype=torch.int32).to(dev)
+floats = [(torch.randn(s, generator=gen) * 0.05).to(dev) for s in (
+    (L, Vp, G), (L, G), (L, H, G), (L, G), (L, B, H))]
+g = torch.randn((L, B, H), generator=gen).to(dev)
+for dt in (torch.bfloat16, torch.float32)[:2 if with_f32 else 1]:
+    w_ih, b_ih, w_hh, b_hh, h0 = (t.to(dt) for t in floats)
+    h_seq, stash = cuda_gru._launch_train_fwd(tok, w_ih, b_ih, w_hh, b_hh,
+                                              h0, True)
+    split, launches = kernel_split(lambda: cuda_gru._launch_bwd(
+        tok, g, False, stash, h_seq, h0, w_hh, Vp, want_db_in=True,
+        want_dprez=False), reps)
+    print(json.dumps({"T": T, "dtype": str(dt), "split_ms": split,
+                      "chain_us_a_step": split["chain"] * 1e3 / T,
+                      "launches": launches}), flush=True)
+"""
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", nargs="+", default=list(EDITS),
-                    choices=list(EDITS))
+    ap.add_argument("--bf16-chain", action="store_true")
+    ap.add_argument("--variants", nargs="+", default=None,
+                    choices=list(EDITS) + list(TC_EDITS))
     ap.add_argument("--steps", nargs="+", type=int, default=[1, 8, 16])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    for name in args.variants:
-        root = package_copy(OUT / name, SRC, EDITS[name])
+    edits = TC_EDITS if args.bf16_chain else EDITS
+    for name in args.variants or list(edits):
+        root = package_copy(OUT / name, SRC, edits[name])
+        sweep = ([TC_SWEEP, str(args.reps), str(int(name == "tc_base"))]
+                 if args.bf16_chain else
+                 [SWEEP, str(args.reps), *map(str, args.steps)])
         out = subprocess.run(
-            [sys.executable, "-c", SWEEP, str(args.reps),
-             *map(str, args.steps)], cwd=root, check=True,
+            [sys.executable, "-c", *sweep], cwd=root, check=True,
             capture_output=True, text=True, timeout=900).stdout
         for line in out.splitlines():
             print(json.dumps({"variant": name, **json.loads(line),

@@ -535,9 +535,12 @@ def test_teacher_decode_without_tokens_runs_stacked_kernels(dev):
 # are the same; a float32 sum in another order can move a value across a
 # bf16 rounding, 2^-8 relative, and that propagates), the gradients bf16,
 # two backward calls bit-equal, the bf16 launch counts moving and the
-# float32 ones not.
+# float32 ones not. Since the bf16 backward runs on the tensor cores
+# (16-row MMA tiles, 128-row GEMM tiles), the ragged cases also take an
+# odd T with T*B no multiple of 128 and an H no multiple of 8 (the GEMMs'
+# element-load paths, a partial 32-unit column tile).
 BF16 = torch.bfloat16
-BF16_RAGGED = [(37, 9, 2, 136), (128, 5, 4, 512)]
+BF16_RAGGED = [(37, 9, 2, 136), (128, 5, 4, 512), (37, 21, 2, 30)]
 
 
 def _bf16_check(fn, plain, ids, floats, dev, seed, counts, keys):
@@ -610,7 +613,8 @@ def test_bf16_stacked_gru_kernels_match_plain(dev, B, T, L, H):
                 ("stacked_gru", "stacked_gru_bwd"))
 
 
-@pytest.mark.parametrize("B,T,H", [(37, 7, 136), (128, 6, 512)])
+@pytest.mark.parametrize("B,T,H", [(37, 7, 136), (128, 6, 512),
+                                   (37, 21, 30)])
 def test_bf16_decoder_ce_kernels_match_plain(dev, B, T, H):
     gen = torch.Generator().manual_seed(B + 7 * T)
     V = 342

@@ -39,6 +39,8 @@ V = 342
 BF = torch.bfloat16
 VAL_ATOL = 1e-2
 GRAD_REL = 2e-2
+# kernel 2's bf16 backward recomputes its gates as the Pallas kernel does
+STACKED_GRAD_REL = 2e-3
 
 
 @pytest.fixture
@@ -182,10 +184,11 @@ def test_embed_seq_bf16_matches_jax(pallas_interpret):
 
 def test_stacked_gru_bf16_matches_jax(pallas_interpret):
     """Kernels 1 and 2 in bf16 (the CVAE encoder's generic stacked GRU):
-    h_seq and the gradients of pre, w_hh, b_hh and h0. The port's
-    backward reads the forward's bf16 gate stash where the Pallas kernel 2
-    recomputes its gates in float32 from the rounded h_seq; the bound
-    covers both."""
+    h_seq and the gradients of pre, w_hh, b_hh and h0. Both backwards
+    recompute the gates in float32 from the rounded h_seq (no stash), so
+    each gradient is held to STACKED_GRAD_REL of its largest entry, a
+    tenth of GRAD_REL (reading 0.0 here; 7.1e-3 while the port read the
+    forward's bf16 stash)."""
     L, T, B, H = 2, 9, 3, 32
     rng = np.random.default_rng(3)
     G = 3 * H
@@ -199,6 +202,8 @@ def test_stacked_gru_bf16_matches_jax(pallas_interpret):
     assert cuda_stacked.LAST_TRAIN_PATH == "plain-cpu"
     names = ("pre", "w_hh", "b_hh", "h0")
     _hold(got, want, got_g, want_g, names)
+    for name, g, w in zip(names, got_g, want_g):
+        assert _rel(g, w) <= STACKED_GRAD_REL, (name, _rel(g, w))
     _hold_float64(cuda_stacked.stacked_gru, [], floats, proj, names)
 
 
