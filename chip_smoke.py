@@ -83,7 +83,10 @@ path (`entry`). Last, data parallelism: the GM-VAE `Trainer` on a mesh of
 one NCCL rank, bit-equal to the Trainer without one, and on two ranks
 sharing the card over gloo, 64 + 64 rows against one process at 128
 (`data_parallel`), then `entry.dryrun_multichip(2)` on the card
-(`dryrun_multichip`). Then bf16 mixed precision (`mixed_precision`): each
+(`dryrun_multichip`, its 1 x 2 and 2 x 1 meshes). Tensor parallelism sits
+between the two: two ranks sharing the card over gloo on a 1 x 2 mesh,
+each holding half of the GRU leaves' Adam state, against one process
+(`tensor_parallel`). Then bf16 mixed precision (`mixed_precision`): each
 bf16 kernel pair against its bf16 plain version, timed in turns with its
 float32 kernels; rows 2, 4, 6 and 10 bf16 (their products on the tensor
 cores) at ragged shapes; the GM-VAE's bf16 steps, timed in turns with
@@ -461,18 +464,24 @@ def read_counts(*counts) -> dict:
 
 
 DP_STEPS = 3            # steps of each GM-VAE branch in data_parallel
+# the sub-decoders' output biases: a true gradient of exactly 0 (their
+# log-softmax runs over the time axis), so Adam moves them by up to lr a
+# step in a direction float32 rounding picks (tests/test_torch_train_
+# trainer.py); held to 2 * lr a step where params are compared by value
+NOISE_ONLY_PARAMS = ("linear_out_r/b", "linear_out_n/b")
 
 
 def dp_drive(mesh) -> dict:
-    """The data_parallel phase's run of the GM-VAE `Trainer` at
-    ModelConfig() widths from seed SEED, on `mesh` (None: one process, the
-    reference): each branch's first-step loss, metrics and all-reduced
-    gradients (global B=128 unsupervised, B=32 supervised; the rank feeds
-    its rows), then DP_STEPS steps of each branch with the training
-    kernels' launch counts set to 0 just before and read just after, the
-    canonical params after them, the step time (`steady_state_step_time`,
-    global B=128) and, on a mesh, the one all-reduce's time and bytes.
-    Tensors come back on the CPU."""
+    """The data_parallel and tensor_parallel phases' run of the GM-VAE
+    `Trainer` at ModelConfig() widths from seed SEED, on `mesh` (None: one
+    process, the reference): each branch's first-step loss, metrics and
+    all-reduced gradients (global B=128 unsupervised, B=32 supervised; the
+    rank feeds the rows of its data index), then DP_STEPS steps of each
+    branch with the training kernels' launch counts set to 0 just before
+    and read just after, the canonical params after them, Adam's bytes on
+    this rank, the step time (`steady_state_step_time`, global B=128) and,
+    on a mesh, the one all-reduce's time and bytes, and under a model axis
+    the gather's time and bytes. Tensors come back on the CPU."""
     import torch
     import torch.distributed as dist
     from music_fader_nets_tpu_torch.config import ModelConfig
@@ -509,7 +518,7 @@ def dp_drive(mesh) -> dict:
             parts = [shard_batch(p, mesh) for p in parts]
         return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
-    leaves = tr.optimizer.param_groups[0]["params"]
+    leaves = tr._trainable          # the whole leaves the forward reads
     branches = (("unsupervised", yam, TB, "default"),
                 ("supervised", vg, SB, "supervised"))
     first = {}
@@ -530,13 +539,33 @@ def dp_drive(mesh) -> dict:
               for name, arrays, bs, variant in branches}
     torch.cuda.synchronize()
     launches = read_counts(*counts)
+    params = list(named_leaves(tr.params))
     out = {"first": first, "epochs": epochs, "launches": launches,
            "train_path": tr.train_path, "step": tr.step,
            "device": str(tr.device),
            "backend": dist.get_backend() if mesh else None,
-           "params": [t.cpu() for _, t in named_leaves(tr.params)],
+           "param_names": [name for name, _ in params],
+           "params": [t.cpu() for _, t in params],
+           "adam_bytes": sum(v.numel() * v.element_size()
+                             for st in tr.optimizer.state.values()
+                             for k, v in st.items() if k != "step"),
            "ms_per_step": 1e3 * tr.steady_state_step_time(
                yam, warmup=1, iters=5, batch_size=TB)}
+    if mesh is not None and mesh.n_model > 1:
+        ts = []
+        for _ in range(6):
+            tr._stale = True        # the weights are current: re-gathered
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr._gather()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out["gather_ms"] = statistics.median(ts[1:])
+        out["gather_bytes"] = sum(t.numel() * t.element_size()
+                                  for t in leaves)
+        out["sharded_bytes"] = sum(t.numel() * t.element_size()
+                                   for t, spec in zip(leaves, tr._specs)
+                                   if spec)
     if mesh is not None:
         grads = [t.grad for t in leaves]
         ts = []
@@ -552,12 +581,14 @@ def dp_drive(mesh) -> dict:
     return out
 
 
-def dp_rank(device: str) -> dict:
-    """One rank of data_parallel (b) / (c): `dp_drive` on this rank's
-    mesh, placed as `run_ranks` placed its process group ("cuda:0": the
-    ranks share card 0 over gloo; "cuda": a card each over NCCL)."""
+def dp_rank(device: str, n_model: int = 1) -> dict:
+    """One rank of data_parallel (b) / (c) (n_model 1) or tensor_parallel
+    (a) / (c) (n_model 2): `dp_drive` on this rank's mesh of
+    world / n_model x n_model, placed as `run_ranks` placed its process
+    group ("cuda:0": the ranks share card 0 over gloo; "cuda": a card each
+    over NCCL)."""
     from music_fader_nets_tpu_torch.parallel.mesh import make_mesh
-    return dp_drive(make_mesh(devices=device))
+    return dp_drive(make_mesh(n_model=n_model, devices=device))
 
 
 def main() -> int:
@@ -2955,22 +2986,126 @@ def main() -> int:
                 for e in worst.values())):
             return fail(f"data_parallel: {line}")
 
+    # -------------------------------------------------- tensor parallel
+    # The GM-VAE Trainer on a mesh with a model axis: each rank stores,
+    # and steps Adam on, its half of the GRU leaves along 3H, and the model
+    # group gathers the halves before each forward (one all-reduce of a
+    # zeroed buffer); the kernels run unchanged on the whole weights.
+    # (a) two ranks sharing this card over gloo on a 1 x 2 mesh, each
+    # feeding all 128 (32) rows, against one process (`dp_ref` above):
+    # first-step loss within 1e-5 relative and gradients within 1e-4 of
+    # each tensor's largest entry, the params after DP_STEPS steps of each
+    # branch within 2e-5 (the sub-decoders' output biases, whose gradient
+    # is float32 noise, within 2 * lr a step), whether each is bit-equal
+    # (expected: nothing is summed in another order), the params bit-equal
+    # across the ranks, every training kernel launched on each rank
+    # (counts set to 0 just before the steps, read just after), each
+    # rank's Adam bytes against one process's, ms a step a rank, the
+    # gather's ms and bytes; (c) two ranks over NCCL when there are two
+    # cards.
+    t_tp = time.monotonic()
+    tp_a = run_ranks(dp_rank, 2, args=("cuda:0", 2), device="cuda:0",
+                     timeout=600.0)
+    n_steps = 2 * DP_STEPS
+
+    def tp_line(runs):
+        ref = dp_ref
+        first_equal = all(
+            r["first"][b]["metrics"]["loss"] == ref["first"][b]["metrics"][
+                "loss"] and dp_equal(r["first"][b]["grads"],
+                                     ref["first"][b]["grads"])
+            for r in runs for b in ref["first"])
+        p_err, p_worst = 0.0, None
+        for name, got, want in zip(ref["param_names"], runs[0]["params"],
+                                   ref["params"]):
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            bound = (2 * 1e-3 * n_steps if name in NOISE_ONLY_PARAMS
+                     else 2e-5)
+            if err > bound and (p_worst is None or err > p_worst[1]):
+                p_worst = (name, err)
+            if name not in NOISE_ONLY_PARAMS:
+                p_err = max(p_err, err)
+        return {
+            "ranks": 2, "mesh": "1x2",
+            "backend": [r["backend"] for r in runs],
+            "devices": [r["device"] for r in runs],
+            "first_step": dp_compare(runs[0]),
+            "first_step_bit_equal_to_one_process": first_equal,
+            "first_step_grads_equal_across_ranks": all(
+                dp_equal(runs[0]["first"][b]["grads"],
+                         runs[1]["first"][b]["grads"])
+                for b in ref["first"]),
+            "params_bit_equal_to_one_process": all(
+                dp_equal(r["params"], ref["params"]) for r in runs),
+            "params_max_abs_err": p_err,
+            "params_over_bound": p_worst,
+            "params_equal_across_ranks": dp_equal(runs[0]["params"],
+                                                  runs[1]["params"]),
+            "train_path": [r["train_path"] for r in runs],
+            "launches": [r["launches"] for r in runs],
+            "adam_bytes_per_rank": [r["adam_bytes"] for r in runs],
+            "adam_bytes_one_process": ref["adam_bytes"],
+            "adam_share": runs[0]["adam_bytes"] / ref["adam_bytes"],
+            "ms_per_step": [r["ms_per_step"] for r in runs],
+            "one_process_ms_per_step": ref["ms_per_step"],
+            "gather_ms": [r["gather_ms"] for r in runs],
+            "gather_bytes": runs[0]["gather_bytes"],
+            "sharded_bytes": runs[0]["sharded_bytes"],
+            "allreduce_ms": [r["allreduce_ms"] for r in runs]}
+
+    tp_a_line = tp_line(tp_a)
+    if torch.cuda.device_count() >= 2:
+        tp_c = run_ranks(dp_rank, 2, args=("cuda", 2), device="cuda",
+                         timeout=600.0)
+        tp_c_line = tp_line(tp_c)
+    else:
+        tp_c_line, tp_c = "not run: 1 device", []
+    emit({"phase": "tensor_parallel", "B": TB, "supervised_B": 32,
+          "steps_per_branch": DP_STEPS, "tol_loss_rel": 1e-5,
+          "tol_grad_rel": TOL_TRAIN_GRAD_REL, "tol_params_abs": 2e-5,
+          "gloo_two_ranks_one_card": tp_a_line, "nccl_two_rank": tp_c_line,
+          "seconds": time.monotonic() - t_tp})
+    for run in tp_a + tp_c:
+        if run["train_path"] != "kernel" or not all(
+                run["launches"].get(k, 0) > 0 for k in dp_kernels):
+            return fail(f"tensor_parallel: path {run['train_path']}, "
+                        f"launches {run['launches']}")
+        if not all(np.isfinite(v) for m in run["epochs"].values()
+                   for v in m.values()):
+            return fail(f"tensor_parallel: a loss is not finite "
+                        f"{run['epochs']}")
+    for line in [tp_a_line] + ([tp_c_line] if tp_c else []):
+        if not (line["params_equal_across_ranks"]
+                and line["params_over_bound"] is None
+                and line["adam_share"] < 1.0
+                and all(e["loss_rel_err"] <= 1e-5
+                        and e["grad_max_rel_err"] <= TOL_TRAIN_GRAD_REL
+                        for e in line["first_step"].values())):
+            return fail(f"tensor_parallel: {line}")
+
     # ------------------------------------------------ dryrun_multichip
     # `entry.dryrun_multichip(2)` as a user calls it, on the card: two
     # ranks placed by `launch.placement` (sharing this card over gloo, or
     # a card each over NCCL), one step of each GM-VAE branch at the JAX
-    # dryrun's shapes (H=64, z=16, T=24, B=4). It raises unless every
-    # rank's losses are finite and equal; each rank must have trained on
-    # a card, through the kernels.
+    # dryrun's shapes (H=64, z=16, T=24, B=2 n_data) on its 1 x 2 mesh,
+    # then on its 2 x 1 mesh. It raises unless on each mesh every rank's
+    # losses are finite and equal; each rank must have trained on a card,
+    # through the kernels, on both meshes.
     from music_fader_nets_tpu_torch.entry import dryrun_multichip
     t_dry = time.monotonic()
     dry = dryrun_multichip(2)
     emit({"phase": "dryrun_multichip", "ranks": 2,
           "devices": [r["device"] for r in dry],
-          "train_path": [r["train_path"] for r in dry],
-          "losses": dry[0]["losses"], "seconds": time.monotonic() - t_dry})
-    if any(not r["device"].startswith("cuda") or r["train_path"] != "kernel"
-           for r in dry):
+          "meshes": [{"mesh": m["mesh"], "losses": m["losses"],
+                      "train_path": [r["meshes"][i]["train_path"]
+                                     for r in dry]}
+                     for i, m in enumerate(dry[0]["meshes"])],
+          "seconds": time.monotonic() - t_dry})
+    if [m["mesh"] for m in dry[0]["meshes"]] != [
+            {"data": 1, "model": 2}, {"data": 2, "model": 1}] or any(
+            not r["device"].startswith("cuda")
+            or any(m["train_path"] != "kernel" for m in r["meshes"])
+            for r in dry):
         return fail(f"dryrun_multichip: {dry}")
 
     # -------------------------------------------------- mixed precision

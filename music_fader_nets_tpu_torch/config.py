@@ -1,7 +1,8 @@
 """Configuration of the port: its own copy of the reference-format model
 config (the flat JSON of `model_config_v2.json` / `gmm_model_config.json`)
-and the model dimension constants. Field names and defaults are those of
-the JAX package's `ModelConfig`, so the same JSON files load unchanged.
+and the model dimension constants. Field names, their order and their
+defaults are those of the JAX package's `ModelConfig`, so the same JSON
+files load unchanged and every key they carry is kept.
 """
 from __future__ import annotations
 
@@ -13,20 +14,27 @@ EVENT_DIMS = 342
 RHYTHM_DIMS = 3
 NOTE_DIMS = 16
 CHROMA_DIMS = 24
+TEMPO_DIMS = 264      # defined but unused by the reference; kept for parity
+VELOCITY_DIMS = 126   # defined but unused by the reference; kept for parity
 
 
 @dataclasses.dataclass
 class ModelConfig:
     """Model and training hyperparameters; defaults replicate
-    `model_config_v2.json` and the JAX package's `ModelConfig`. Only the
-    fields the ported slices read are here; `load_config` ignores the rest
-    of a reference JSON."""
+    `model_config_v2.json` and the JAX package's `ModelConfig`, field for
+    field. Some fields are read by no module, in the port as in the JAX
+    package (`decay`, `name`, `time_step`, `data_axis`, `model_axis`):
+    they are kept so a config round-trips; `load_config` ignores only keys
+    that no field names."""
     batch_size: int = 128
     n_epochs: int = 30
     lr: float = 1e-3
+    decay: float = 0.9999          # dead in the reference (no ExponentialLR)
+    name: str = "music_attr_vae"
     hidden_dims: int = 512
     z_dims: int = 128
     beta: float = 0.2
+    time_step: int = 32
     num_clusters: int = 2          # GM-VAE components (gmm_model_config.json)
 
     roll_dims: int = EVENT_DIMS
@@ -49,6 +57,9 @@ class ModelConfig:
     # no such switch: on CUDA tensors the kernels always run, on CPU
     # tensors their plain versions.
     use_pallas_gru: bool = False
+    # the mesh's axis names (`parallel/mesh.py::DATA_AXIS`, `MODEL_AXIS`)
+    data_axis: str = "data"
+    model_axis: str = "model"
 
     # faithful replication of reference quirks (True = as the reference)
     # KL anneal window with a negative beta for steps in (1000, 10000)

@@ -20,8 +20,9 @@ def shard_arrays_for_process(arrays: Dict[str, np.ndarray],
     data-parallel step need; the < process_count remainder is dropped on
     every rank. The index and count default to the rank and world size of
     the initialised default process group; without one, or with one
-    process, the arrays come back unchanged. Raises ValueError when a
-    shard would be empty."""
+    process, the arrays come back unchanged. On a mesh with a model axis
+    pass the mesh's `data_index` and `n_data`: the ranks of a model group
+    share their rows. Raises ValueError when a shard would be empty."""
     live = dist.is_available() and dist.is_initialized()
     pc = process_count if process_count is not None else (
         dist.get_world_size() if live else 1)

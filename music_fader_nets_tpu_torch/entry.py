@@ -19,10 +19,10 @@ drawn by `train/objectives.py::draw_noise` from a generator seeded 1.
 
 `dryrun_multichip(n, device=None)` is the counterpart of the root
 `__graft_entry__.dryrun_multichip`: one unsupervised and one supervised
-GM-VAE training step at its tiny shapes, data-parallel over n ranks: on
-the cards (NCCL with a card a rank, else gloo with the ranks sharing card
-0) unless `device="cpu"`, which runs n gloo ranks on the CPU as the JAX
-dryrun does.
+GM-VAE training step at its tiny shapes on n ranks, on an (n/2) x 2 mesh
+(data x model) for even n, then on the n x 1 mesh: on the cards (NCCL
+with a card a rank, else gloo with the ranks sharing card 0) unless
+`device="cpu"`, which runs n gloo ranks on the CPU as the JAX dryrun does.
 """
 from __future__ import annotations
 
@@ -78,8 +78,10 @@ def entry(device=None):
 
 
 def _dryrun_rank(n: int, device) -> dict:
-    """One rank of `dryrun_multichip`: its shard of the batch, one step of
-    each GM-VAE branch on an n x 1 mesh; the global losses."""
+    """One rank of `dryrun_multichip`: on JAX's (n/2) x 2 mesh for even n,
+    then on the n x 1 mesh, one step of each GM-VAE branch on its data
+    index's shard of a batch of 2 * n_data rows (the JAX dryrun's); each
+    mesh's global losses and training path."""
     import functools
 
     from music_fader_nets_tpu_torch.data.loader import (
@@ -90,42 +92,48 @@ def _dryrun_rank(n: int, device) -> dict:
     from music_fader_nets_tpu_torch.train.objectives import gmm_loss
     from music_fader_nets_tpu_torch.train.trainer import Trainer
 
-    cfg = ModelConfig(hidden_dims=64, z_dims=16, num_clusters=2, seq_len=24,
-                      attr_len=8, batch_size=2 * n)
-    trainer = Trainer(cfg, init_reg_gmvae, {
-        "default": gmm_loss,
-        "supervised": functools.partial(gmm_loss, is_supervised=True)},
-        mesh=make_mesh(n, 1, devices=device))
-    shard = shard_arrays_for_process(example_batch(cfg, cfg.batch_size))
-    losses = {variant: trainer.run_epoch(shard, variant, shuffle=False)["loss"]
-              for variant in ("default", "supervised")}
-    return {"losses": losses, "device": str(trainer.device),
-            "train_path": trainer.train_path}
+    runs = []
+    meshes = ([(n // 2, 2)] if n % 2 == 0 else []) + [(n, 1)]
+    for n_data, n_model in meshes:
+        cfg = ModelConfig(hidden_dims=64, z_dims=16, num_clusters=2,
+                          seq_len=24, attr_len=8, batch_size=2 * n_data)
+        mesh = make_mesh(n_data, n_model, devices=device)
+        trainer = Trainer(cfg, init_reg_gmvae, {
+            "default": gmm_loss,
+            "supervised": functools.partial(gmm_loss, is_supervised=True)},
+            mesh=mesh)
+        shard = shard_arrays_for_process(example_batch(cfg, cfg.batch_size),
+                                         mesh.data_index, n_data)
+        losses = {variant: trainer.run_epoch(shard, variant,
+                                             shuffle=False)["loss"]
+                  for variant in ("default", "supervised")}
+        runs.append({"mesh": dict(mesh.shape), "losses": losses,
+                     "train_path": trainer.train_path})
+    return {"meshes": runs, "device": str(trainer.device)}
 
 
 def dryrun_multichip(n_devices: int, device=None) -> list:
     """One unsupervised and one supervised GM-VAE training step (H=64,
-    z=16, T=24, attr_len=8, B=2n) on an n x 1 data-parallel mesh of n
-    ranks placed by `parallel.launch.placement(device)` (CUDA unless
-    `device="cpu"`); raises unless every rank's losses are finite and
-    equal, then prints `dryrun_multichip ok: ...` and returns each rank's
-    losses, device and training path. The JAX dryrun also builds an
-    (n/2) x 2 mesh for even n: the port's model axis waits for tensor
-    parallelism (ROADMAP queue 1 item 6)."""
+    z=16, T=24, attr_len=8, B=2 n_data) on n ranks placed by
+    `parallel.launch.placement(device)` (CUDA unless `device="cpu"`): on
+    the (n/2) x 2 mesh for even n, as the JAX dryrun, then on the n x 1
+    mesh. Raises unless on each mesh every rank's losses are finite and
+    equal; prints `dryrun_multichip ok: mesh=...` with the losses, a line
+    a mesh, and returns each rank's meshes (shape, losses, training path)
+    and device."""
     from music_fader_nets_tpu_torch.parallel.launch import run_ranks
 
     ranks = run_ranks(_dryrun_rank, n_devices, args=(n_devices, device),
                       device=device, timeout=300.0)
-    first = ranks[0]["losses"]
-    if not all(np.isfinite(v) for v in first.values()) or any(
-            r["losses"] != first for r in ranks):
-        raise RuntimeError(f"dryrun_multichip: losses by rank {ranks}")
-    model_axis = ("; model axis (JAX's (n/2)x2 mesh): not ported, ROADMAP "
-                  "queue 1 item 6" if n_devices % 2 == 0 else "")
-    print(f"dryrun_multichip ok: mesh={{'data': {n_devices}, 'model': 1}} "
-          f"device={ranks[0]['device']} "
-          f"unsup_loss={first['default']:.4f} "
-          f"sup_loss={first['supervised']:.4f}{model_axis}")
+    for i, first in enumerate(ranks[0]["meshes"]):
+        losses = first["losses"]
+        if not all(np.isfinite(v) for v in losses.values()) or any(
+                r["meshes"][i]["losses"] != losses for r in ranks):
+            raise RuntimeError(f"dryrun_multichip: losses by rank {ranks}")
+        print(f"dryrun_multichip ok: mesh={first['mesh']} "
+              f"device={ranks[0]['device']} "
+              f"unsup_loss={losses['default']:.4f} "
+              f"sup_loss={losses['supervised']:.4f}")
     return ranks
 
 

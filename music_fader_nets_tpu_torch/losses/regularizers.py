@@ -2,13 +2,15 @@
 GM-VAE KL terms and GLSR (counterpart of
 `music_fader_nets_tpu/losses/regularizers.py`).
 
-Under a data-parallel `Trainer` (`parallel.mesh.current_trace_mesh()` is
-set) a rank holds only its rows of the batch. The two terms that couple
+Under a `Trainer` on a mesh (`parallel.mesh.current_trace_mesh()` is set)
+a rank holds only the rows of its data index. The two terms that couple
 rows read the global batch, as GSPMD gives the JAX mesh: the Pati
 regulariser gathers z and the attribute of every row, and GLSR's faithful
-batch-0 read takes global row 0 from rank 0, both through
-`parallel.collectives.gather_rows`, whose backward sends each rank the
-cotangent of its rows summed over the ranks."""
+batch-0 read takes global row 0 from data index 0, both through
+`parallel.collectives.gather_rows` over the rank's data group (the ranks
+of a model group hold the same rows and gather nothing from each other),
+whose backward sends each rank the cotangent of its rows summed over the
+data ranks."""
 from __future__ import annotations
 
 import math
@@ -132,8 +134,8 @@ def rhythm_density_from_masses(played: torch.Tensor, sep: torch.Tensor,
     the sample's separator mass. Stepped in time order, as the JAX
     package's scan. faithful_batch0 keeps the reference's indexing bug:
     every sample accumulates batch element 0's note-on masses
-    (trainer_glsr.py:154); under a trace mesh, global row 0, from rank
-    0."""
+    (trainer_glsr.py:154); under a trace mesh, global row 0, from data
+    index 0."""
     if faithful_batch0:
         mesh = current_trace_mesh()
         row0 = played[0:1] if mesh is None else gather_rows(played[0:1],

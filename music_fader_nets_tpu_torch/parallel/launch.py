@@ -1,4 +1,4 @@
-"""Placing and starting the ranks of a data-parallel run.
+"""Placing and starting the ranks of a run on a mesh.
 
     placement(device)        this rank's device and backend, the one rule
                              every caller uses (`init_from_env`,

@@ -15,19 +15,23 @@ the end to `<save-dir>/<name>_<timestamp>/`; run again with a larger
 `--epochs`, it resumes after the saved epoch. `--from-pt` starts from a
 reference `.pt` state_dict instead.
 
-`--mesh Nx1` trains data-parallel over N ranks, one process each, started
-by torchrun, which gives the process group its rank, world size and
-address (`parallel/launch.py::init_from_env`):
+`--mesh DxM` trains on a D x M mesh of D * M ranks, one process each,
+started by torchrun, which gives the process group its rank, world size
+and address (`parallel/launch.py::init_from_env`): data-parallel over D
+ranks, and tensor-parallel over M (each rank stores, and steps Adam on,
+its 1/M slice of the GRU weights; `train/trainer.py`):
 
     torchrun --nproc_per_node 2 -m music_fader_nets_tpu_torch.train.cli \
-        gmm --mesh 2x1
+        gmm --mesh 2x1          # or --mesh 1x2
 
-Each rank trains on its shard of every split
-(`data/loader.py::shard_arrays_for_process`) at `--batch-size / N` rows of
-each global batch, on `cuda:LOCAL_RANK` over NCCL, or over gloo on the
-CPU (`--device cpu`) or when the ranks share a card; rank 0 alone logs,
-checkpoints and reports, and a resumed run resumes on every rank. A model
-axis above 1 (tensor parallelism) raises: not ported yet. The JAX CLI's
+Each rank trains on the shard of every split of its data index
+(`data/loader.py::shard_arrays_for_process` over D; the M ranks of a
+model group share their rows) at `--batch-size / D` rows of each global
+batch, on `cuda:LOCAL_RANK` over NCCL, or over gloo on the CPU
+(`--device cpu`) or when the ranks share a card; rank 0 alone logs,
+checkpoints and reports, and a resumed run resumes on every rank. The
+checkpoint holds the whole params and Adam state whatever the mesh. The
+JAX CLI's
 `--pallas-gru` and `--platform` have no meaning here: the port runs its
 kernels on CUDA always, or, with `--device cpu`, their plain versions on
 the CPU.
@@ -116,9 +120,10 @@ def build_argparser(description: str) -> argparse.ArgumentParser:
                     help="corpus variant: short = 4 beats/<=100 tokens, "
                          "long = 16 beats/<=250 tokens (ptb_v2.py:301-303)")
     ap.add_argument("--mesh", default=None,
-                    help="mesh shape as DATAxMODEL, e.g. 2x1: data-parallel "
-                         "over DATA ranks started by torchrun (default: one "
-                         "process on one device); MODEL > 1 raises")
+                    help="mesh shape as DATAxMODEL, e.g. 2x1 or 1x2: "
+                         "data-parallel over DATA and tensor-parallel over "
+                         "MODEL ranks, DATA * MODEL of them started by "
+                         "torchrun (default: one process on one device)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="where to run: cuda (default; an error without a "
                          "card) with the kernels, or cpu with their plain "
@@ -211,7 +216,8 @@ def make_mesh(args):
 
 def make_trainer(kind: str, cfg: ModelConfig, args) -> Trainer:
     """The family's Trainer on `--device` (on `--mesh`, this rank's device;
-    the params broadcast from rank 0), from `--from-pt` if given, else
+    the params broadcast from rank 0, each rank keeping its slices of the
+    sharded leaves), from `--from-pt` if given, else
     resumed from `<save-dir>/<name>/` if that holds a checkpoint: the full
     state (params, Adam state, step; the noise stream resumes at the step
     and the epochs after the saved one), or a params-only file with a fresh
@@ -291,8 +297,9 @@ def run_training(kind: str, description: str, dual_corpus: bool = False,
     timestamped one at the end -> the reconstruction report on the Yamaha
     train and test splits (and, for the dual-corpus GM-VAE, the VGMIDI
     ones, with the mixture posterior's arousal accuracy). Returns the
-    trainer. On `--mesh` each rank trains on its shard of each split, and
-    rank 0 alone logs, checkpoints and reports."""
+    trainer. On `--mesh` each rank trains on the shard of each split of
+    its data index, and rank 0 alone logs, checkpoints and reports (every
+    rank takes the final state: a collective under a model axis)."""
     args = build_argparser(description).parse_args(argv)
     cfg = config_from_args(kind, args)
     trainer = make_trainer(kind, cfg, args)
@@ -303,12 +310,17 @@ def run_training(kind: str, description: str, dual_corpus: bool = False,
     yam = load_yamaha(args, cfg)
     say("Train / Validation / Test")
     say(len(yam["train"]), len(yam["val"]), len(yam["test"]))
-    if trainer.mesh is not None:
-        say(f"data-parallel: {trainer.mesh.n_data} ranks, each keeps "
-            f"1/{trainer.mesh.n_data} of each split")
+    mesh = trainer.mesh
+    if mesh is not None:
+        say(f"mesh {mesh.n_data}x{mesh.n_model}: each rank keeps "
+            f"1/{mesh.n_data} of each split and 1/{mesh.n_model} of the "
+            f"GRU weights' Adam state")
 
     def shard(ds):
-        return shard_arrays_for_process(ds.arrays())
+        if mesh is None:
+            return ds.arrays()
+        return shard_arrays_for_process(ds.arrays(), mesh.data_index,
+                                        mesh.n_data)
 
     vgm = None
     try:
@@ -353,15 +365,16 @@ def run_training(kind: str, description: str, dual_corpus: bool = False,
     finally:
         if logger is not None:
             logger.close()
+    state = trainer.state
     if not trainer.is_lead:
         return trainer
-    save_timestamped(kind, args, trainer.state, trainer.epoch)
+    save_timestamped(kind, args, state, trainer.epoch)
 
     # evaluation phase (reference trainer.py:280-376); for the dual-corpus
     # GM-VAE also the VGMIDI splits, with the arousal-classification
     # accuracy of the mixture posterior (reference trainer_gmm.py:570-605)
     fwd, has_sub, draw = _forward_for(kind, cfg)
-    params = trainer.params
+    params = state.params
     reports = [(f"[{split}] ", yam[split], cfg.batch_size)
                for split in ("train", "test")]
     if vgm is not None:

@@ -3,9 +3,9 @@
 
 A step: the loss on the fast parameter layout (`models/fast.py`), its
 backward, the global-norm clip at 1.0 and Adam(lr) (reference
-trainer.py:49,157). Adam steps the fast-layout leaves; the parity-only
-layers (`fast.FROZEN_KEYS`) and the frozen mixture logvar tables take no
-update, as in the JAX package, where their gradients are zero. `state` /
+trainer.py:49,157; `make_optimizer`). Adam steps the fast-layout leaves;
+the parity-only layers (`fast.FROZEN_KEYS`) and the frozen mixture
+logvar tables take no update, as in the JAX package, where their gradients are zero. `state` /
 `load_state` carry a `TrainState` of canonical trees (params, the
 optax-shaped Adam state, the step) out and in: what a checkpoint holds.
 
@@ -22,28 +22,53 @@ host step by its batch count, so an evaluation epoch reuses one draw for
 every batch. `fit` and the training CLI run that schedule, as the JAX
 package's do. The computation is the streaming step either way.
 
-Data parallelism (`mesh=`, a `parallel.mesh.Mesh` of n data ranks, one
-process each): the counterpart of the JAX Trainer's mesh path. Each rank
-feeds its own rows, `batch_size // n` of each global batch (its corpus
-shard from `data.loader.shard_arrays_for_process`); the noise is drawn for
-the global batch and sliced to the rank's rows, so n ranks see the noise
-of one process at the global batch. The params are broadcast from rank 0
-at `__init__` and `load_state`. The loss runs under
+A mesh (`mesh=`, a `parallel.mesh.Mesh` of n_data x n_model ranks, one
+process each) is the counterpart of the JAX Trainer's mesh path.
+
+Data parallelism (the `data` axis): each rank feeds the rows of its data
+index, `batch_size // n_data` of each global batch (its corpus shard from
+`data.loader.shard_arrays_for_process` at its data index); the noise is
+drawn for the global batch and sliced to the rank's rows, so the ranks see
+the noise of one process at the global batch. The params are broadcast
+from rank 0 at `__init__` and `load_state`. The loss runs under
 `parallel.mesh.trace_mesh_scope`, where the terms that couple rows (Pati,
-GLSR's batch-0 read) gather the global batch (`losses/regularizers.py`).
-After `loss.backward()` ONE flat all-reduce (mean) of every trainable
-gradient, with the step's metrics in the same buffer, runs before the
-clip: the clip's norm is the global batch's, every rank's Adam state stays
-equal, and the metrics are the global batch's. That all-reduce stands in
+GLSR's batch-0 read) gather the global batch over the data group
+(`losses/regularizers.py`). After `loss.backward()` ONE flat all-reduce
+(mean) over the data group of every trainable gradient, with the step's
+metrics in the same buffer, runs before the clip: the clip's norm is the
+global batch's, the data ranks' Adam states stay equal, and the metrics
+are the global batch's. That all-reduce stands in
 for the `psum` over `data` of the weight gradients in the JAX package's
 six `_dp` shard_map wrappers (`ops/pallas_gru.py`: `stacked_gru_pallas_dp`,
 `stacked_gru_embed_finals_dp`, `stacked_gru_embed_seq_dp`,
 `_dec_teacher_core_dp`, `_dec_nll_core_dp`, `_dec_mask_core_dp`) together
 with GSPMD's `psum` of every other leaf: the kernels run on a rank's rows
 as those wrappers run them on a device's, and no wrapper reduces on its
-own. `fit` logs and checkpoints on rank 0 only, the other ranks waiting
-at a barrier; the step timers synchronise and meet at a barrier around
-each window.
+own.
+
+Tensor parallelism (the `model` axis, n_model > 1): the leaves that
+`parallel.mesh.fast_pspecs` shards (the GRU weights and biases, along 3H)
+are stored, and stepped by Adam, as this rank's slice only, so Adam's
+`mu` / `nu` of those leaves take 1 / n_model of their bytes on each rank.
+A step is: (1) the model group gathers the slices into the whole leaves
+that the forward and the kernels read (`collectives.all_gather_model_`,
+one all-reduce of a zeroed buffer: exact), (2) forward and backward,
+unchanged, (3) the all-reduce over the data group above, (4) the clip on
+the whole gradients, so its norm is the one a single process computes,
+(5) each sharded gradient's slice taken and Adam stepped on the slices and
+on the whole replicated leaves. The ranks of a model group feed the same
+rows and so compute the same gradients; the gather also hands every rank
+model index 0's replicated leaves, so a CUDA op that rounds two runs apart
+cannot part the ranks' weights. Nothing is summed in another order than
+in one process, so a 1 x m mesh takes the steps of one process bit for
+bit, and a d x m mesh those of the d x 1 mesh. `params` and `state`
+gather the slices (Adam's moments too): under a model axis every rank
+must call them. `load_state` slices; a checkpoint's layout does not
+depend on the mesh.
+
+`fit` logs and checkpoints on rank 0 only, the other ranks waiting at a
+barrier; the step timers synchronise and meet at a barrier around each
+window.
 """
 from __future__ import annotations
 
@@ -59,9 +84,11 @@ from music_fader_nets_tpu_torch.config import ModelConfig
 from music_fader_nets_tpu_torch.data.loader import batch_iterator
 from music_fader_nets_tpu_torch.models import fast as fast_lib
 from music_fader_nets_tpu_torch.ops import cuda_decoder, cuda_gru, cuda_stacked
-from music_fader_nets_tpu_torch.parallel.collectives import all_reduce_mean_
+from music_fader_nets_tpu_torch.parallel.collectives import (
+    all_gather_model_, all_reduce_mean_,
+)
 from music_fader_nets_tpu_torch.parallel.mesh import (
-    shard_params, trace_mesh_scope,
+    fast_pspecs, model_shard, model_slice, shard_params, trace_mesh_scope,
 )
 from music_fader_nets_tpu_torch.train.objectives import draw_noise
 from music_fader_nets_tpu_torch.utils.checkpoint import (
@@ -74,6 +101,8 @@ _PATH_MODULES = (cuda_gru, cuda_decoder, cuda_stacked)
 # leaves of the fast tree that Adam does not step (no gradient reaches
 # them: reference gmm_model.py:151-184 keeps them fixed)
 FROZEN_TABLES = ("logvar_r_lookup", "logvar_n_lookup")
+# torch.optim.Adam's moments (optax's mu and nu)
+_MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
 class TrainState(NamedTuple):
@@ -105,6 +134,29 @@ def clip_by_global_norm_(grads, max_norm: float = 1.0) -> torch.Tensor:
     return norm
 
 
+class Optimizer(NamedTuple):
+    """The `Trainer`'s update, what `make_optimizer` returns: `clip_` the
+    gradients by their global norm at `max_norm` (optax's rule), then step
+    a `torch.optim.Adam` from `adam` at `lr` (optax's defaults: betas
+    (0.9, 0.999), eps 1e-8). The two are apart because under a model axis
+    the clip reads the whole gradients and Adam steps their slices."""
+    lr: float
+    max_norm: float = 1.0
+
+    def adam(self, tensors) -> torch.optim.Adam:
+        return torch.optim.Adam(tensors, lr=self.lr)
+
+    def clip_(self, grads) -> torch.Tensor:
+        return clip_by_global_norm_(grads, self.max_norm)
+
+
+def make_optimizer(cfg: ModelConfig) -> Optimizer:
+    """clip_by_global_norm(1.0) then Adam(cfg.lr) (JAX :33-37: optax.chain
+    of the two), matching the reference's `clip_grad_norm_(1)` +
+    `optim.Adam(lr)` (trainer.py:49,157)."""
+    return Optimizer(cfg.lr, 1.0)
+
+
 class Trainer:
     def __init__(self, cfg: ModelConfig, init_fn: Callable,
                  loss_fns: Dict[str, Callable], seed: int = 0, params=None,
@@ -114,9 +166,9 @@ class Trainer:
         {"default": gmm_loss, "supervised": partial(gmm_loss,
         is_supervised=True)} for the dual-corpus GM-VAE loop. `params` is
         a canonical tree (default: `init_fn(torch.Generator().manual_seed(
-        seed), cfg)`); it is copied. `mesh`: a data-parallel mesh
+        seed), cfg)`); it is copied. `mesh`: a data x model mesh
         (`parallel.make_mesh`; module docstring), whose device is the
-        default one.
+        default one; ValueError when its model axis does not divide 3H.
         Runs on CUDA unless device="cpu" (RuntimeError without a card)."""
         self.cfg = cfg
         self.mesh = mesh
@@ -124,6 +176,7 @@ class Trainer:
             device = mesh.device
         self.device = resolve_device(device)
         self.seed = seed
+        self._opt = make_optimizer(cfg)
         if params is None:
             params = init_fn(torch.Generator().manual_seed(seed), cfg)
         self._set_params(params)
@@ -134,9 +187,14 @@ class Trainer:
         self.epoch = 0           # epochs completed (fit, the training CLI)
         self.train_path = None   # "kernel" / "plain-cpu" of the last step
 
+    @property
+    def _model_axis(self) -> bool:
+        return self.mesh is not None and self.mesh.n_model > 1
+
     def _set_params(self, params) -> None:
         """Own copies of the canonical `params` in the fast layout, and a
-        fresh Adam over the leaves it steps."""
+        fresh Adam over the leaves it steps: the trainable leaves, or
+        under a model axis this rank's slices of the sharded ones."""
         params = tree_to(params, self.device)
         # merge_canonical reads only the canonical shapes
         self._template = tree_map(lambda t: t.to("meta"), params)
@@ -147,11 +205,68 @@ class Trainer:
         if self.mesh is not None:
             shard_params({"fast": self._fast, "frozen": self._frozen},
                          self.mesh)
-        self._trainable = [t for path, t in _leaves(self._fast)
-                           if path[0] not in FROZEN_TABLES]
+        trainable = [(path, t) for path, t in _leaves(self._fast)
+                     if path[0] not in FROZEN_TABLES]
+        self._trainable_paths = [path for path, _ in trainable]
+        self._trainable = [t for _, t in trainable]
         for t in self._trainable:
             t.requires_grad_(True)
-        self.optimizer = torch.optim.Adam(self._trainable, lr=self.cfg.lr)
+        # the tensors Adam steps, one a trainable leaf: the leaf itself, or
+        # under a model axis this rank's slice of a sharded one
+        self._stepped = self._trainable
+        if self._model_axis:
+            specs = fast_pspecs(self._fast)
+            local = dict(_leaves(model_shard(
+                self._fast, specs, self.mesh.n_model, self.mesh.model_index)))
+            specs = dict(_leaves(specs))
+            self._specs = [specs[path] for path in self._trainable_paths]
+            self._stepped = [
+                local[path].detach().clone(
+                    memory_format=torch.contiguous_format) if spec else t
+                for path, t, spec in zip(self._trainable_paths,
+                                         self._trainable, self._specs)]
+        self.optimizer = self._opt.adam(self._stepped)
+        self._stale = False     # whole leaves behind their slices
+
+    def _local(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """This rank's slice of `t` along the axis `spec` puts over
+        `model` (a view)."""
+        return model_slice(t, spec, self.mesh.n_model, self.mesh.model_index)
+
+    def _gather(self) -> None:
+        """Under a model axis, after an Adam step: the whole trainable
+        leaves rebuilt from the model group's slices, and the replicated
+        ones made model index 0's (one all-reduce; a collective, called at
+        the same points on every rank). Nothing when they are current."""
+        if not self._stale:
+            return
+        first = self.mesh.model_index == 0
+        shards = [s if spec or first else None
+                  for s, spec in zip(self._stepped, self._specs)]
+        all_gather_model_(self._trainable, shards, self._specs, self.mesh)
+        self._stale = False
+
+    def _full_optimizer(self) -> torch.optim.Adam:
+        """An Adam whose state is keyed by the whole trainable leaves: the
+        optimizer itself, or under a model axis a stand-in holding each
+        sharded leaf's moments gathered over the model group (a
+        collective) and this rank's moments of the replicated ones."""
+        if not self._model_axis:
+            return self.optimizer
+        full = self._opt.adam(self._trainable)
+        state = self.optimizer.state
+        rows = [(t, s, spec) for t, s, spec in zip(
+            self._trainable, self._stepped, self._specs) if s in state]
+        for t, s, spec in rows:
+            full.state[t] = {"step": state[s]["step"], **{
+                k: torch.zeros_like(t) if spec else state[s][k]
+                for k in _MOMENTS}}
+        sharded = [(t, s, spec) for t, s, spec in rows if spec]
+        all_gather_model_(
+            [full.state[t][k] for k in _MOMENTS for t, _, _ in sharded],
+            [state[s][k] for k in _MOMENTS for _, s, _ in sharded],
+            [spec for _ in _MOMENTS for _, _, spec in sharded], self.mesh)
+        return full
 
     def _default_noise(self, host_step: int, B: int, loss_fn: Callable,
                        step: Optional[int] = None):
@@ -165,12 +280,17 @@ class Trainer:
 
     @property
     def fast_params(self) -> Dict:
-        """The fast-layout tree that Adam steps (live tensors)."""
+        """The fast-layout tree that the forward reads (live tensors).
+        Under a model axis its sharded leaves lag Adam's slices between a
+        step and the next gather (the next step, `params`, `state`)."""
         return self._fast
 
     @property
     def params(self) -> Dict:
-        """The canonical tree (copies), `merge_canonical` of the fast one."""
+        """The canonical tree (copies), `merge_canonical` of the fast one.
+        Under a model axis it first gathers the slices: every rank calls
+        it."""
+        self._gather()
         fast = tree_map(lambda t: t.detach().clone(), self._fast)
         frozen = tree_map(lambda t: t.clone(), self._frozen)
         return fast_lib.merge_canonical(fast, frozen, self._template)
@@ -178,22 +298,34 @@ class Trainer:
     @property
     def state(self) -> TrainState:
         """The training state as canonical trees (copies, on the trainer's
-        device)."""
+        device). Under a model axis it gathers the params and Adam's
+        moments over the model group: every rank calls it."""
         return TrainState(self.params, fast_lib.opt_state_merge_canonical(
-            self.optimizer, self._fast, self._template), self.step)
+            self._full_optimizer(), self._fast, self._template), self.step)
 
     def load_state(self, state: TrainState,
                    host_step: Optional[int] = None) -> None:
         """Continue from `state` (a `TrainState` of canonical trees, e.g. a
         restored checkpoint; opt_state None = a fresh optimizer). The noise
         stream resumes at `host_step`, by default at the state's step, as
-        the JAX training CLI resumes (train/cli.py:205). Raises ValueError
-        if the params are not this model's."""
+        the JAX training CLI resumes (train/cli.py:205). Under a model
+        axis each rank keeps its slices of the params and of Adam's
+        moments. Raises ValueError if the params are not this model's."""
         check_params_like(state.params, self._template)
         self._set_params(state.params)
         if state.opt_state is not None:
-            fast_lib.opt_state_split_fast(state.opt_state, self.optimizer,
-                                          self._fast)
+            full = (self._opt.adam(self._trainable) if self._model_axis
+                    else self.optimizer)
+            fast_lib.opt_state_split_fast(state.opt_state, full, self._fast)
+            if self._model_axis:
+                for t, s, spec in zip(self._trainable, self._stepped,
+                                      self._specs):
+                    if t in full.state:
+                        self.optimizer.state[s] = {
+                            k: v if k == "step" or not spec else
+                            self._local(v, spec).clone(
+                                memory_format=torch.contiguous_format)
+                            for k, v in full.state[t].items()}
         self.step = int(state.step)
         self._host_step = self.step if host_step is None else int(host_step)
 
@@ -226,8 +358,8 @@ class Trainer:
 
     def _rank_noise(self, noise, bs: int):
         """This rank's rows of the global batch's draws (every draw leads
-        with the batch axis), on the device."""
-        lo = 0 if self.mesh is None else self.mesh.rank * bs
+        with the batch axis), by its data index, on the device."""
+        lo = 0 if self.mesh is None else self.mesh.data_index * bs
         return tuple(e[lo: lo + bs].to(self.device, torch.float32)
                      for e in noise)
 
@@ -238,15 +370,18 @@ class Trainer:
     def compute_gradients(self, loss_fn: Callable, batch, eps):
         """The loss and its backward on a batch of device tensors (this
         rank's rows, and `eps` its rows of the draws), leaving each
-        trainable leaf's `.grad` set; with a mesh, then the one all-reduce
-        (mean) of the gradients and the metrics. Returns the metrics, the
-        global batch's."""
+        trainable leaf's `.grad` set (the whole leaf's, under a model axis
+        too, after the gather of its slices); with a mesh, then the one
+        all-reduce (mean) of the gradients and the metrics over the data
+        group. Returns the metrics, the global batch's."""
         for m in _PATH_MODULES:
             m.LAST_TRAIN_PATH = None
+        self._gather()
         with trace_mesh_scope(self.mesh):
             loss, metrics = loss_fn(self._fast, eps, batch, self.step,
                                     self.cfg)
-        self.optimizer.zero_grad(set_to_none=True)
+        for t in self._trainable:
+            t.grad = None
         loss.backward()
         paths = {m.LAST_TRAIN_PATH for m in _PATH_MODULES} - {None}
         self.train_path = paths.pop() if len(paths) == 1 else "mixed"
@@ -265,11 +400,19 @@ class Trainer:
 
     def train_step(self, loss_fn: Callable, batch, eps):
         """One step on a batch of device tensors (`compute_gradients`, the
-        global-norm clip, Adam); returns the metrics."""
+        global-norm clip on the whole gradients, Adam on what it steps);
+        returns the metrics."""
         metrics = self.compute_gradients(loss_fn, batch, eps)
         with torch.no_grad():
-            clip_by_global_norm_([t.grad for t in self._trainable], 1.0)
+            self._opt.clip_([t.grad for t in self._trainable])
+            if self._model_axis:
+                for t, s, spec in zip(self._trainable, self._stepped,
+                                      self._specs):
+                    if spec:
+                        s.grad = self._local(t.grad, spec).clone(
+                            memory_format=torch.contiguous_format)
         self.optimizer.step()
+        self._stale = self._model_axis
         self.step += 1
         return metrics
 
@@ -308,6 +451,7 @@ class Trainer:
             if train:
                 metrics = self.train_step(loss_fn, batch, eps)
             else:
+                self._gather()
                 with torch.no_grad(), trace_mesh_scope(self.mesh):
                     _, metrics = loss_fn(self._fast, eps, batch, self.step,
                                          self.cfg)
@@ -366,9 +510,11 @@ class Trainer:
     def checkpoint(self, checkpoint_fn: Callable[[TrainState, int], None],
                    epoch: int) -> None:
         """`checkpoint_fn(state, epoch)` on rank 0 (the only process without
-        a mesh), the other ranks waiting at a barrier until it is done."""
+        a mesh), the other ranks waiting at a barrier until it is done.
+        Every rank takes the state (a collective under a model axis)."""
+        state = self.state
         if self.is_lead:
-            checkpoint_fn(self.state, epoch)
+            checkpoint_fn(state, epoch)
         self.barrier()
 
     def _timing_batches(self, arrays, bs: int, n: int):

@@ -30,7 +30,8 @@ runs, on a 2 x 1 mesh:
 - `_local_batch_size` at two ranks.
 
 Then the training CLI over two ranks (one epoch, one checkpoint, then a
-resume on both ranks), `dryrun_multichip(2)`, and the launcher's handling
+resume on both ranks), `dryrun_multichip(2)` (its 1 x 2 and 2 x 1
+meshes), and the launcher's handling
 of a failed and of a hung rank. The rank functions live here, in a module
 that imports no JAX, so the spawned ranks import torch and the port only.
 """
@@ -379,7 +380,9 @@ def test_dryrun_multichip(capsys):
     assert [r["device"] for r in ranks] == ["cpu", "cpu"]
     out = capsys.readouterr().out
     assert "dryrun_multichip ok: mesh={'data': 2, 'model': 1}" in out
-    assert "ROADMAP queue 1 item 6" in out
+    assert "dryrun_multichip ok: mesh={'data': 1, 'model': 2}" in out
+    assert [m["mesh"] for m in ranks[0]["meshes"]] == [
+        {"data": 1, "model": 2}, {"data": 2, "model": 1}]
 
 
 def _fail_on_rank1():

@@ -1,9 +1,12 @@
 """PyTorch port, `parallel/` and `shard_arrays_for_process` in one process:
 the corpus shards and the partition rules against the JAX package's, the
-mesh's refusals (a model axis, no process group), and, on a process group
+fast layout's rule against `split_fast` of the canonical one, the mesh's
+refusals (a size other than the world's, a model axis that does not
+divide 3H, no process group), and, on a process group
 of one gloo rank made here, the mesh, the collectives at world size 1 and
 a mesh `Trainer` bit-equal to the one without a mesh. Two ranks are held
-in tests/test_torch_data_parallel.py."""
+in tests/test_torch_data_parallel.py, the model axis over several ranks in
+tests/test_torch_tensor_parallel.py."""
 import jax
 import numpy as np
 import pytest
@@ -19,11 +22,12 @@ from music_fader_nets_tpu.models import vae as j_vae
 from music_fader_nets_tpu.parallel import mesh as j_mesh
 from music_fader_nets_tpu_torch.config import ModelConfig
 from music_fader_nets_tpu_torch.data.loader import shard_arrays_for_process
-from music_fader_nets_tpu_torch.models import gmvae
+from music_fader_nets_tpu_torch.models import fast as fast_lib
+from music_fader_nets_tpu_torch.models import gmvae, vae
 from music_fader_nets_tpu_torch.parallel import collectives, launch
 from music_fader_nets_tpu_torch.parallel import mesh as mesh_lib
 from music_fader_nets_tpu_torch.train import objectives
-from music_fader_nets_tpu_torch.train.trainer import Trainer
+from music_fader_nets_tpu_torch.train.trainer import FROZEN_TABLES, Trainer
 from music_fader_nets_tpu_torch.utils.checkpoint import (
     params_from_numpy, params_to_numpy,
 )
@@ -94,10 +98,87 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("n_data,n_model", [(2, 2), (4, 2), (1, 8)])
-def test_make_mesh_refuses_a_model_axis(n_data, n_model):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        mesh_lib.make_mesh(n_data, n_model)
+@pytest.mark.parametrize("case", ["world_mismatch", "model_axis_vs_3H",
+                                  "no_process_group"])
+def test_make_mesh_refusals(case, tmp_path, monkeypatch):
+    """A mesh whose size is not the world's, a model axis that does not
+    divide 3H (refused where the `Trainer` slices its leaves), a mesh
+    without a process group."""
+    if case == "no_process_group":
+        assert not dist.is_initialized()
+        with pytest.raises(RuntimeError, match="process group"):
+            mesh_lib.make_mesh(1, 2, devices="cpu")
+        return
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        if case == "world_mismatch":
+            for n_data, n_model in ((2, 2), (1, 2), (1, 8)):
+                with pytest.raises(ValueError, match="does not match"):
+                    mesh_lib.make_mesh(n_data, n_model, devices="cpu")
+        else:
+            # 3H = 96 at H=32: a model axis of 5 leaves a remainder
+            fast = fast_lib.split_fast(gmvae.init_reg_gmvae(
+                torch.Generator().manual_seed(0), ModelConfig(**SMALL)))[0]
+            with pytest.raises(ValueError, match="does not divide"):
+                mesh_lib.model_shard(fast, mesh_lib.fast_pspecs(fast), 5, 0)
+    finally:
+        dist.destroy_process_group()
+
+
+FAMILIES = {"gmm": (j_gmvae.init_reg_gmvae, gmvae.init_reg_gmvae),
+            "single_gmvae": (j_gmvae.init_single_gmvae,
+                             gmvae.init_single_gmvae),
+            "vanilla": (j_vae.init_reg_vae, vae.init_reg_vae),
+            "cvae": (j_vae.init_cvae, vae.init_cvae),
+            "fader": (j_vae.init_fader, vae.init_fader),
+            "singlevae": (j_vae.init_single_vae, vae.init_single_vae)}
+
+
+_GRU_GROUPS = ("enc_rn", "enc_1", "enc_e", "sub_rn", "grucell_g",
+               "grucell_g_2")
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_fast_pspecs_commute_with_split_fast(family, n_model):
+    """For each model index, `split_fast` of the canonical tree sliced by
+    `param_pspecs` (each spec the JAX package's) equals the fast tree
+    sliced by `fast_pspecs`, leaf by leaf. The leaves sharded are the GRU
+    groups', each along 3H; the frozen tables and the layers `split_fast`
+    sets aside are never sliced."""
+    j_init, _ = FAMILIES[family]
+    p = jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(0),
+                                        JConfig(**SMALL)))
+    canonical = params_from_numpy(p)
+    specs = mesh_lib.param_pspecs(canonical)
+    want_specs = jax.tree_util.tree_leaves_with_path(
+        j_mesh.param_pspecs(p), is_leaf=lambda x: isinstance(
+            x, jax.sharding.PartitionSpec))
+    for path, spec in want_specs:
+        leaf = specs
+        for k in path:
+            leaf = leaf[k.key]
+        assert leaf == tuple(spec), path
+    fast, frozen = fast_lib.split_fast(canonical)
+    fast_specs = mesh_lib.fast_pspecs(fast)
+    sharded = {path for path, spec in _leaves(fast_specs) if spec}
+    shapes = {path: t.shape for path, t in _leaves(fast)}
+    assert sharded and all(path[0] in _GRU_GROUPS for path in sharded)
+    assert all(shapes[path][-1] == 3 * SMALL["hidden_dims"]
+               for path in sharded)
+    assert not any(path[0] in FROZEN_TABLES for path in sharded)
+    assert not set(frozen) & set(fast)
+    for index in range(n_model):
+        got = dict(_leaves(fast_lib.split_fast(mesh_lib.model_shard(
+            canonical, specs, n_model, index))[0]))
+        want = dict(_leaves(mesh_lib.model_shard(fast, fast_specs, n_model,
+                                                 index)))
+        assert set(got) == set(want)
+        for path in want:
+            assert torch.equal(got[path], want[path]), (path, index)
 
 
 def test_make_mesh_needs_a_process_group():
