@@ -88,8 +88,12 @@ between the two: two ranks sharing the card over gloo on a 1 x 2 mesh,
 each holding half of the GRU leaves' Adam state, against one process
 (`tensor_parallel`). Then bf16 mixed precision (`mixed_precision`): each
 bf16 kernel pair against its bf16 plain version, timed in turns with its
-float32 kernels; rows 2, 4, 6 and 10 bf16 (their products on the tensor
-cores) at ragged shapes; the GM-VAE's bf16 steps, timed in turns with
+float32 kernels; the float32 forward entries' outputs hashed and held
+to the bits of the build before the bf16 forward chain's redesign; rows
+2, 4, 6 and 10 bf16 (their backward products on the tensor cores) and
+the forwards of rows 1, 3, 3t, 5 and 9 bf16 (the forward chain's product
+on the tensor cores) at ragged shapes, each forward called twice,
+bit-equal; the GM-VAE's bf16 steps, timed in turns with
 float32; the other casting families; GLSR; the training CLI in bf16.
 Every phase prints one JSON line; the kernels line
 follows, then the card's name and power limit as nvidia-smi reports
@@ -144,6 +148,19 @@ MP_TOL_OUT = 1e-2
 MP_TOL_GRAD_REL = 2e-2
 MP_TOL_LOSS_REL = 1e-3
 MP_TOL_STEP_GRAD_REL = 4e-2
+# SHA-1 of what each float32 forward entry writes on fixed inputs
+# (`train/bf16_turns.py::f32_forward_sha1`), taken on an H100 from the
+# build before the bf16 forward chain moved onto the tensor cores (commit
+# f1eaded): the float32 instance of the chain must keep its bits
+F32_FWD_SHA1 = {
+    "3": "44c6e56e146b70ade722125ef896178ce4993750",
+    "3t": "870c3cf9af289437fd7b3edb30acbee58754f4e3",
+    "5": "52378f89957ef070bfb06daca1e5c146601f3eab",
+    "1": "872fb2d5d8fecf5b455aa441d9d379d78b202476",
+    "decoder_ce": "2cefd4eed2f0e2e3fd03b62e054aa47b6c2f455d",
+    "decoder_masses": "8ca8e737aaeb2c03a20d36fc71b4092fb9ddbbce",
+    "decoder_teacher": "3bddb40e37def9b8e17e7e2566ea400edc827d3b",
+}
 SEED = 0
 
 
@@ -631,6 +648,7 @@ def main() -> int:
     from music_fader_nets_tpu_torch.losses.regularizers import (
         GLSR_MASK_RANGES,
     )
+    from music_fader_nets_tpu_torch.train.bf16_turns import f32_forward_sha1
     from music_fader_nets_tpu_torch.train.bwd_split import kernel_split
     from music_fader_nets_tpu_torch.train.fwd_split import (
         PARTS as FWD_PARTS, SKIP as FWD_SKIP,
@@ -3127,6 +3145,15 @@ def main() -> int:
     # finals in bf16), then save -> restore bit-exact, float32 tensors.
     BF = torch.bfloat16
     mp_cfg = ModelConfig(dtype="bfloat16")
+    # the float32 forward entries keep the bits of the build before the
+    # bf16 chain's redesign
+    f32_bits = f32_forward_sha1(dev)
+    emit({"phase": "mixed_precision", "part": "f32_forward_bits",
+          "sha1": f32_bits,
+          "equal": {k: f32_bits.get(k) == v for k, v in
+                    F32_FWD_SHA1.items()}})
+    if f32_bits != F32_FWD_SHA1:
+        return fail(f"mixed_precision f32_forward_bits: {f32_bits}")
     mp_src = {"fwd": csrc + "gru_fwd_chain.cu", "bwd": csrc +
               "embed_gru_bwd.cu"}
     mp_launches = {}
@@ -3422,7 +3449,20 @@ def main() -> int:
     def mr_rand(shape, scale):
         return (torch.randn(shape, generator=mr_gen) * scale).to(dev, BF)
 
-    ragged_bf16 = {}
+    def tuple_of(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    def bf16_train_fwd_plain(ids, w_in, add, w_hh, b_hh, h0):
+        """The bf16 training forward's h_seq and gate stash by the plain
+        float32 chain (`cuda_gru.chain_fwd32`), rounded to bf16 where the
+        kernel stores them."""
+        h_seq, stash = cuda_gru.chain_fwd32(
+            cuda_gru._table_xpre(ids, w_in.float(), add.float(),
+                                 add.dim() == 3),
+            w_hh.float(), b_hh.float(), h0.float(), ids.shape[1])
+        return h_seq.to(BF), stash.to(BF)
+
+    ragged_bf16, ragged_fwd = {}, {}
     for mT, mB, mH in ((21, 37, 136), (9, 37, 30)):
         mG = 3 * mH
         m_w = bf(*stack_directions([gru_init(mr_gen, V, mH)
@@ -3476,6 +3516,45 @@ def main() -> int:
                 "grad_max_abs_err": m_abs, "grad_max_rel_err": m_rel,
                 "determinism": all(torch.equal(a, b_)
                                    for a, b_ in zip(m_grads, m_again))}
+        # the bf16 forward chain (its product on the tensor cores) at the
+        # same shapes: every buffer each forward entry writes against its
+        # bf16 plain version, two calls bit-equal
+        m_pre = mr_rand((2, mT, mB, mG), 0.5)
+        m_seq = [mr_rand((2, 16, mG), 0.2), mr_rand((2, mB, mG), 0.2),
+                 m_w[2], m_w[3], m_h0]
+        with torch.no_grad():
+            fwd_cases = (
+                ("stacked_gru_bf16",
+                 lambda: cuda_stacked.stacked_gru(m_pre, *m_w[2:], m_h0),
+                 lambda: cuda_stacked.stacked_gru_plain(m_pre, *m_w[2:],
+                                                        m_h0)),
+                ("embed_gru_bf16",
+                 lambda: cuda_gru.stacked_gru_embed_finals(m_tok, *m_w,
+                                                           m_h0),
+                 lambda: cuda_gru.stacked_gru_embed_finals_plain(
+                     m_tok, *m_w, m_h0)),
+                ("embed_gru_train_bf16",
+                 lambda: cuda_gru._launch_train_fwd(m_tok, *m_w, m_h0,
+                                                    True),
+                 lambda: bf16_train_fwd_plain(m_tok, *m_w, m_h0)),
+                ("embed_seq_bf16",
+                 lambda: cuda_gru._launch_train_fwd(m_cls, *m_seq, True),
+                 lambda: bf16_train_fwd_plain(m_cls, *m_seq)),
+                ("decoder_ce_bf16",
+                 lambda: cuda_decoder.decoder_teacher_nll(m_dtok, m_tgt,
+                                                          *m_dec),
+                 lambda: cuda_decoder.decoder_teacher_nll_plain(
+                     m_dtok, m_tgt, *m_dec)))
+            for name, fn, plain in fwd_cases:
+                outs, again, want = (tuple_of(f()) for f in (fn, fn, plain))
+                torch.cuda.synchronize()
+                ragged_fwd[f"{name}@T{mT}_B{mB}_H{mH}"] = {
+                    "dtypes": sorted({str(o.dtype) for o in outs}),
+                    "out_max_abs_err": max(
+                        float((o.float() - w_.float()).abs().max())
+                        for o, w_ in zip(outs, want)),
+                    "determinism": all(torch.equal(a, b_)
+                                       for a, b_ in zip(outs, again))}
     emit({"phase": "mixed_precision", "part": "ragged_backward",
           "tol_out": MP_TOL_OUT, "tol_grad_rel": MP_TOL_GRAD_REL,
           **ragged_bf16})
@@ -3484,7 +3563,12 @@ def main() -> int:
                 and e["grad_max_rel_err"] <= MP_TOL_GRAD_REL
                 and e["determinism"]):
             return fail(f"mixed_precision ragged_backward, {name}: {e}")
-    del m_w, m_dec, cases
+    emit({"phase": "mixed_precision", "part": "ragged_forward",
+          "tol_out": MP_TOL_OUT, **ragged_fwd})
+    for name, e in ragged_fwd.items():
+        if not (e["out_max_abs_err"] <= MP_TOL_OUT and e["determinism"]):
+            return fail(f"mixed_precision ragged_forward, {name}: {e}")
+    del m_w, m_dec, cases, fwd_cases
 
     # (b) the GM-VAE in bf16: the first step against the plain path, then
     # 3 + 3 steps on the kernels

@@ -238,13 +238,6 @@ __device__ __forceinline__ void seq_stage_w_hh(
   }
 }
 
-// The bf16 chain's weight slab: element (k, c) of the block's w_hh^T
-// columns at k * 32 + its swizzled column (the 16-byte chunk c / 8 of row
-// k stored at chunk (c / 8) ^ ((k / 2) % 4)).
-__device__ __forceinline__ int swz(int k, int c) {
-  return k * kChainCols + ((((c >> 3) ^ (k >> 1)) & 3) << 3) + (c & 7);
-}
-
 // sWb[k][c] = w_hh[l][c0 + c][k] (zero past G or H), bf16 as stored: from
 // w_hhT (k-major, `k_major`; reads coalesced over c) or w_hh (the
 // sub-decoders' mode; reads coalesced over k).

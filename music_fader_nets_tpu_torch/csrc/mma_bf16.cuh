@@ -1,6 +1,7 @@
 // bf16 tensor-core products with float32 accumulation for the training
-// kernels' bf16 instantiations (grad_reduce.cu's GEMMs, embed_gru_bwd.cu's
-// chain, decoder_ce.cu's CE head): mma.sync.m16n8k16 fragments, ldmatrix,
+// kernels' bf16 instantiations (grad_reduce.cu's GEMMs, the chains of
+// embed_gru_bwd.cu and gru_fwd_chain.cu, decoder_ce.cu's CE head):
+// mma.sync.m16n8k16 fragments, ldmatrix, the chains' swizzled weight slab
 // and the three-piece split of a float32 operand.
 //
 // Every product of the Pallas kernels in bf16 pairs a bf16 operand with a
@@ -62,6 +63,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Element (k, c) of a k-major bf16 slab of 32 columns (64-byte rows), the
+// chains' weight slabs: at k * 32 + its swizzled column, the 16-byte chunk
+// c / 8 of row k stored at chunk (c / 8) ^ ((k / 2) % 4), so that
+// ldmatrix's 8 consecutive rows fall on distinct banks.
+__device__ __forceinline__ int swz(int k, int c) {
+  return k * 32 + ((((c >> 3) ^ (k >> 1)) & 3) << 3) + (c & 7);
 }
 
 // Four 8 x 8 b16 matrices from shared memory; lane i gives the address of

@@ -6,7 +6,8 @@ checkout's, in turns on one GPU.
 
 At the config's full width (T=seq_len, B=batch_size, H=hidden_dims; random
 weights and inputs from a seed) it times, for each bf16 training row, the
-forward and the backward of its wrapper by CUDA events (medians), the bf16
+forward and the backward of its wrapper by CUDA events (medians), and the
+forward without a gradient (the encoder's: row 3, finals only), the bf16
 call and the float32 call of the same inputs in turns (bf16, float32,
 float32, bf16): the generic stacked GRU (rows 1/2, L=2), the encoder (3t/4,
 L=4), the sub-decoders (5/6, L=2, T=attr_len) and the teacher decoder with
@@ -15,6 +16,10 @@ the CE head (9/10). Each bf16 backward is also split by part (CUPTI:
 TFLOP/s of useful work (2 M N K over their device ms) and the chain's
 device us a step, and a SHA-1 of the float32 backward's gradients (its
 bits: equal across two checkouts whose float32 kernels compute the same).
+First it prints a SHA-1 of each float32 forward entry's outputs on fixed
+inputs (`f32_forward_sha1`: equal across two checkouts whose float32
+forward chains compute the same; `chip_smoke.py` holds them to the
+values of the build before the bf16 forward chain's redesign).
 Then the GM-VAE `Trainer` (B=batch_size, unsupervised)
 in float32 and in bf16, in turns, 2 warm-up and 3 timed steps each: ms a
 step (host clock, synchronised). One JSON line a row, then one for the
@@ -43,6 +48,55 @@ def _smi() -> str:
                           text=True, timeout=60).stdout.strip()
 
 
+def f32_forward_sha1(dev) -> dict:
+    """{row: SHA-1 of what its float32 forward entry writes} on fixed
+    inputs made on the CPU from a seed: rows 1 (the stacked GRU's h_seq),
+    3 (the encoder's finals), 3t (its h_seq and gate stash), 5 (the
+    sub-decoders' h_seq and stash), 7, 9 and 9-masses (the three decoder
+    entries' outputs) at T=9, B=37 (a partial row tile) and H=512. Equal
+    across two builds whose float32 forward chains compute the same
+    bits."""
+    import torch
+
+    from music_fader_nets_tpu_torch.ops import cuda_gru, cuda_stacked
+    from music_fader_nets_tpu_torch.ops.gru import vocab_pad
+    from music_fader_nets_tpu_torch.train.bwd_split import decoder_cases
+
+    T, B, H, V = 9, 37, 512, 342
+    G, Vp = 3 * H, vocab_pad(V)
+    gen = torch.Generator().manual_seed(17)
+
+    def rand(shape, scale):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def ids(L, n):
+        return torch.randint(0, n, (L, T, B), generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    def sha(out):
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        return hashlib.sha1(b"".join(o.detach().cpu().numpy().tobytes()
+                                     for o in outs)).hexdigest()
+
+    enc = [rand((4, Vp, G), 0.05), rand((4, G), 0.05),
+           rand((4, H, G), 0.04), rand((4, G), 0.05), rand((4, B, H), 0.1)]
+    tok = ids(4, V)
+    seq = [rand((2, 16, G), 0.2), rand((2, B, G), 0.2),
+           rand((2, H, G), 0.04), rand((2, G), 0.05), rand((2, B, H), 0.5)]
+    cls = ids(2, 16)
+    stacked = [rand((2, T, B, G), 0.5), rand((2, H, G), 0.04),
+               rand((2, G), 0.05), rand((2, B, H), 0.1)]
+    with torch.no_grad():
+        out = {"3": sha(cuda_gru.stacked_gru_embed_finals(tok, *enc)),
+               "3t": sha(cuda_gru._launch_train_fwd(tok, *enc, True)),
+               "5": sha(cuda_gru._launch_train_fwd(cls, *seq, True)),
+               "1": sha(cuda_stacked.stacked_gru(*stacked))}
+        for name, (_, fn, floats, _) in decoder_cases(T, B, H, V, rand,
+                                                      dev).items():
+            out[name] = sha(fn(*floats))
+    return out
+
+
 def measure(reps: int, seed: int, tree: str) -> None:
     """This process's measurement, over the package it imports."""
     import numpy as np
@@ -66,6 +120,8 @@ def measure(reps: int, seed: int, tree: str) -> None:
     G, Vp, A = 3 * H, vocab_pad(V), cfg.attr_len
     gen = torch.Generator().manual_seed(seed)
     smi = _smi()
+    print(json.dumps({"tree": tree, "f32_fwd_sha1": f32_forward_sha1(dev),
+                      "nvidia_smi": smi}), flush=True)
 
     def rand(shape, scale):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
@@ -112,8 +168,11 @@ def measure(reps: int, seed: int, tree: str) -> None:
         for dt in (torch.bfloat16, torch.float32, torch.float32,
                    torch.bfloat16):
             fwd, bwd = runs[dt]
+            with torch.no_grad():
+                nograd = event_ms(fwd, reps)
             turns.append({"dtype": str(dt).split(".")[1],
                           "fwd_ms": event_ms(fwd, reps),
+                          "fwd_nograd_ms": nograd,
                           "bwd_ms": event_ms(bwd, reps)})
         f32_sha1 = hashlib.sha1(b"".join(
             g.cpu().numpy().tobytes()
