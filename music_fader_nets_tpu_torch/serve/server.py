@@ -32,6 +32,16 @@ mixture tables are served reconstruct-only.
 
 The server runs on CUDA unless `device="cpu"` is asked for, where every
 kernel wrapper takes its plain PyTorch version (`serving_path` says which).
+
+With the program's spans on (`utils/profiling.py`), a request records
+`serve.submit` and `serve.queue` (its wait from the put until the
+dispatcher takes it, linked by the request's index, its `arg` the batch's
+number); a batch records, with its number, `serve.gather` (from the
+blocking get of its first request until it closes; `arg` full, deadline
+or shutdown: `GATHER_CLOSED`), `serve.assemble`, `serve.slot_wait` and
+`serve.enqueue` on the dispatch thread, and `serve.fetch_wait`,
+`serve.copy_back` and `serve.respond` on the fetch thread, each with the
+thread's CPU time at both ends.
 """
 from __future__ import annotations
 
@@ -55,8 +65,15 @@ from music_fader_nets_tpu_torch.ops.gru import vocab_pad
 from music_fader_nets_tpu_torch.ops.sampling import gumbel_rows, reparameterize
 from music_fader_nets_tpu_torch.transfer.arousal import compute_shift_vectors
 from music_fader_nets_tpu_torch.utils.checkpoint import tree_to
+from music_fader_nets_tpu_torch.utils.profiling import SPANS
 
 _DIRECTIONS = ("none", "low_to_high", "high_to_low")
+# how a batch's gather ended: its `arg`
+GATHER_CLOSED = ("full", "deadline", "shutdown")
+_SUBMIT, _QUEUE, _GATHER, _ASSEMBLE, _SLOT_WAIT, _ENQUEUE, _FETCH_WAIT, \
+    _COPY_BACK, _RESPOND = (SPANS.name(f"serve.{n}") for n in (
+        "submit", "queue", "gather", "assemble", "slot_wait", "enqueue",
+        "fetch_wait", "copy_back", "respond"))
 
 
 class TransferServer:
@@ -88,6 +105,9 @@ class TransferServer:
         # here, at construction
         self._warmup()
         self._nonce = itertools.count(1)
+        # request indices (while spans are on) and batch numbers
+        self._rids = itertools.count()
+        self._seqs = itertools.count()
 
         self._q: "queue.Queue" = queue.Queue()
         # a semaphore (not a bounded queue, whose slot would free at fetch
@@ -113,6 +133,13 @@ class TransferServer:
     def submit(self, req: Any) -> Future:
         """Enqueue one request dict; resolves to a response dict (never
         raises: malformed requests resolve to {"error": ...})."""
+        if not SPANS.on:
+            return self._submit(req, -1)
+        rid = next(self._rids)
+        with SPANS.span(_SUBMIT, rid):
+            return self._submit(req, rid)
+
+    def _submit(self, req: Any, rid: int) -> Future:
         fut: Future = Future()
         if not isinstance(req, dict):
             with self._lock:
@@ -131,6 +158,8 @@ class TransferServer:
                 fut.set_result({"id": req.get("id"),
                                 "error": "server closed"})
                 return fut
+            if rid >= 0:
+                row["span"] = (rid, time.perf_counter_ns())
             self._q.put((row, fut, time.monotonic()))
         return fut
 
@@ -243,7 +272,10 @@ class TransferServer:
         out.cpu()
 
     def _dispatch_loop(self) -> None:
+        gather = None    # (ns, CPU ns) the gather began at, spans on
         while True:
+            if gather is None and SPANS.on:
+                gather = (time.perf_counter_ns(), time.thread_time_ns())
             try:
                 first = self._q.get(timeout=0.2)
             except queue.Empty:
@@ -252,10 +284,16 @@ class TransferServer:
                 continue
             if first is None:
                 break
+            seq = next(self._seqs)
+            traced = gather is not None
+            if traced:
+                self._taken(first, seq)
             batch = [first]
+            closed = 0
             deadline = time.monotonic() + self.max_wait
             while len(batch) < self.max_batch:
                 rem = deadline - time.monotonic()
+                closed = 1
                 if rem <= 0:
                     break
                 try:
@@ -264,10 +302,17 @@ class TransferServer:
                     break
                 if item is None:
                     self._closed = True
+                    closed = 2
                     break
+                if traced:
+                    self._taken(item, seq)
                 batch.append(item)
+                closed = 0
+            if traced:
+                SPANS.record(_GATHER, *gather, link=seq, arg=closed)
+                gather = None
             try:
-                self._launch_batch(batch)
+                self._launch_batch(batch, seq)
             except Exception as e:           # resolve, never wedge callers
                 for _, fut, _ in batch:
                     if not fut.done():
@@ -285,9 +330,32 @@ class TransferServer:
                                     "error": "server closed"})
         self._inflight.put(None)             # drain the fetcher
 
-    def _launch_batch(self, batch) -> None:
-        """Assemble and enqueue one padded batch; the fetch thread brings
-        the results back and resolves the futures."""
+    @staticmethod
+    def _taken(item, seq: int) -> None:
+        """A request taken into batch `seq`: its `serve.queue` span."""
+        span = item[0].get("span")
+        if span is not None:
+            SPANS.record(_QUEUE, span[1], link=span[0], arg=seq, own=False)
+
+    def _launch_batch(self, batch, seq: int) -> None:
+        """Assemble and enqueue one padded batch (number `seq`); the fetch
+        thread brings the results back and resolves the futures."""
+        with SPANS.span(_ASSEMBLE, seq, cpu=True):
+            args = self._assemble(batch)
+        # backpressure: blocks once pipeline_depth batches are in flight
+        with SPANS.span(_SLOT_WAIT, seq, cpu=True):
+            self._slots.acquire()
+        t0 = time.monotonic()
+        try:
+            with SPANS.span(_ENQUEUE, seq, cpu=True):
+                out, z = self._run(*args)
+        except Exception:
+            self._slots.release()    # never leak a launch slot
+            raise
+        self._inflight.put((batch, out, z, t0, seq))
+
+    def _assemble(self, batch):
+        """The padded batch's host arrays, the arguments of `_run`."""
         B, cfg = self.max_batch, self.cfg
         tokens = np.zeros((B, cfg.seq_len), np.int32)
         chroma = np.zeros((B, cfg.chroma_dims), np.float32)
@@ -314,30 +382,25 @@ class TransferServer:
                 noise_seeds[i] = (row["seed"] if row["seed"] is not None
                                   else next(self._nonce))
         sampled = any(s is not None for s in noise_seeds)
-
-        # backpressure: blocks once pipeline_depth batches are in flight
-        self._slots.acquire()
-        t0 = time.monotonic()
-        try:
-            out, z = self._run(tokens, chroma, shift_r, shift_n, lam, eps_r,
-                               eps_n, noise_seeds if sampled else None,
-                               inv_t)
-        except Exception:
-            self._slots.release()    # never leak a launch slot
-            raise
-        self._inflight.put((batch, out, z, t0))
+        return (tokens, chroma, shift_r, shift_n, lam, eps_r, eps_n,
+                noise_seeds if sampled else None, inv_t)
 
     def _fetch_loop(self) -> None:
         while True:
+            wait = ((time.perf_counter_ns(), time.thread_time_ns())
+                    if SPANS.on else None)
             item = self._inflight.get()
             if item is None:
                 return
-            batch, out_dev, z_dev, t0 = item
+            batch, out_dev, z_dev, t0, seq = item
+            if wait is not None:
+                SPANS.record(_FETCH_WAIT, *wait, link=seq)
             try:
-                out = out_dev.cpu().numpy()
-                z = (z_dev.cpu().numpy()
-                     if any(row["return_z"] for row, _, _ in batch)
-                     else None)
+                with SPANS.span(_COPY_BACK, seq, cpu=True):
+                    out = out_dev.cpu().numpy()
+                    z = (z_dev.cpu().numpy()
+                         if any(row["return_z"] for row, _, _ in batch)
+                         else None)
             except Exception as e:   # device-side failure surfaces here
                 for _, fut, _ in batch:
                     if not fut.done():
@@ -345,26 +408,32 @@ class TransferServer:
                 continue
             finally:
                 self._slots.release()
-            batch_ms = (time.monotonic() - t0) * 1e3
-            n = len(batch)
-            done_t = time.monotonic()
-            with self._lock:
-                self._stats["requests"] += n
-                self._stats["batches"] += 1
-                self._stats["batch_rows"] += n
-                for _, _, t_in in batch:
-                    self._lat_ms.append((done_t - t_in) * 1e3)
-                del self._lat_ms[:-4096]
-            for i, (row, fut, t_in) in enumerate(batch):
-                try:
-                    resp = {"id": row["id"],
-                            "tokens": out[i, :row["steps"]].tolist(),
-                            "batch_rows": n,
-                            "batch_ms": round(batch_ms, 2),
-                            "latency_ms": round((done_t - t_in) * 1e3, 2)}
-                    if row["return_z"]:
-                        resp["z"] = np.round(z[i], 6).tolist()
-                    fut.set_result(resp)
-                except Exception as e:   # never let one row kill the thread
-                    if not fut.done():
-                        fut.set_result({"error": f"marshal failed: {e!r}"})
+            with SPANS.span(_RESPOND, seq, cpu=True):
+                self._respond(batch, out, z, t0)
+
+    def _respond(self, batch, out, z, t0: float) -> None:
+        """The batch's stats, and each row's response set on its future
+        (which runs the callbacks)."""
+        batch_ms = (time.monotonic() - t0) * 1e3
+        n = len(batch)
+        done_t = time.monotonic()
+        with self._lock:
+            self._stats["requests"] += n
+            self._stats["batches"] += 1
+            self._stats["batch_rows"] += n
+            for _, _, t_in in batch:
+                self._lat_ms.append((done_t - t_in) * 1e3)
+            del self._lat_ms[:-4096]
+        for i, (row, fut, t_in) in enumerate(batch):
+            try:
+                resp = {"id": row["id"],
+                        "tokens": out[i, :row["steps"]].tolist(),
+                        "batch_rows": n,
+                        "batch_ms": round(batch_ms, 2),
+                        "latency_ms": round((done_t - t_in) * 1e3, 2)}
+                if row["return_z"]:
+                    resp["z"] = np.round(z[i], 6).tolist()
+                fut.set_result(resp)
+            except Exception as e:   # never let one row kill the thread
+                if not fut.done():
+                    fut.set_result({"error": f"marshal failed: {e!r}"})

@@ -69,6 +69,13 @@ depend on the mesh.
 `fit` logs and checkpoints on rank 0 only, the other ranks waiting at a
 barrier; the step timers synchronise and meet at a barrier around each
 window.
+
+With the program's spans on (`utils/profiling.py`), a step records
+`train.step` around `train_step` and, under it, `train.forward` (the
+objective's call), `train.backward` (`loss.backward()` and the zero
+gradients' fill), `train.allreduce` (with a mesh), `train.clip` and
+`train.adam`, each linked by the training step and with the thread's CPU
+time at both ends.
 """
 from __future__ import annotations
 
@@ -94,6 +101,7 @@ from music_fader_nets_tpu_torch.train.objectives import draw_noise
 from music_fader_nets_tpu_torch.utils.checkpoint import (
     check_params_like, tree_map, tree_to,
 )
+from music_fader_nets_tpu_torch.utils.profiling import SPANS
 
 # the kernel wrappers' modules whose LAST_TRAIN_PATH a step reads
 _PATH_MODULES = (cuda_gru, cuda_decoder, cuda_stacked)
@@ -103,6 +111,9 @@ _PATH_MODULES = (cuda_gru, cuda_decoder, cuda_stacked)
 FROZEN_TABLES = ("logvar_r_lookup", "logvar_n_lookup")
 # torch.optim.Adam's moments (optax's mu and nu)
 _MOMENTS = ("exp_avg", "exp_avg_sq")
+_STEP, _FORWARD, _BACKWARD, _ALLREDUCE, _CLIP, _ADAM = (
+    SPANS.name(f"train.{n}") for n in (
+        "step", "forward", "backward", "allreduce", "clip", "adam"))
 
 
 class TrainState(NamedTuple):
@@ -377,43 +388,48 @@ class Trainer:
         for m in _PATH_MODULES:
             m.LAST_TRAIN_PATH = None
         self._gather()
-        with trace_mesh_scope(self.mesh):
+        with SPANS.span(_FORWARD, self.step, cpu=True), \
+                trace_mesh_scope(self.mesh):
             loss, metrics = loss_fn(self._fast, eps, batch, self.step,
                                     self.cfg)
-        for t in self._trainable:
-            t.grad = None
-        loss.backward()
-        paths = {m.LAST_TRAIN_PATH for m in _PATH_MODULES} - {None}
-        self.train_path = paths.pop() if len(paths) == 1 else "mixed"
-        grads = []
-        for t in self._trainable:
-            if t.grad is None:      # optax steps a zero gradient too
-                t.grad = torch.zeros_like(t)
-            grads.append(t.grad)
+        with SPANS.span(_BACKWARD, self.step, cpu=True):
+            for t in self._trainable:
+                t.grad = None
+            loss.backward()
+            paths = {m.LAST_TRAIN_PATH for m in _PATH_MODULES} - {None}
+            self.train_path = paths.pop() if len(paths) == 1 else "mixed"
+            grads = []
+            for t in self._trainable:
+                if t.grad is None:      # optax steps a zero gradient too
+                    t.grad = torch.zeros_like(t)
+                grads.append(t.grad)
         if self.mesh is None:
             return metrics
-        names = sorted(metrics)
-        vals = torch.stack([metrics[k].detach().to(grads[0].dtype)
-                            for k in names])
-        all_reduce_mean_(grads + [vals], self.mesh)
+        with SPANS.span(_ALLREDUCE, self.step, cpu=True):
+            names = sorted(metrics)
+            vals = torch.stack([metrics[k].detach().to(grads[0].dtype)
+                                for k in names])
+            all_reduce_mean_(grads + [vals], self.mesh)
         return dict(zip(names, vals.unbind()))
 
     def train_step(self, loss_fn: Callable, batch, eps):
         """One step on a batch of device tensors (`compute_gradients`, the
         global-norm clip on the whole gradients, Adam on what it steps);
         returns the metrics."""
-        metrics = self.compute_gradients(loss_fn, batch, eps)
-        with torch.no_grad():
-            self._opt.clip_([t.grad for t in self._trainable])
-            if self._model_axis:
-                for t, s, spec in zip(self._trainable, self._stepped,
-                                      self._specs):
-                    if spec:
-                        s.grad = self._local(t.grad, spec).clone(
-                            memory_format=torch.contiguous_format)
-        self.optimizer.step()
-        self._stale = self._model_axis
-        self.step += 1
+        with SPANS.span(_STEP, self.step, cpu=True):
+            metrics = self.compute_gradients(loss_fn, batch, eps)
+            with torch.no_grad(), SPANS.span(_CLIP, self.step, cpu=True):
+                self._opt.clip_([t.grad for t in self._trainable])
+                if self._model_axis:
+                    for t, s, spec in zip(self._trainable, self._stepped,
+                                          self._specs):
+                        if spec:
+                            s.grad = self._local(t.grad, spec).clone(
+                                memory_format=torch.contiguous_format)
+            with SPANS.span(_ADAM, self.step, cpu=True):
+                self.optimizer.step()
+            self._stale = self._model_axis
+            self.step += 1
         return metrics
 
     def run_epoch(self, arrays: Dict[str, np.ndarray],
