@@ -12,10 +12,17 @@ of `music_fader_nets_tpu/serve/server.py`, same request schema).
   * **Micro-batching.** Concurrent requests coalesce (up to `max_batch`
     rows or `max_wait_ms`) into one launch.
   * **Pipelined dispatch.** One dispatch thread enqueues all device work
-    asynchronously on the current CUDA stream; a fetch thread materialises
-    results with `.cpu()`, where device faults surface, so batch N+1
-    launches while batch N's tokens come back (at most `pipeline_depth`
-    batches in flight).
+    asynchronously on the current CUDA stream and never waits on the
+    device; a fetch thread waits for its batch's results, where device
+    faults surface, so batch N+1 launches while batch N's tokens come back
+    (at most `pipeline_depth` batches in flight).
+  * **Staging.** A batch's inputs are assembled in one host buffer of a
+    staging set, sent with one copy, and its results copied back into the
+    set's host buffers, after which the set's CUDA event is recorded. On
+    CUDA the buffers are page-locked, so neither copy waits on the stream;
+    on the CPU the same code runs on plain buffers with no event. There is
+    one set more than launch slots, so the next batch is assembled while
+    `pipeline_depth` batches are in flight.
 
 Requests are plain dicts (the JSON-line protocol of `serve/cli.py`):
 
@@ -46,6 +53,7 @@ thread's CPU time at both ends.
 from __future__ import annotations
 
 import itertools
+import math
 import queue
 import threading
 import time
@@ -101,9 +109,26 @@ class TransferServer:
             self._shifts = None
         self.serving_path = ("kernel" if self.device.type == "cuda"
                              else "plain-cpu")
+        depth = max(1, int(pipeline_depth))
+        B, Z = self.max_batch, cfg.z_dims
+        fields = {"tokens": ((B, cfg.seq_len), torch.int32),
+                  "chroma": ((B, cfg.chroma_dims), torch.float32),
+                  "shift_r": ((B, Z), torch.float32),
+                  "shift_n": ((B, Z), torch.float32),
+                  "lam": ((B,), torch.float32),
+                  "eps_r": ((B, Z), torch.float32),
+                  "eps_n": ((B, Z), torch.float32),
+                  "inv_t": ((B,), torch.float32)}
+        staging = [_Staging(fields, self.device) for _ in range(depth + 1)]
         # builds the kernels on first use and surfaces any launch failure
         # here, at construction
-        self._warmup()
+        self._warmup(staging)
+        # the sets not in flight; the dispatcher takes one before it
+        # assembles a batch, so it never waits here (one more set than
+        # slots), and the fetch thread puts it back before the slot
+        self._free: "queue.SimpleQueue" = queue.SimpleQueue()
+        for st in staging:
+            self._free.put(st)
         self._nonce = itertools.count(1)
         # request indices (while spans are on) and batch numbers
         self._rids = itertools.count()
@@ -113,10 +138,13 @@ class TransferServer:
         # a semaphore (not a bounded queue, whose slot would free at fetch
         # START) holds each launch slot until its fetch COMPLETES
         self._inflight: "queue.Queue" = queue.Queue()
-        self._slots = threading.Semaphore(max(1, int(pipeline_depth)))
+        self._slots = threading.Semaphore(depth)
         self._lock = threading.Lock()
+        # staged_batches: batches whose results came back through a staging
+        # set; fetch_ready: those whose results were already on the host
+        # when the fetch thread came for them (the host paces serving)
         self._stats = {"requests": 0, "batches": 0, "batch_rows": 0,
-                       "rejected": 0}
+                       "rejected": 0, "staged_batches": 0, "fetch_ready": 0}
         self._lat_ms: List[float] = []
         self._closed = False
         self._thread = threading.Thread(target=self._dispatch_loop,
@@ -237,39 +265,40 @@ class TransferServer:
                 "temperature": temperature,
                 "return_z": bool(req.get("return_z", False))}
 
-    def _run(self, tokens, chroma, shift_r, shift_n, lam, eps_r, eps_n,
-             noise_seeds=None, inv_t=None):
-        """Enqueue one padded batch on the device: encode -> z -> decode.
-        Returns device tensors (tokens (B, steps) int32, z (B, Z_total));
-        nothing here waits for the device."""
+    def _run(self, st: "_Staging", noise_seeds=None):
+        """Enqueue one padded batch, assembled in `st`, on the device:
+        encode -> z -> decode. Returns device tensors (tokens (B, steps)
+        int32, z (B, Z_total)); nothing here waits for the device."""
         dev = self.device
-
-        def t(a):
-            return torch.from_numpy(a).to(dev)
-
         with torch.inference_mode():
+            x = st.send(dev)
             (mu_r, std_r), (mu_n, std_n) = reg_vae_encode(
-                self.params, None, tokens=t(tokens))
+                self.params, None, tokens=x["tokens"])
             # eps rows are ZERO for deterministic (mean) rows
-            lam_t = t(lam)[:, None]
-            z_r = reparameterize(mu_r, std_r, t(eps_r)) + lam_t * t(shift_r)
-            z_n = reparameterize(mu_n, std_n, t(eps_n)) + lam_t * t(shift_n)
-            z = torch.cat([z_r, z_n, t(chroma)], dim=-1)
+            lam_t = x["lam"][:, None]
+            z_r = (reparameterize(mu_r, std_r, x["eps_r"])
+                   + lam_t * x["shift_r"])
+            z_n = (reparameterize(mu_n, std_n, x["eps_n"])
+                   + lam_t * x["shift_n"])
+            z = torch.cat([z_r, z_n, x["chroma"]], dim=-1)
             if noise_seeds is None:
                 out = cuda_greedy_decode(self._gview, z, self.steps)
             else:
                 noise = gumbel_rows(noise_seeds, self.steps, self._vp, dev)
-                out = cuda_sample_decode(self._gview, z, noise, t(inv_t),
+                out = cuda_sample_decode(self._gview, z, noise, x["inv_t"],
                                          self.steps)
         return out, z
 
-    def _warmup(self) -> None:
-        B, cfg = self.max_batch, self.cfg
-        z = np.zeros((B, cfg.z_dims), np.float32)
-        out, _ = self._run(np.zeros((B, cfg.seq_len), np.int32),
-                           np.zeros((B, cfg.chroma_dims), np.float32),
-                           z, z, np.zeros((B,), np.float32), z, z)
-        out.cpu()
+    def _warmup(self, staging: List["_Staging"]) -> None:
+        """One all-padding greedy batch; its results give the shape and
+        layout of every set's result buffers."""
+        st = staging[0]
+        self._assemble([], st)
+        out, z = self._run(st)
+        for s in staging:
+            s.hold_results(out, z)
+        st.receive(out, z)
+        st.wait()
 
     def _dispatch_loop(self) -> None:
         gather = None    # (ns, CPU ns) the gather began at, spans on
@@ -340,50 +369,53 @@ class TransferServer:
     def _launch_batch(self, batch, seq: int) -> None:
         """Assemble and enqueue one padded batch (number `seq`); the fetch
         thread brings the results back and resolves the futures."""
-        with SPANS.span(_ASSEMBLE, seq, cpu=True):
-            args = self._assemble(batch)
-        # backpressure: blocks once pipeline_depth batches are in flight
-        with SPANS.span(_SLOT_WAIT, seq, cpu=True):
-            self._slots.acquire()
+        st = self._free.get_nowait()
+        try:
+            with SPANS.span(_ASSEMBLE, seq, cpu=True):
+                noise_seeds = self._assemble(batch, st)
+            # backpressure: blocks once pipeline_depth batches are in flight
+            with SPANS.span(_SLOT_WAIT, seq, cpu=True):
+                self._slots.acquire()
+        except Exception:
+            self._free.put(st)
+            raise
         t0 = time.monotonic()
+        want_z = any(row["return_z"] for row, _, _ in batch)
         try:
             with SPANS.span(_ENQUEUE, seq, cpu=True):
-                out, z = self._run(*args)
+                out, z = self._run(st, noise_seeds)
+                st.receive(out, z if want_z else None)
         except Exception:
+            self._free.put(st)
             self._slots.release()    # never leak a launch slot
             raise
-        self._inflight.put((batch, out, z, t0, seq))
+        self._inflight.put((batch, st, want_z, t0, seq))
 
-    def _assemble(self, batch):
-        """The padded batch's host arrays, the arguments of `_run`."""
-        B, cfg = self.max_batch, self.cfg
-        tokens = np.zeros((B, cfg.seq_len), np.int32)
-        chroma = np.zeros((B, cfg.chroma_dims), np.float32)
-        shift_r = np.zeros((B, cfg.z_dims), np.float32)
-        shift_n = np.zeros((B, cfg.z_dims), np.float32)
-        lam = np.zeros((B,), np.float32)
-        eps_r = np.zeros((B, cfg.z_dims), np.float32)
-        eps_n = np.zeros((B, cfg.z_dims), np.float32)
-        inv_t = np.ones((B,), np.float32)
-        noise_seeds: List[Optional[int]] = [None] * B
+    def _assemble(self, batch, st: "_Staging"):
+        """Write the padded batch into `st`'s host buffers, every field
+        reset first (zeros, inv_t ones); returns the rows' noise seeds, or
+        None for an all-greedy batch."""
+        cfg, a = self.cfg, st.arrays
+        st.clear()
+        a["inv_t"].fill(1.0)
+        noise_seeds: List[Optional[int]] = [None] * self.max_batch
         for i, (row, _, _) in enumerate(batch):
-            tokens[i] = row["tokens"]
-            chroma[i] = row["chroma"]
+            a["tokens"][i] = row["tokens"]
+            a["chroma"][i] = row["chroma"]
             if row["direction"] != "none":
-                shift_r[i] = self._shifts[f"r_{row['direction']}"]
-                shift_n[i] = self._shifts[f"n_{row['direction']}"]
-                lam[i] = row["lam"]
+                a["shift_r"][i] = self._shifts[f"r_{row['direction']}"]
+                a["shift_n"][i] = self._shifts[f"n_{row['direction']}"]
+                a["lam"][i] = row["lam"]
             if row["seed"] is not None:
                 rng = np.random.default_rng(row["seed"])
-                eps_r[i] = rng.standard_normal(cfg.z_dims)
-                eps_n[i] = rng.standard_normal(cfg.z_dims)
+                a["eps_r"][i] = rng.standard_normal(cfg.z_dims)
+                a["eps_n"][i] = rng.standard_normal(cfg.z_dims)
             if row["temperature"] > 0:
-                inv_t[i] = 1.0 / row["temperature"]
+                a["inv_t"][i] = 1.0 / row["temperature"]
                 noise_seeds[i] = (row["seed"] if row["seed"] is not None
                                   else next(self._nonce))
         sampled = any(s is not None for s in noise_seeds)
-        return (tokens, chroma, shift_r, shift_n, lam, eps_r, eps_n,
-                noise_seeds if sampled else None, inv_t)
+        return noise_seeds if sampled else None
 
     def _fetch_loop(self) -> None:
         while True:
@@ -392,26 +424,27 @@ class TransferServer:
             item = self._inflight.get()
             if item is None:
                 return
-            batch, out_dev, z_dev, t0, seq = item
+            batch, st, want_z, t0, seq = item
             if wait is not None:
                 SPANS.record(_FETCH_WAIT, *wait, link=seq)
             try:
                 with SPANS.span(_COPY_BACK, seq, cpu=True):
-                    out = out_dev.cpu().numpy()
-                    z = (z_dev.cpu().numpy()
-                         if any(row["return_z"] for row, _, _ in batch)
-                         else None)
+                    ready = st.wait()
+                    n = len(batch)
+                    out = st.out[:n].numpy().copy()
+                    z = st.z[:n].numpy().copy() if want_z else None
             except Exception as e:   # device-side failure surfaces here
                 for _, fut, _ in batch:
                     if not fut.done():
                         fut.set_result({"error": f"batch failed: {e!r}"})
                 continue
             finally:
+                self._free.put(st)
                 self._slots.release()
             with SPANS.span(_RESPOND, seq, cpu=True):
-                self._respond(batch, out, z, t0)
+                self._respond(batch, out, z, t0, ready)
 
-    def _respond(self, batch, out, z, t0: float) -> None:
+    def _respond(self, batch, out, z, t0: float, ready: bool) -> None:
         """The batch's stats, and each row's response set on its future
         (which runs the callbacks)."""
         batch_ms = (time.monotonic() - t0) * 1e3
@@ -421,6 +454,8 @@ class TransferServer:
             self._stats["requests"] += n
             self._stats["batches"] += 1
             self._stats["batch_rows"] += n
+            self._stats["staged_batches"] += 1
+            self._stats["fetch_ready"] += ready
             for _, _, t_in in batch:
                 self._lat_ms.append((done_t - t_in) * 1e3)
             del self._lat_ms[:-4096]
@@ -437,3 +472,62 @@ class TransferServer:
             except Exception as e:   # never let one row kill the thread
                 if not fut.done():
                     fut.set_result({"error": f"marshal failed: {e!r}"})
+
+
+class _Staging:
+    """One pipeline slot's transfer buffers. The padded batch's inputs lie
+    in one host buffer, a numpy view per field (`arrays`), and go to the
+    device in one copy; the results come back into host buffers laid out
+    as the device's, after which `event` is recorded. On CUDA the host
+    buffers are page-locked, so no copy waits on the stream; on the CPU
+    they are plain and the work is done when `receive` returns."""
+
+    def __init__(self, fields: Dict[str, Any], device: torch.device):
+        self.pin = device.type == "cuda"
+        # every field starts on a 256-byte boundary of the one buffer
+        self._fields, n = {}, 0
+        for name, (shape, dtype) in fields.items():
+            self._fields[name] = (n, shape, dtype)
+            n += -(-math.prod(shape) // 64) * 64
+        self.host = torch.empty(n, dtype=torch.float32, pin_memory=self.pin)
+        self._flat = self.host.numpy()
+        self.arrays = {k: v.numpy() for k, v in self._views(self.host).items()}
+        self.event = torch.cuda.Event() if self.pin else None
+        self.out = self.z = None
+
+    def _views(self, buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {name: buf[o:o + math.prod(shape)].view(dtype).view(shape)
+                for name, (o, shape, dtype) in self._fields.items()}
+
+    def hold_results(self, out: torch.Tensor, z: torch.Tensor) -> None:
+        """Host buffers for results shaped and strided as `out` and `z`,
+        so that each comes back in one copy."""
+        self.out = torch.empty_strided(out.shape, out.stride(),
+                                       dtype=out.dtype, pin_memory=self.pin)
+        self.z = torch.empty_strided(z.shape, z.stride(), dtype=z.dtype,
+                                     pin_memory=self.pin)
+        if self.event is not None:     # made at its first record, so now
+            self.event.record(torch.cuda.current_stream(out.device))
+
+    def clear(self) -> None:
+        self._flat.fill(0)
+
+    def send(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        """The inputs on `device` (one copy, not waited for), by field."""
+        return self._views(self.host.to(device, non_blocking=True))
+
+    def receive(self, out: torch.Tensor, z: Optional[torch.Tensor]) -> None:
+        """Copy the results back (z only when given), then record the
+        event on the current stream."""
+        self.out.copy_(out, non_blocking=True)
+        if z is not None:
+            self.z.copy_(z, non_blocking=True)
+        if self.event is not None:
+            self.event.record(torch.cuda.current_stream(out.device))
+
+    def wait(self) -> bool:
+        """Wait for the results; whether they were already there."""
+        if self.event is None or self.event.query():
+            return True
+        self.event.synchronize()
+        return False

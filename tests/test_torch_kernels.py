@@ -18,7 +18,12 @@ three decoder entries at shapes that cross the persistent forward chain's
 row and column tiles (`FWD_RAGGED`), their forward outputs bitwise equal
 on a repeat, as are the encoder's and the sub-decoders' entries on the same
 chain. The persistent decode kernel holds to the plain decode under the
-near-tie rule at ragged rows, steps and widths (`DECODE_RAGGED`)."""
+near-tie rule at ragged rows, steps and widths (`DECODE_RAGGED`). The
+server's enqueue returns while the stream is still busy, its staged
+batch's tokens and z bit-equal to the same batch sent by pageable copies."""
+import time
+
+import numpy as np
 import pytest
 import torch
 
@@ -27,12 +32,14 @@ from music_fader_nets_tpu_torch.models.gmvae import init_reg_gmvae
 from music_fader_nets_tpu_torch.models.modules import (
     global_decoder_init, global_decoder_teacher,
 )
+from music_fader_nets_tpu_torch.models.vae import reg_vae_encode
 from music_fader_nets_tpu_torch.ops import (
     cuda_decode, cuda_decoder, cuda_gru, cuda_stacked,
 )
 from music_fader_nets_tpu_torch.ops.gru import (
     direction_tokens, gru_init, stack_directions, vocab_pad,
 )
+from music_fader_nets_tpu_torch.ops.sampling import reparameterize
 from music_fader_nets_tpu_torch.serve.server import TransferServer
 from music_fader_nets_tpu_torch.utils.checkpoint import tree_to
 
@@ -109,6 +116,62 @@ def test_server_runs_the_kernels(dev):
     assert cuda_gru.LAUNCHES["embed_gru"] > counts[0]["embed_gru"]
     assert (sum(cuda_decode.LAUNCHES.values())
             > sum(counts[1].values()))
+
+
+def _pageable_run(srv, arrays, dev):
+    """A greedy batch's host arrays enqueued as the server did before its
+    staging sets: each array sent by its own pageable `.to(dev)`, then the
+    same ops in the same order. Returns (tokens, z) on the host."""
+    def t(k):
+        return torch.from_numpy(arrays[k]).to(dev)
+
+    with torch.inference_mode():
+        (mu_r, std_r), (mu_n, std_n) = reg_vae_encode(
+            srv.params, None, tokens=t("tokens"))
+        lam_t = t("lam")[:, None]
+        z_r = reparameterize(mu_r, std_r, t("eps_r")) + lam_t * t("shift_r")
+        z_n = reparameterize(mu_n, std_n, t("eps_n")) + lam_t * t("shift_n")
+        z = torch.cat([z_r, z_n, t("chroma")], dim=-1)
+        out = cuda_decode.cuda_greedy_decode(srv._gview, z, srv.steps)
+    return out.cpu(), z.cpu()
+
+
+def test_server_enqueue_does_not_wait_on_the_card(dev):
+    """With the stream held by a sleep of at least 50 ms, the dispatcher's
+    `_run` and copy back return in under a fifth of it, before the batch
+    is done; the staged batch's tokens and z are bit-equal to the pageable
+    path's. Full widths, a full batch of 64 mixed greedy rows."""
+    cfg = ModelConfig()
+    params = init_reg_gmvae(torch.Generator().manual_seed(4), cfg)
+    srv = TransferServer(params, cfg, max_batch=64, device="cuda")
+    srv.close()
+    rng = np.random.default_rng(4)
+    dirs = ("none", "low_to_high", "high_to_low")
+    rows = [(srv._validate({
+        "tokens": rng.integers(0, cfg.roll_dims, cfg.seq_len).tolist(),
+        "chroma": rng.random(cfg.chroma_dims).tolist(),
+        "direction": dirs[i % 3], "lam": 0.25 * (i % 7),
+        "seed": i if i % 2 else None}), None, 0.0) for i in range(64)]
+    st = srv._free.get_nowait()
+    assert srv._assemble(rows, st) is None
+    want_out, want_z = _pageable_run(srv, st.arrays, dev)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(200_000_000)       # about 100 ms at 1.98 GHz
+    end.record()
+    t0 = time.perf_counter()
+    out, z = srv._run(st)
+    st.receive(out, z)
+    host_s = time.perf_counter() - t0
+    busy = not st.event.query()
+    torch.cuda.synchronize()
+    sleep_s = start.elapsed_time(end) / 1e3
+    assert sleep_s >= 0.05, sleep_s
+    assert busy and host_s < sleep_s / 5, (host_s, sleep_s)
+    assert st.wait()
+    assert torch.equal(st.out, want_out) and torch.equal(st.z, want_z)
 
 
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)

@@ -177,3 +177,95 @@ def test_cli_stdin_protocol(tmp_path):
     assert "error" in resps[3] and "error" in resps[4]
     assert resps[5]["requests"] == 3
     assert resps[5]["serving_path"] == "plain-cpu"
+
+
+def _every_kind(seed, n):
+    """n requests mixing the three directions, lam, seeds, steps,
+    return_z and seeded sampling."""
+    rng = np.random.default_rng(seed)
+    dirs = ("none", "low_to_high", "high_to_low")
+    reqs = []
+    for i in range(n):
+        kw = {"lam": (0.4, 1.0, 1.7, -0.6)[i % 4], "return_z": i % 3 != 2,
+              "steps": STEPS - (i % 4) * 3}
+        if i % 2:
+            kw["seed"] = 100 + i
+        if i % 5 == 4:
+            kw.update(seed=200 + i, temperature=0.9)
+        reqs.append(_req(i, rng, direction=dirs[i % 3], **kw))
+    return reqs
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_staging_sets_reused_under_load(np_params, depth):
+    """More than 3 x max_batch concurrent requests of every kind through
+    the server's pipeline_depth + 1 staging sets: each row's tokens and z
+    equal the same request served alone; every batch went through a set."""
+    reqs = _every_kind(depth, 14)
+    with TransferServer(params_from_numpy(np_params), CFG, steps=STEPS,
+                        max_batch=4, max_wait_ms=200.0,
+                        pipeline_depth=depth, device="cpu") as srv:
+        together = [f.result(timeout=300)
+                    for f in [srv.submit(dict(r)) for r in reqs]]
+        alone = [srv.request(dict(r)) for r in reqs]
+        st = srv.stats()
+    assert max(t["batch_rows"] for t in together) == 4
+    for r, t, a in zip(reqs, together, alone):
+        assert "error" not in t and "error" not in a, (t, a)
+        assert len(t["tokens"]) == r["steps"]
+        assert t["tokens"] == a["tokens"], r["id"]
+        assert ("z" in t) == r["return_z"] and t.get("z") == a.get("z")
+    assert st["staged_batches"] == st["batches"] >= 4 + len(reqs)
+    assert 0 <= st["fetch_ready"] <= st["batches"]
+
+
+def test_no_stale_field_survives_in_a_set(np_params):
+    """A 'none', unseeded, greedy row assembled in a set after shifted,
+    seeded and sampled rows: the set holds what fresh zeros (inv_t ones)
+    hold, and the row, served after those rows, decodes as on a fresh
+    server."""
+    rng = np.random.default_rng(11)
+    rich = [_req(0, rng, lam=1.3, seed=5),
+            _req(1, rng, direction="high_to_low", temperature=0.7, seed=6),
+            _req(2, rng, temperature=2.0, seed=9),
+            _req(3, rng, direction="high_to_low", lam=0.2)]
+    plain = {"id": 9, "tokens": rng.integers(2, CFG.roll_dims, 5).tolist(),
+             "direction": "none", "return_z": True}
+    with TransferServer(params_from_numpy(np_params), CFG, steps=STEPS,
+                        max_batch=4, max_wait_ms=1.0, pipeline_depth=1,
+                        device="cpu") as fresh:
+        want = fresh.request(dict(plain))
+    with TransferServer(params_from_numpy(np_params), CFG, steps=STEPS,
+                        max_batch=4, max_wait_ms=200.0, pipeline_depth=1,
+                        device="cpu") as srv:
+        # both sets dirtied: a full batch of the rich rows, then each alone
+        futs = [srv.submit(dict(r)) for r in rich]
+        assert all("error" not in f.result(timeout=300) for f in futs)
+        for r in rich:
+            assert "error" not in srv.request(dict(r))
+        got = srv.request(dict(plain))
+        row = srv._validate(dict(plain))
+        st = srv._free.get(timeout=10)
+        try:
+            srv._assemble([(srv._validate(dict(r)), None, 0.0)
+                           for r in rich], st)
+            seeds = srv._assemble([(row, None, 0.0)], st)
+            arrays = {k: v.copy() for k, v in st.arrays.items()}
+        finally:
+            srv._free.put(st)
+    assert got["tokens"] == want["tokens"] and got["z"] == want["z"]
+    assert seeds is None
+    B, Z = 4, CFG.z_dims
+    fresh_arrays = {"tokens": np.zeros((B, CFG.seq_len), np.int32),
+                    "chroma": np.zeros((B, CFG.chroma_dims), np.float32),
+                    "shift_r": np.zeros((B, Z), np.float32),
+                    "shift_n": np.zeros((B, Z), np.float32),
+                    "lam": np.zeros((B,), np.float32),
+                    "eps_r": np.zeros((B, Z), np.float32),
+                    "eps_n": np.zeros((B, Z), np.float32),
+                    "inv_t": np.ones((B,), np.float32)}
+    fresh_arrays["tokens"][0] = row["tokens"]
+    assert arrays.keys() == fresh_arrays.keys()
+    for k, v in fresh_arrays.items():
+        assert arrays[k].dtype == v.dtype and arrays[k].shape == v.shape, k
+        np.testing.assert_array_equal(arrays[k], v, err_msg=k)
