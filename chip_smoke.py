@@ -8,7 +8,11 @@ Builds the kernels from `music_fader_nets_tpu_torch/csrc/`, holds each one
 against its plain PyTorch version at the serving path's full-width shapes
 (H=512, z=128, V=342 -> Vp=384, seq_len=100, 300 decode steps, B=64 and
 B=1, float32), times kernel, plain version and, where one PyTorch call
-computes the same function, that call, then drives the GM-VAE serving path
+computes the same function, that call (first the float32 dW GEMM at every
+shape the training cells pass it, `dw_gemm`: the tensor-core kernel
+against the CUDA-core one in turns, both against a float64 product, plain
+TF32 failing the same check, repeats bit-equal; `train/dw_gemm.py`),
+then drives the GM-VAE serving path
 (`TransferServer`, random weights from a seed) with 130 mixed requests and
 checks the responses against the plain path. Then the training kernels
 (encoder, sub-decoders, decoder + cross-entropy; forward and backward) are
@@ -649,6 +653,7 @@ def main() -> int:
         GLSR_MASK_RANGES,
     )
     from music_fader_nets_tpu_torch.train.bf16_turns import f32_forward_sha1
+    from music_fader_nets_tpu_torch.train import dw_gemm
     from music_fader_nets_tpu_torch.train.bwd_split import kernel_split
     from music_fader_nets_tpu_torch.train.fwd_split import (
         PARTS as FWD_PARTS, SKIP as FWD_SKIP,
@@ -712,6 +717,15 @@ def main() -> int:
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
+
+    # ------------------------------------------------- float32 dW GEMM
+    # every (L, M, N, K) the training cells pass gemm_tn<float>: the
+    # tensor-core kernel and the CUDA-core one in turns, each against a
+    # float64 product, plain TF32 beside them, repeats bit-equal
+    for line in dw_gemm.report(ModelConfig(), reps=20, seed=SEED, dev=dev):
+        emit({"phase": "dw_gemm", **line})
+        if not line["ok"]:
+            return fail(f"dw_gemm {line['shape']}: {line['failed']}")
 
     guard = TokenGuard(cuda_decode)
     cfg = ModelConfig()

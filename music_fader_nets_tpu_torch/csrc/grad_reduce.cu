@@ -9,33 +9,60 @@
 // Here they run once per backward call, after the dh chain, over the
 // dpre_x / dpre_h rows the chain stashed in device memory.
 //
-// What bounds them on an H100: dW_hh is float32 FMA work (encoder:
-// 4 x 2 x 512 x 1536 x 12800 = 80.5 GFLOP, 1.2 ms at 67 TFLOP/s); the sums
-// and the scatter read each stashed row once (bytes).
+// What bounds them on an H100: dW_hh is float32 work (encoder: 4 x 2 x 512
+// x 1536 x 12800 = 80.5 GFLOP, 1.2 ms at the CUDA cores' 67 TFLOP/s; on
+// the tensor cores it takes six bf16 products each, 483 GFLOP, 0.49 ms at
+// 989); the sums and the scatter read each stashed row once (bytes).
 //
-// Design: gemm_tn is a register-blocked float32 FMA GEMM on the CUDA cores
-// (tensor cores would need a 3 x TF32 split to hold the gradients' 1e-4
-// bound over 12,800-term sums; not done). A block owns a 128 x 128 output
-// tile, a thread 8 x 8 outputs in registers (64 FMAs for four 16-byte
-// shared-memory reads). Both operands are row-major with k outermost, so a
-// 16-deep k-slab is 16 contiguous row segments of each: a ring of 4 slabs
-// in shared memory is filled by 16-byte cp.async copies, slab k+3 landing
-// while slab k is multiplied; the SplitRows seam is resolved once a copy
-// (two copies a thread and slab), ragged edges by zero-filling copies.
-// With 128 x 128 tiles one direction has only 4 x 12 tiles, so K is split
-// into S parts (S chosen so the blocks fill whole waves of two blocks an
-// SM), each part writes its partial tile to scratch and a second pass adds
-// the S partials in order: the same bits every run, no float atomics. The
-// column sums split the rows over blocks the same way (256-row chunks, 8
-// warps a chunk, 16-byte loads, partials added in chunk order). The
-// scatter compacts each chunk's matching rows with warp ballots and adds
-// them in row order. gemm_nn (the decoder backward's products off its
-// recurrences: dh2_head = dlogits @ w_out^T, 5 GFLOP, and the cotangent
-// layer 2 sends layer 1, dpre2x @ w_ih2^T, 20 GFLOP at T*B = 12,800 rows)
-// has gemm_tn's tile, ring and register block; its A slab is 128 rows of
-// 16 contiguous k, so it lands row-major (rows padded to 20 floats) and a
-// thread reads its 8 rows 4 k at a time as float4s. No split of K: M = T*B
-// has 100-400 row tiles.
+// Design: the float32 gemm_tn runs on Hopper's wgmma (gemm_tn_wg_kernel).
+// Each product has to keep float32 accuracy over 12,800-term sums: plain
+// TF32 (11-bit operands) errs by about a hundred times more and fails the
+// training cells' gradient checks. Both operands are split into three
+// bf16 pieces, x = hi + mid + lo (mma_bf16.cuh::split3; x to within 2^-24
+// |x|), and each 16-deep k-step takes the six piece products of order
+// 2^-16 and above, lowest first: mid.mid, hi.lo, lo.hi, hi.mid, mid.hi,
+// hi.hi; the three left out (mid.lo, lo.mid, lo.lo) are 2^-24 of a product
+// and less. Each piece product is exact in the tensor cores, but their
+// float32 accumulator adds with truncation: 4,800 such additions into one
+// sum err 25 to 40 times more than the CUDA-core kernel (measured on an
+// H100, GRU-like operands), so the products of kWgPromote slabs go into a
+// step accumulator that is waited for and added into a float32 sum in
+// registers, rounded to nearest; that sum errs less than the CUDA-core
+// kernel's (tests/test_torch_f32_split.py; train/dw_gemm.py on the card).
+// Both operands are row-major with k outermost (MN-major in the product),
+// which wgmma takes for 16-bit types only, so the pieces are MN-major: a
+// block of 512 threads owns a 128 x 128 tile; the TMA lands 16 x 128
+// float32 slabs of A and of B in a ring of four; two warpgroups split
+// them into their pieces in a second ring (128-byte swizzled atoms, each
+// thread four float4s a slab, 8-byte stores on distinct banks); two
+// warpgroups of 64 rows each run the six m64n128k16 products a slab from
+// shared memory; mbarriers order the rings, so the three stages overlap.
+// What bounds it is the block's shared memory, which the TMA's writes, the
+// split's reads and stores and the products' operand reads share (128 KB
+// a slab); it reaches 75-82 TFLOP/s at K = 12,800 (the CUDA-core kernel
+// 37-45), and its split of K fills waves of one block an SM. The tensor
+// cores take every call whose rows are 16-byte multiples at 16-byte
+// aligned bases and whose SplitRows seam falls on a 16-row slab or is
+// absent (the TMA's descriptors; every call of the training cells); any
+// other keeps the CUDA-core kernel gemm_tn_kernel, a register-blocked
+// float32 FMA GEMM: a block owns a 128 x 128 output tile, a thread 8 x 8
+// outputs in registers (64 FMAs for four 16-byte shared-memory reads), a
+// ring of 4 16-deep k-slabs filled by 16-byte cp.async copies, slab k+3
+// landing while slab k is multiplied; the SplitRows seam is resolved once
+// a copy (two copies a thread and slab), ragged edges by zero-filling
+// copies. Both kernels split K into S parts (S chosen so the blocks fill
+// whole waves), each part writes its partial tile to scratch and a second
+// pass adds the S partials in order: the same bits every run, no float
+// atomics. The column sums split the rows over blocks the same way
+// (256-row chunks, 8 warps a chunk, 16-byte loads, partials added in chunk
+// order). The scatter compacts each chunk's matching rows with warp
+// ballots and adds them in row order. gemm_nn (the decoder backward's
+// products off its recurrences: dh2_head = dlogits @ w_out^T, 5 GFLOP, and
+// the cotangent layer 2 sends layer 1, dpre2x @ w_ih2^T, 20 GFLOP at T*B =
+// 12,800 rows) has gemm_tn_kernel's tile, ring and register block; its A
+// slab is 128 rows of 16 contiguous k, so it lands row-major (rows padded
+// to 20 floats) and a thread reads its 8 rows 4 k at a time as float4s. No
+// split of K: M = T*B has 100-400 row tiles.
 //
 // bf16 operands (mixed-precision training): gemm_tn's A (the h_prev rows,
 // from the bf16 h_seq) and gemm_nn's B (a bf16 weight) may be bf16. Those
@@ -52,8 +79,9 @@
 // partial tiles' ordered sum and the column sums are the float path's.
 // gemm_nn_tc_kernel also takes bf16 A rows (one MMA a product) and a bias:
 // the bf16 stacked GRU's backward recomputes pre_h = h_prev @ w_hh + b_hh
-// with it (gemm_nn_bf16). The float32 instantiations are the CUDA-core
-// kernels as they were.
+// with it (gemm_nn_bf16). gemm_nn's float32 instantiation is the CUDA-core
+// kernel as it was.
+#include <cuda.h>
 #include <stdint.h>
 
 #include "gru_tile.cuh"
@@ -165,6 +193,200 @@ __global__ void __launch_bounds__(256, 2)
       const int n = n0 + (j / 4) * 64 + tx * 4 + (j % 4);
       if (n < N) cl[(long long)m * N + n] = acc[i][j];
     }
+  }
+}
+
+// gemm_tn_kernel on the tensor cores (see the header). Four warpgroups:
+// 0 and 1 split, 2 and 3 multiply (setmaxnreg moves registers from the
+// first two to the others). The TMA lands the float32 slabs (16 k x 128
+// columns of A, from the tensor map of a0 or of a1, and of B) in a ring of
+// kWgStages, issued by thread 0 and counted by tfull[s]; splitting thread
+// t takes the float4s (k = t / 32 + 8 j, four columns from 4 (t % 32)), j
+// < 2, of A's and of B's slab, splits them and stores the pieces into a
+// ring of kWgBufs split slabs: the hi, mid and lo pieces of A, then of B,
+// a piece kWgPiece bytes, 128 rows of 16 k as MN-major 128-byte-swizzled
+// atoms (wgmma_desc_sw128; piece_offset). full[i] counts the splitting
+// threads' arrivals at split slab i, empty[i] the eight multiplying warps'
+// releases of it. Multiplying warpgroup w owns rows 64 w .. +64 of the
+// 128 x 128 tile: six m64n128k16 products a slab, lowest order first,
+// into a step accumulator that every kWgPromote slabs (and at the end) is
+// waited for and added into the float32 sum `acc`.
+constexpr int kWgStages = 4;      // float32 slabs in flight
+constexpr int kWgBufs = 4;        // split slabs
+constexpr int kWgRows = 64;       // output rows of a multiplying warpgroup
+constexpr int kWgSplit = 256;     // splitting threads: two warpgroups
+constexpr int kWgThreads = 512;   // and two multiplying ones
+constexpr int kWgSplitRegs = 56;  // registers of a splitting thread
+constexpr int kWgMulRegs = 200;   // of a multiplying one
+constexpr int kWgPromote = 4;     // slabs a step accumulator sums
+constexpr int kWgPiece = kBM * kBK * 2;
+constexpr int kWgSlab = kBK * kBM * 4;   // bytes of a float32 slab
+constexpr size_t kWgRingBytes =
+    (size_t)kWgBufs * 6 * kWgPiece + (size_t)kWgStages * 2 * kWgSlab;
+// the rings start at the first 1024-byte boundary of the block's memory
+constexpr size_t kGemmWgSmem =
+    1024 + kWgRingBytes + (2 * kWgBufs + kWgStages) * sizeof(uint64_t);
+
+// Byte of (row r, k) in a piece: 128-byte-swizzled atoms of 8 k x 64
+// rows, two along the rows 1024 bytes apart (LBO), two along k 2048 bytes
+// apart (SBO).
+__device__ __forceinline__ int piece_offset(int r, int k) {
+  return (k >> 3) * 2048 + (r >> 6) * 1024 + (k & 7) * 128 +
+         ((((r >> 3) & 7) ^ (k & 7)) << 4) + (r & 7) * 2;
+}
+
+// The TMA descriptors of a gemm_tn_wg call: a0 (M, n0, L), a1 (M, K - n0,
+// L) and B (N, K, L), float32, boxes of 128 x 16 x 1 (a0 or a1 stands in
+// for the other where all rows lie in one).
+struct WgMaps {
+  CUtensorMap a0, a1, b;
+};
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    gemm_tn_wg_kernel(const __grid_constant__ WgMaps maps, int M, int N,
+                      int K, int n0, int S, int kchunk,
+                      float* __restrict__ c, long long c_ls,
+                      long long c_ss) {
+  extern __shared__ float4 smem4[];
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem4);
+  uint8_t* P =
+      reinterpret_cast<uint8_t*>(smem4) + ((1024 - (base & 1023)) & 1023);
+  uint8_t* F = P + kWgBufs * 6 * kWgPiece;    // [stage][A, B][16][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(P + kWgRingBytes);
+  uint64_t* empty = full + kWgBufs;
+  uint64_t* tfull = empty + kWgBufs;
+  const int l = blockIdx.z / S, sp = blockIdx.z % S;
+  const int m0 = blockIdx.y * kBM, n0c = blockIdx.x * kBN;
+  // the warpgroup through a shuffle: warp-uniform to the compiler, so
+  // that the wgmma below sit on no divergent path
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int kbeg = sp * kchunk;
+  const int kend = min(K, kbeg + kchunk);
+  const int nslab = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
+  if (tid == 0) {
+    for (int i = 0; i < kWgBufs; ++i) {
+      mbar_init(full + i, kWgSplit);
+      mbar_init(empty + i, 8);
+    }
+    for (int i = 0; i < kWgStages; ++i) mbar_init(tfull + i, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg < kWgSplit / 128) {
+    // ---- split
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgSplitRegs)
+                 : "memory");
+    auto fetch = [&](int sl) {   // thread 0: slab sl into its stage
+      if (sl >= nslab) return;
+      const int st = sl % kWgStages, k = kbeg + sl * kBK;
+      uint8_t* f = F + st * 2 * kWgSlab;
+      mbar_expect_tx(tfull + st, 2 * kWgSlab);
+      if (k < n0)
+        tma_load_3d(f, &maps.a0, m0, k, l, tfull + st);
+      else
+        tma_load_3d(f, &maps.a1, m0, k - n0, l, tfull + st);
+      tma_load_3d(f + kWgSlab, &maps.b, n0c, k, l, tfull + st);
+    };
+    if (tid == 0)
+      for (int sl = 0; sl < kWgStages; ++sl) fetch(sl);
+    // thread tid: float4s (k = tid / 32 + 8 j, columns 4 (tid % 32) ..)
+    const int c4 = (tid & 31) * 4, kr = tid >> 5;
+    for (int sl = 0; sl < nslab; ++sl) {
+      const int st = sl % kWgStages, i = sl % kWgBufs;
+      mbar_wait(tfull + st, (sl / kWgStages) & 1);
+      mbar_wait(empty + i, ((sl / kWgBufs) & 1) ^ 1);
+      const float* x = reinterpret_cast<const float*>(F + st * 2 * kWgSlab) +
+                       kr * kBM + c4;
+      uint8_t* buf = P + i * 6 * kWgPiece;
+#pragma unroll
+      for (int op = 0; op < 2; ++op)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              x + (op * kBK + 8 * j) * kBM);
+          uint2 hi, mid, lo;
+          split3(v.x, v.y, hi.x, mid.x, lo.x);
+          split3(v.z, v.w, hi.y, mid.y, lo.y);
+          uint8_t* d = buf + 3 * op * kWgPiece + piece_offset(c4, kr + 8 * j);
+          *reinterpret_cast<uint2*>(d) = hi;
+          *reinterpret_cast<uint2*>(d + kWgPiece) = mid;
+          *reinterpret_cast<uint2*>(d + 2 * kWgPiece) = lo;
+        }
+      fence_proxy_async();
+      mbar_arrive(full + i);
+      // every splitting thread has read stage st: refill it
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kWgSplit) : "memory");
+      if (tid == 0) fetch(sl + kWgStages);
+    }
+    return;
+  }
+
+  // ---- multiply: warpgroup wg owns rows 64 (wg - 2) .. +64
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgMulRegs)
+               : "memory");
+  const int w0 = wg - kWgSplit / 128;
+  const uint64_t desc0 = wgmma_desc_sw128(P, 1024, 2048);
+  float acc[64], tmp[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const bool lead = (tid & 31) == 0;   // releases for its warp
+  // groups of kWgPromote slabs: each slab's products go into tmp (the
+  // group's first product overwrites it), a slab's split slab is released
+  // once the next slab's products are issued and its own have completed,
+  // and the group's sum is added into acc after a full wait
+  for (int s0 = 0; s0 < nslab; s0 += kWgPromote) {
+    const int n = min(kWgPromote, nslab - s0);
+#pragma unroll
+    for (int j = 0; j < kWgPromote; ++j) {
+      if (j < n) {
+        const int sl = s0 + j, i = sl % kWgBufs;
+        mbar_wait(full + i, (sl / kWgBufs) & 1);
+        // descriptors of piece 0 of A (this warpgroup's 64 rows: one atom
+        // along M) and of B; piece p is p * kWgPiece bytes on
+        const uint64_t da = desc0 + ((i * 6 * kWgPiece + w0 * 1024) >> 4);
+        const uint64_t db = desc0 + ((i * 6 + 3) * kWgPiece >> 4);
+        constexpr uint64_t kP = kWgPiece >> 4;
+        wgmma_fence();
+        // mid.mid, hi.lo, lo.hi, hi.mid, mid.hi, hi.hi (pieces 0 hi, 1
+        // mid, 2 lo)
+        wgmma_m64n128k16(tmp, da + kP, db + kP, j > 0);
+        wgmma_m64n128k16(tmp, da, db + 2 * kP, 1);
+        wgmma_m64n128k16(tmp, da + 2 * kP, db, 1);
+        wgmma_m64n128k16(tmp, da, db + kP, 1);
+        wgmma_m64n128k16(tmp, da + kP, db, 1);
+        wgmma_m64n128k16(tmp, da, db, 1);
+        wgmma_commit();
+        if (j > 0) {
+          wgmma_wait<1>();
+          mbar_arrive(empty + (sl - 1) % kWgBufs, lead);
+        }
+      }
+    }
+    wgmma_wait<0>();
+    mbar_arrive(empty + (s0 + n - 1) % kWgBufs, lead);
+    pin_regs(tmp);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] += tmp[j];
+  }
+
+  // lane 32 w + 4 g + q of the warpgroup: rows m0 + 64 w0 + 16 w + g +
+  // 8 h, columns n0 + 8 j + 2 q + e hold acc[4 j + 2 h + e]
+  const int lane = tid & 31, w = (tid >> 5) & 3;
+  const int g = lane >> 2, q = lane & 3;
+  float* cl = c + l * c_ls + sp * c_ss;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + w0 * kWgRows + 16 * w + g + 8 * h;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0c + 8 * j + 2 * q + e;
+        if (n < N) cl[(long long)m * N + n] = acc[4 * j + 2 * h + e];
+      }
   }
 }
 
@@ -743,17 +965,18 @@ int sm_count() {
   return n;
 }
 
-// The split of K for gemm_tn: the least S whose L * tiles * S blocks fill
-// at least nine tenths of whole waves of two blocks an SM, or the S that
-// fills them best; a split has at least kMinSplitK rows of k.
+// The split of K for a gemm_tn kernel that holds `per_sm` blocks an SM:
+// the least S whose L * tiles * S blocks fill at least nine tenths of whole
+// waves, or the S that fills them best; a split has at least kMinSplitK
+// rows of k.
 struct GemmPlan {
   int S, kchunk;
 };
 
-GemmPlan gemm_plan(int L, int M, int N, int K) {
+GemmPlan gemm_plan(int L, int M, int N, int K, int per_sm) {
   const long long tiles =
       (long long)L * ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-  const long long slots = 2LL * sm_count();
+  const long long slots = (long long)per_sm * sm_count();
   const int max_s = max(1, min(kMaxSplits, K / kMinSplitK));
   int best = 1;
   double best_fill = 0.0;
@@ -773,36 +996,24 @@ GemmPlan gemm_plan(int L, int M, int N, int K) {
 
 int colsum_chunks(int R) { return (R + kSumRows - 1) / kSumRows; }
 
-}  // namespace
+// Which kernel a float32 gemm_tn runs: kTnRule, the fixed rule (the
+// tensor cores wherever gemm_tn_wg takes the call); kTnFma, the CUDA-core
+// kernel; kTnWg, the tensor cores (an error where they cannot take the
+// call).
+enum TnRoute { kTnRule = 0, kTnFma = 1, kTnWg = 2 };
 
-long long reduce_scratch_floats(int L, int M, int N, int K) {
-  const GemmPlan p = gemm_plan(L, M, N, K);
-  const long long gemm = p.S > 1 ? (long long)L * p.S * M * N : 0;
-  const int nchunk = colsum_chunks(K);
-  const long long sums = nchunk > 1 ? (long long)L * nchunk * N : 0;
-  return max(gemm, sums);
-}
-
+// Launches kernel (two blocks an SM, `smem` bytes each) over gemm_tn's
+// grid with the split of K, then the ordered sum of the partial tiles.
 template <typename AT>
-cudaError_t gemm_tn(int L, int M, int N, int K, SplitRowsT<AT> a,
-                    const float* b, long long b_ls, float* c, long long c_ls,
-                    float* scratch, cudaStream_t s) {
-  const GemmPlan p = gemm_plan(L, M, N, K);
+cudaError_t launch_tn(void (*kernel)(int, int, int, int, int, SplitRowsT<AT>,
+                                     const float*, long long, float*,
+                                     long long, long long),
+                      size_t smem, int L, int M, int N, int K,
+                      SplitRowsT<AT> a, const float* b, long long b_ls,
+                      float* c, long long c_ls, float* scratch,
+                      cudaStream_t s) {
+  const GemmPlan p = gemm_plan(L, M, N, K, 2);
   if (p.S > 1 && scratch == nullptr) return cudaErrorInvalidValue;
-  constexpr int av = is_f32<AT> ? 4 : 8;     // A elements a 16-byte copy
-  const bool vec = M % av == 0 && N % 4 == 0 && a.lda % av == 0 &&
-                   a.a0_ls % av == 0 && a.a1_ls % av == 0 && b_ls % 4 == 0 &&
-                   aligned16(a.a0) && aligned16(a.a1) && aligned16(b);
-  void (*kernel)(int, int, int, int, int, SplitRowsT<AT>, const float*,
-                 long long, float*, long long, long long);
-  size_t smem;
-  if constexpr (is_f32<AT>) {
-    kernel = vec ? gemm_tn_kernel<true> : gemm_tn_kernel<false>;
-    smem = kGemmSmem;
-  } else {
-    kernel = vec ? gemm_tn_tc_kernel<true> : gemm_tn_tc_kernel<false>;
-    smem = kGemmTcSmem;
-  }
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long mn = (long long)M * N;
@@ -818,6 +1029,133 @@ cudaError_t gemm_tn(int L, int M, int N, int K, SplitRowsT<AT> a,
   const dim3 grid_sum((unsigned)((mn + 255) / 256), L);
   splitk_sum_kernel<<<grid_sum, 256, 0, s>>>(mn, p.S, scratch, c, c_ls);
   return cudaGetLastError();
+}
+
+template <typename AT>
+bool tn_vec(int M, int N, const SplitRowsT<AT>& a, const float* b,
+            long long b_ls) {
+  constexpr int av = is_f32<AT> ? 4 : 8;     // A elements a 16-byte copy
+  return M % av == 0 && N % 4 == 0 && a.lda % av == 0 && a.a0_ls % av == 0 &&
+         a.a1_ls % av == 0 && b_ls % 4 == 0 && aligned16(a.a0) &&
+         aligned16(a.a1) && aligned16(b);
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda at first use (the library
+// links only the CUDA runtime).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The map of L layers of `rows` rows of `cols` float32 at base (row stride
+// ld, layer stride ls floats), boxes of 128 columns x 16 rows x 1 layer;
+// false where the TMA cannot describe it.
+bool tile_map(CUtensorMap* m, const float* base, int cols, int rows, int L,
+              long long ld, long long ls) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || rows < 1) return false;
+  const cuuint64_t dim[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                             (cuuint64_t)L};
+  const cuuint64_t stride[2] = {(cuuint64_t)ld * 4,
+                                (cuuint64_t)(L > 1 ? ls : ld * rows) * 4};
+  const cuuint32_t box[3] = {kBM, kBK, 1}, step[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base),
+             dim, stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// gemm_tn_wg_kernel over gemm_tn's grid (one block an SM) with the split
+// of K, then the ordered sum of the partial tiles. It takes A and B rows
+// of 16-byte multiples at 16-byte aligned bases (the TMA's strides) and a
+// seam on a 16-row slab (n0 % 16 == 0, or all rows in one tensor: n0 <= 0
+// or n0 >= K), and returns cudaErrorNotSupported for any other call.
+cudaError_t launch_wg(int L, int M, int N, int K, const SplitRows& a,
+                      const float* b, long long b_ls, float* c, long long c_ls,
+                      float* scratch, cudaStream_t s) {
+  WgMaps maps;
+  const bool in_a0 = a.n0 > 0, in_a1 = a.n0 < K;
+  if (!tn_vec(M, N, a, b, b_ls) || (in_a0 && in_a1 && a.n0 % kBK != 0) ||
+      (in_a0 && !tile_map(&maps.a0, a.a0, M, min(a.n0, K), L, a.lda,
+                          a.a0_ls)) ||
+      (in_a1 && !tile_map(&maps.a1, a.a1, M, K - max(a.n0, 0), L, a.lda,
+                          a.a1_ls)) ||
+      !tile_map(&maps.b, b, N, K, L, N, b_ls))
+    return cudaErrorNotSupported;
+  if (!in_a0) maps.a0 = maps.a1;     // a map the kernel never reads
+  if (!in_a1) maps.a1 = maps.a0;
+  const GemmPlan p = gemm_plan(L, M, N, K, 1);
+  if (p.S > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  auto kernel = gemm_tn_wg_kernel;
+  cudaError_t err = allow_smem(kernel, kGemmWgSmem);
+  if (err != cudaSuccess) return err;
+  const long long mn = (long long)M * N;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, L * p.S);
+  float* out = p.S == 1 ? c : scratch;
+  kernel<<<grid, kWgThreads, kGemmWgSmem, s>>>(
+      maps, M, N, K, max(a.n0, 0), p.S, p.kchunk, out,
+      p.S == 1 ? c_ls : p.S * mn, mn);
+  if ((err = cudaGetLastError()) != cudaSuccess || p.S == 1) return err;
+  const dim3 grid_sum((unsigned)((mn + 255) / 256), L);
+  splitk_sum_kernel<<<grid_sum, 256, 0, s>>>(mn, p.S, scratch, c, c_ls);
+  return cudaGetLastError();
+}
+
+cudaError_t gemm_tn_f32(int route, int L, int M, int N, int K, SplitRows a,
+                        const float* b, long long b_ls, float* c,
+                        long long c_ls, float* scratch, cudaStream_t s) {
+  if (route == kTnRule || route == kTnWg) {
+    const cudaError_t err =
+        launch_wg(L, M, N, K, a, b, b_ls, c, c_ls, scratch, s);
+    if (err != cudaErrorNotSupported || route == kTnWg) return err;
+    route = kTnFma;
+  }
+  if (route != kTnFma) return cudaErrorInvalidValue;
+  const bool vec = tn_vec(M, N, a, b, b_ls);
+  return launch_tn(vec ? gemm_tn_kernel<true> : gemm_tn_kernel<false>,
+                   kGemmSmem, L, M, N, K, a, b, b_ls, c, c_ls, scratch, s);
+}
+
+}  // namespace
+
+long long reduce_scratch_floats(int L, int M, int N, int K) {
+  long long gemm = 0;
+  for (int per_sm = 1; per_sm <= 2; ++per_sm) {
+    const GemmPlan p = gemm_plan(L, M, N, K, per_sm);
+    if (p.S > 1) gemm = max(gemm, (long long)L * p.S * M * N);
+  }
+  const int nchunk = colsum_chunks(K);
+  const long long sums = nchunk > 1 ? (long long)L * nchunk * N : 0;
+  return max(gemm, sums);
+}
+
+template <typename AT>
+cudaError_t gemm_tn(int L, int M, int N, int K, SplitRowsT<AT> a,
+                    const float* b, long long b_ls, float* c, long long c_ls,
+                    float* scratch, cudaStream_t s) {
+  if constexpr (is_f32<AT>) {
+    return gemm_tn_f32(kTnRule, L, M, N, K, a, b, b_ls, c, c_ls, scratch, s);
+  } else {
+    const bool vec = tn_vec(M, N, a, b, b_ls);
+    return launch_tn(vec ? gemm_tn_tc_kernel<true> : gemm_tn_tc_kernel<false>,
+                     kGemmTcSmem, L, M, N, K, a, b, b_ls, c, c_ls, scratch,
+                     s);
+  }
 }
 
 namespace {
@@ -919,3 +1257,24 @@ cudaError_t sum_over_t(int L, int T, int n, const float* x, float* out,
 }
 
 }  // namespace fader
+
+// Floats of scratch that gemm_tn(L, M, N, K) and colsum(L, K, N) need.
+extern "C" long long fader_reduce_scratch_floats(int L, int M, int N, int K) {
+  return fader::reduce_scratch_floats(L, M, N, K);
+}
+
+// The float32 dW GEMM alone, for its measurement: C[l] = A^T B[l] as the
+// backward entries compute it (route 0), or on the CUDA cores (1), or on
+// the tensor cores (2). A is the SplitRows (a0, a0_ls, n0, a1, a1_ls, lda).
+extern "C" int fader_gemm_tn(int route, int L, int M, int N, int K,
+                             const float* a0, long long a0_ls, int n0,
+                             const float* a1, long long a1_ls, int lda,
+                             const float* b, long long b_ls, float* c,
+                             long long c_ls, float* scratch,
+                             long long scratch_floats, void* stream) {
+  if (scratch_floats < fader::reduce_scratch_floats(L, M, N, K))
+    return (int)cudaErrorInvalidValue;
+  return (int)fader::gemm_tn_f32(
+      route, L, M, N, K, fader::SplitRows{a0, a0_ls, n0, a1, a1_ls, lda}, b,
+      b_ls, c, c_ls, scratch, static_cast<cudaStream_t>(stream));
+}

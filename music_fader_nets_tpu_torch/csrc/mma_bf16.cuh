@@ -2,7 +2,8 @@
 // kernels' bf16 instantiations (grad_reduce.cu's GEMMs, the chains of
 // embed_gru_bwd.cu and gru_fwd_chain.cu, decoder_ce.cu's CE head):
 // mma.sync.m16n8k16 fragments, ldmatrix, the chains' swizzled weight slab
-// and the three-piece split of a float32 operand.
+// and the three-piece split of a float32 operand; and Hopper's wgmma, for
+// the float32 dW GEMM that splits both of its operands.
 //
 // Every product of the Pallas kernels in bf16 pairs a bf16 operand with a
 // float32 one that JAX keeps unrounded (preferred_element_type=F32), or
@@ -92,6 +93,157 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+// ---- wgmma (sm_90a): a warpgroup's asynchronous bf16 product from shared
+// memory (grad_reduce.cu's float32 dW GEMM)
+//
+// Both operands MN-major with the 128-byte swizzle: an atom is 8 k rows of
+// 64 bf16 along M (or N), 128 bytes a row, 1024-byte aligned, the 16-byte
+// chunk c of row k stored at chunk c ^ k; the descriptor's leading byte
+// offset (LBO) is the step between atoms along M (N), its stride byte
+// offset (SBO) the step between atoms along k. Accumulator of m64nNk16
+// (lane = 32 w + 4 g + q, w the warp of the warpgroup): d[4 j + 2 h + e]
+// is row 16 w + g + 8 h, column 8 j + 2 q + e.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* smem,
+                                                     int lbo, int sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Returns when all but the N newest committed groups of this warpgroup's
+// products have completed (their accumulators written, their shared memory
+// read).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy that wgmma reads through; each writer runs it before the
+// barrier that precedes the product.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared-memory barriers (mbarrier) between the warps that fill a ring
+// slot and those that read it: init (one thread, before a __syncthreads),
+// arrive (one count of the current phase, from the threads for which
+// `pred` holds), and a wait that returns once the phase of the given
+// parity has completed (a fresh barrier's "phase 1" counts as completed,
+// so a first wait on parity 1 passes). The predicate and the wait's loop
+// stay inside the asm: the compiler then sees no divergent branch around
+// the wgmma that follow. The whole warp waits together: the same wait by
+// one thread of a warp, inside a branch, hung on an H100.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, bool pred = true) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(a),
+      "r"((int)pred)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(a),
+      "r"(parity)
+      : "memory");
+}
+
+// mbarrier_init made visible to the async proxy (the TMA's transaction
+// counts); before the __syncthreads that follows the inits.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transactions on bar.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(a),
+               "r"(bytes)
+               : "memory");
+}
+
+// The TMA copy of the box at (c0, c1, c2) of the tensor map `tmap` (a
+// __grid_constant__ kernel parameter) into smem; its bytes complete a
+// transaction count on bar. Parts of the box outside the tensor read as 0.
+__device__ __forceinline__ void tma_load_3d(void* smem, const void* tmap,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(d),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(b)
+      : "memory");
+}
+
+// Pins the registers of d here: volatile asm keeps its order with the
+// wgmma asm around it, so no read of d moves above a wgmma_wait and no
+// other access moves across a product's issue.
+template <int N>
+__device__ __forceinline__ void pin_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128) = a (64 x 16) b (16 x 128) + (accumulate ? d : 0), a and b
+// bf16 MN-major in shared memory (descriptors da, db), float32 d.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 }  // namespace fader

@@ -151,8 +151,10 @@ long long reduce_scratch_floats(int L, int M, int N, int K);
 // operand of AT, B row-major (K, N) at b + l*b_ls, C row-major at c +
 // l*c_ls, both float32. K is split into parts whose partial products go
 // through `scratch` (reduce_scratch_floats) and are added in a fixed
-// order. AT = float: float32 FMA; AT = bf16: the tensor cores, B split into
-// three bf16 pieces (grad_reduce.cu).
+// order. AT = float: the tensor cores, both operands split into three
+// bf16 pieces, where the TMA can describe the call (rows of 16-byte
+// multiples, the seam on a 16-row slab), else float32 FMA; AT = bf16: the
+// tensor cores, B split into three bf16 pieces (grad_reduce.cu).
 template <typename AT>
 cudaError_t gemm_tn(int L, int M, int N, int K, SplitRowsT<AT> a,
                     const float* b, long long b_ls, float* c, long long c_ls,

@@ -143,6 +143,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_stacked_gru_bwd_bf16.restype = I
     lib.fader_decoder_ce_bf16.argtypes = [I] * 4 + [P] * 20 + tail
     lib.fader_decoder_ce_bf16.restype = I
+    lib.fader_gemm_tn.argtypes = ([I] * 5 + [P, LL, I, P, LL, I, P, LL, P,
+                                               LL] + tail)
+    lib.fader_gemm_tn.restype = I
+    lib.fader_reduce_scratch_floats.argtypes = [I] * 4
+    lib.fader_reduce_scratch_floats.restype = LL
     lib.fader_launch_probe.argtypes = [I, I, P]
     lib.fader_launch_probe.restype = I
     lib.fader_decode_scratch_floats.argtypes = [I] * 2

@@ -17,7 +17,8 @@ masses`, GLSR's n_rep=4 copies of B rows and `GLSR_MASK_RANGES`, row
 backward call split by what its kernels do (`chain`: the dh recurrences;
 `head`: the CE or masses head's dlogits; `nn_gemm`: the products off the
 recurrence, dh2_head = dlogits w_out^T and the decoder's cross-layer
-cotangent; `dw_gemm`: dW = h_prev^T dpre with its split-K sum; `scatter`:
+cotangent; `dw_gemm`: dW = h_prev^T dpre with its split-K sum, on the
+tensor cores (`gemm_tn_wg_kernel`) or the CUDA cores; `scatter`:
 the token scatter of dW_in; `sums`: the bias and per-sequence sums;
 `other`: memsets, the weight transposes, autograd's own copies; the
 sub-decoders' chain sums their classes, dprez and db_hh itself), the
@@ -47,7 +48,8 @@ PARTS = {
     "chain": ("gru_bwd_chain",),
     "head": ("ce_head", "mass_head"),
     "nn_gemm": ("gemm_nn",),
-    "dw_gemm": ("gemm_tn", "splitk_sum"),
+    "dw_gemm": ("gemm_tn_wg_kernel", "gemm_tn_kernel", "gemm_tn_tc_kernel",
+                "splitk_sum"),
     "scatter": ("segment_rows",),
     "sums": ("colsum", "sum_over_t"),
 }
