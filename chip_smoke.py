@@ -12,7 +12,10 @@ computes the same function, that call (first the float32 dW GEMM at every
 shape the training cells pass it, `dw_gemm`: the tensor-core kernel
 against the CUDA-core one in turns, both against a float64 product, plain
 TF32 failing the same check, repeats bit-equal; `train/dw_gemm.py`),
-then drives the GM-VAE serving path
+then the training step's global-norm clip on the GM-VAE's and the
+CVAE's gradient trees (`clip_norm`: the two kernels against the plain torch
+ops, repeats bit-equal, device and host ms, the bound, two launches a
+call; `train/clip_norm.py`), then drives the GM-VAE serving path
 (`TransferServer`, random weights from a seed) with 130 mixed requests and
 checks the responses against the plain path. Then the training kernels
 (encoder, sub-decoders, decoder + cross-entropy; forward and backward) are
@@ -642,7 +645,7 @@ def main() -> int:
         VGMIDIDataset, YamahaDataset,
     )
     from music_fader_nets_tpu_torch.ops import (
-        _build, cuda_decode, cuda_decoder, cuda_gru, cuda_stacked,
+        _build, cuda_clip, cuda_decode, cuda_decoder, cuda_gru, cuda_stacked,
     )
     from music_fader_nets_tpu_torch.ops.gru import (
         direction_tokens, gru_init, stack_directions, vocab_pad,
@@ -653,7 +656,7 @@ def main() -> int:
         GLSR_MASK_RANGES,
     )
     from music_fader_nets_tpu_torch.train.bf16_turns import f32_forward_sha1
-    from music_fader_nets_tpu_torch.train import dw_gemm
+    from music_fader_nets_tpu_torch.train import clip_norm, dw_gemm
     from music_fader_nets_tpu_torch.train.bwd_split import kernel_split
     from music_fader_nets_tpu_torch.train.fwd_split import (
         PARTS as FWD_PARTS, SKIP as FWD_SKIP,
@@ -709,6 +712,8 @@ def main() -> int:
             ts.append(s.elapsed_time(e))
         return statistics.median(ts)
 
+    gen_clip = torch.Generator().manual_seed(SEED + 26)
+
     def bound(flops, nbytes):
         t_ops = flops / PEAK_F32_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -726,6 +731,26 @@ def main() -> int:
         emit({"phase": "dw_gemm", **line})
         if not line["ok"]:
             return fail(f"dw_gemm {line['shape']}: {line['failed']}")
+
+    # -------------------------------------------- global-norm clip
+    # the GM-VAE's and the CVAE's gradient trees: the two clip kernels
+    # against the plain torch ops (norm, ulps, the rule's bits, repeats
+    # bit-equal), device and host ms of a call of each, the bound, and the
+    # device launches of a call of each
+    for line in clip_norm.report(reps=50, seed=SEED, dev=dev):
+        grads = clip_norm.draw(clip_norm.tree_shapes(line["tree"]),
+                               clip_norm.NORMS["above"], gen_clip, dev)
+        line["launches"] = device_launches(
+            lambda: cuda_clip.clip_global_norm_(grads))[:2]
+        line["plain_launches"] = device_launches(
+            lambda: cuda_clip.clip_by_global_norm_(grads))[:2]
+        del grads
+        emit({"phase": "clip_norm", **line})
+        if not line["ok"]:
+            return fail(f"clip_norm {line['tree']}: {line['failed']}")
+        if line["launches"] != (2, 0):
+            return fail(f"clip_norm {line['tree']}: a call launched "
+                        f"{line['launches']} (kernels, memsets), not 2")
 
     guard = TokenGuard(cuda_decode)
     cfg = ModelConfig()

@@ -146,6 +146,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fader_gemm_tn.argtypes = ([I] * 5 + [P, LL, I, P, LL, I, P, LL, P,
                                                LL] + tail)
     lib.fader_gemm_tn.restype = I
+    lib.fader_clip_global_norm.argtypes = [I, P, I, P, I, ctypes.c_float, P,
+                                           P]
+    lib.fader_clip_global_norm.restype = I
     lib.fader_reduce_scratch_floats.argtypes = [I] * 4
     lib.fader_reduce_scratch_floats.restype = LL
     lib.fader_launch_probe.argtypes = [I, I, P]

@@ -2,12 +2,14 @@
 `music_fader_nets_tpu/train/trainer.py`).
 
 A step: the loss on the fast parameter layout (`models/fast.py`), its
-backward, the global-norm clip at 1.0 and Adam(lr) (reference
-trainer.py:49,157; `make_optimizer`). Adam steps the fast-layout leaves;
-the parity-only layers (`fast.FROZEN_KEYS`) and the frozen mixture
-logvar tables take no update, as in the JAX package, where their gradients are zero. `state` /
-`load_state` carry a `TrainState` of canonical trees (params, the
-optax-shaped Adam state, the step) out and in: what a checkpoint holds.
+backward, the global-norm clip at 1.0 (two kernels on a GPU,
+`ops/cuda_clip.py`; `clip_path` says which path served) and Adam(lr)
+(reference trainer.py:49,157; `make_optimizer`). Adam steps the
+fast-layout leaves; the parity-only layers (`fast.FROZEN_KEYS`) and the
+frozen mixture logvar tables take no update, as in the JAX package, where
+their gradients are zero. `state` / `load_state` carry a `TrainState` of
+canonical trees (params, the optax-shaped Adam state, the step) out and
+in: what a checkpoint holds.
 
 The objective's random draws are the caller's: `noise_fn(host_step, B,
 loss_fn)`, by default `objectives.draw_noise` (what that objective draws,
@@ -90,7 +92,9 @@ from music_fader_nets_tpu_torch import resolve_device
 from music_fader_nets_tpu_torch.config import ModelConfig
 from music_fader_nets_tpu_torch.data.loader import batch_iterator
 from music_fader_nets_tpu_torch.models import fast as fast_lib
-from music_fader_nets_tpu_torch.ops import cuda_decoder, cuda_gru, cuda_stacked
+from music_fader_nets_tpu_torch.ops import (
+    cuda_clip, cuda_decoder, cuda_gru, cuda_stacked,
+)
 from music_fader_nets_tpu_torch.parallel.collectives import (
     all_gather_model_, all_reduce_mean_,
 )
@@ -134,20 +138,17 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def clip_by_global_norm_(grads, max_norm: float = 1.0) -> torch.Tensor:
-    """optax.clip_by_global_norm: unchanged when the global norm is below
-    `max_norm`, else every gradient becomes g / norm * max_norm. (Not
-    `torch.nn.utils.clip_grad_norm_`, which scales by max_norm / (norm +
-    1e-6) and so differs.) In place; returns the norm."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
-    for g in grads:
-        g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
-    return norm
+def trainable_leaves(fast):
+    """[(path, tensor)] of the leaves of a fast-layout tree that Adam
+    steps, in the Trainer's order (the order of its clip's table too)."""
+    return [(path, t) for path, t in _leaves(fast)
+            if path[0] not in FROZEN_TABLES]
 
 
 class Optimizer(NamedTuple):
     """The `Trainer`'s update, what `make_optimizer` returns: `clip_` the
-    gradients by their global norm at `max_norm` (optax's rule), then step
+    gradients by their global norm at `max_norm` (optax's rule; the two
+    kernels of `ops/cuda_clip.py` for CUDA gradients), then step
     a `torch.optim.Adam` from `adam` at `lr` (optax's defaults: betas
     (0.9, 0.999), eps 1e-8). The two are apart because under a model axis
     the clip reads the whole gradients and Adam steps their slices."""
@@ -158,7 +159,7 @@ class Optimizer(NamedTuple):
         return torch.optim.Adam(tensors, lr=self.lr)
 
     def clip_(self, grads) -> torch.Tensor:
-        return clip_by_global_norm_(grads, self.max_norm)
+        return cuda_clip.clip_global_norm_(grads, self.max_norm)
 
 
 def make_optimizer(cfg: ModelConfig) -> Optimizer:
@@ -197,6 +198,7 @@ class Trainer:
         self._host_step = 0      # batches seen; drives the noise
         self.epoch = 0           # epochs completed (fit, the training CLI)
         self.train_path = None   # "kernel" / "plain-cpu" of the last step
+        self.clip_path = None    # the same of its clip
 
     @property
     def _model_axis(self) -> bool:
@@ -216,8 +218,7 @@ class Trainer:
         if self.mesh is not None:
             shard_params({"fast": self._fast, "frozen": self._frozen},
                          self.mesh)
-        trainable = [(path, t) for path, t in _leaves(self._fast)
-                     if path[0] not in FROZEN_TABLES]
+        trainable = trainable_leaves(self._fast)
         self._trainable_paths = [path for path, _ in trainable]
         self._trainable = [t for _, t in trainable]
         for t in self._trainable:
@@ -420,6 +421,7 @@ class Trainer:
             metrics = self.compute_gradients(loss_fn, batch, eps)
             with torch.no_grad(), SPANS.span(_CLIP, self.step, cpu=True):
                 self._opt.clip_([t.grad for t in self._trainable])
+                self.clip_path = cuda_clip.LAST_CLIP_PATH
                 if self._model_axis:
                     for t, s, spec in zip(self._trainable, self._stepped,
                                           self._specs):

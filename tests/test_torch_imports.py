@@ -137,7 +137,7 @@ def test_kernel_build_is_lazy_and_loud(monkeypatch, tmp_path):
     assert {p.name for p in srcs} == {
         "embed_gru.cu", "decode.cu", "embed_gru_bwd.cu", "decoder_ce.cu",
         "decoder_ce_bwd.cu", "grad_reduce.cu", "stacked_gru.cu",
-        "gru_fwd_chain.cu"}
+        "gru_fwd_chain.cu", "clip_norm.cu"}
     assert {p.name for p in hdrs} == {"gru_tile.cuh", "train_ops.cuh",
                                       "mma_bf16.cuh"}
     assert len(_build._digest()) == 16

@@ -20,7 +20,14 @@ on a repeat, as are the encoder's and the sub-decoders' entries on the same
 chain. The persistent decode kernel holds to the plain decode under the
 near-tie rule at ragged rows, steps and widths (`DECODE_RAGGED`). The
 server's enqueue returns while the stream is still busy, its staged
-batch's tokens and z bit-equal to the same batch sent by pageable copies."""
+batch's tokens and z bit-equal to the same batch sent by pageable copies.
+The global-norm clip's two kernels hold to the plain torch ops on the
+training trees, on a 3-float leaf, a view at an unaligned base and 300
+leaves (past one table): the norm within float32 order noise of a float64
+one, the gradients within 2 ulps of those clipped with the float64 norm
+(the torch ops' float32 sums put their norm an ulp or two off) and with
+the bits of g / norm * max_norm given the kernels' norm, repeats
+bit-equal."""
 import time
 
 import numpy as np
@@ -34,13 +41,14 @@ from music_fader_nets_tpu_torch.models.modules import (
 )
 from music_fader_nets_tpu_torch.models.vae import reg_vae_encode
 from music_fader_nets_tpu_torch.ops import (
-    cuda_decode, cuda_decoder, cuda_gru, cuda_stacked,
+    cuda_clip, cuda_decode, cuda_decoder, cuda_gru, cuda_stacked,
 )
 from music_fader_nets_tpu_torch.ops.gru import (
     direction_tokens, gru_init, stack_directions, vocab_pad,
 )
 from music_fader_nets_tpu_torch.ops.sampling import reparameterize
 from music_fader_nets_tpu_torch.serve.server import TransferServer
+from music_fader_nets_tpu_torch.train import clip_norm
 from music_fader_nets_tpu_torch.utils.checkpoint import tree_to
 
 pytestmark = pytest.mark.cuda
@@ -691,3 +699,67 @@ def test_bf16_decoder_ce_kernels_match_plain(dev, B, T, H):
                 lambda i, *fl: cuda_decoder.decoder_teacher_nll_plain(
                     i, tgt, *fl), tok_t, [t.float() for t in w], dev, 4,
                 cuda_decoder.LAUNCHES, ("decoder_ce", "decoder_ce_bwd"))
+
+
+@pytest.mark.parametrize("family", ["gmvae", "cvae"])
+@pytest.mark.parametrize("norm", [0.1, 50.0])
+def test_clip_kernels_match_plain_on_the_training_trees(dev, family, norm):
+    gen = torch.Generator().manual_seed(26)
+    grads = clip_norm.draw(clip_norm.tree_shapes(family), norm, gen, dev)
+    before = dict(cuda_clip.LAUNCHES)
+    got = clip_norm.compare(grads)
+    assert cuda_clip.LAUNCHES == {k: v + 2 for k, v in before.items()}
+    assert cuda_clip.LAST_CLIP_PATH == "kernel"
+    assert clip_norm.failures(got) == []
+    assert (got["norm"] < 1.0) == (norm < 1.0)
+
+
+@pytest.mark.parametrize("case", ["three_floats_and_unaligned_views",
+                                  "past_one_table"])
+@pytest.mark.parametrize("norm", [0.1, 50.0])
+def test_clip_kernels_ragged_leaves(dev, case, norm):
+    """Leaves cut from one buffer: one float left out of the tree, then a
+    3-float leaf and views at bases 4 bytes past a 16-byte boundary; or
+    300 leaves of 1-40 floats, more than one table holds. The floats
+    outside the tree keep their bits."""
+    gen = torch.Generator().manual_seed(len(case))
+    if case == "past_one_table":
+        skip, cuts = 0, [1 + (7 * i) % 40 for i in range(300)]
+    else:
+        skip, cuts = 1, [3, 4001, 35]
+    n = skip + sum(cuts)
+    tree = slice(skip, n)
+    buf = torch.randn(n + 5, generator=gen).to(dev)
+    buf[tree] *= norm / float(buf[tree].double().norm())
+
+    def leaves(b):
+        return list(torch.split(b[tree], cuts))
+
+    grads, again, want = buf.clone(), buf.clone(), buf.clone()
+    if case == "past_one_table":
+        assert len(cuts) > cuda_clip.TABLE_LEAVES
+    else:
+        assert [g.data_ptr() % 16 for g in leaves(grads)] == [4, 0, 4]
+    before = dict(cuda_clip.LAUNCHES)
+    nk = cuda_clip.clip_global_norm_(leaves(grads), 1.0)
+    nk2 = cuda_clip.clip_global_norm_(leaves(again), 1.0)
+    assert cuda_clip.LAUNCHES == {k: v + 2 for k, v in before.items()}
+    plain = cuda_clip.clip_by_global_norm_(leaves(want), 1.0)
+    exact, ref = clip_norm.reference(leaves(buf), 1.0)
+    assert abs(float(nk) - exact) <= clip_norm.NORM_REL * exact
+    assert abs(float(plain) - exact) <= clip_norm.NORM_REL * exact
+    assert (float(nk) < 1.0) == (norm < 1.0)
+    assert torch.equal(nk, nk2) and torch.equal(grads, again)
+    outside = torch.ones(n + 5, dtype=torch.bool, device=dev)
+    outside[tree] = False
+    assert torch.equal(grads[outside], buf[outside])
+    assert max(clip_norm.ulps(a, b) for a, b in zip(
+        leaves(grads), ref)) <= clip_norm.MAX_ULPS
+    rule = buf if float(nk) < 1.0 else buf / nk
+    assert torch.equal(grads[tree], rule[tree])
+
+
+def test_clip_of_no_gradients_is_zero(dev):
+    before = dict(cuda_clip.LAUNCHES)
+    assert float(cuda_clip.clip_global_norm_([], 1.0)) == 0.0
+    assert cuda_clip.LAUNCHES == before

@@ -39,10 +39,9 @@ from music_fader_nets_tpu_torch.data.loader import batch_iterator
 from music_fader_nets_tpu_torch.losses.elbo import anneal_beta
 from music_fader_nets_tpu_torch.models import fast
 from music_fader_nets_tpu_torch.models.gmvae import init_reg_gmvae
+from music_fader_nets_tpu_torch.ops.cuda_clip import clip_by_global_norm_
 from music_fader_nets_tpu_torch.train.objectives import gmm_loss
-from music_fader_nets_tpu_torch.train.trainer import (
-    Trainer, clip_by_global_norm_,
-)
+from music_fader_nets_tpu_torch.train.trainer import Trainer
 from music_fader_nets_tpu_torch.utils.checkpoint import (
     params_from_numpy, params_to_numpy,
 )
